@@ -14,9 +14,11 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    merges equal the engine run with the plain step functions, heights
    match scipy's, and the launch counters read 1 and n - 1.
 4. Full size: n = 16384 (a 1 GiB float32 matrix) through the same call;
-   wall and device times and peak memory; the first 256 merges equal the
-   plain engine's.  Phases 3 and 4 also set the host's time per merge
-   against the device's (and show that the loop never waits for the card).
+   wall time and peak memory; the first 256 merges equal the plain
+   engine's.  Phases 3 and 4 also read the device's busy time over a
+   second, profiled run of the whole call, and set the host's time per
+   merge against the device's over a window (showing that the loop never
+   waits for the card).
 5. One line ``{"kernels": [...]}`` with each kernel's numbers, the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
@@ -42,6 +44,10 @@ SPLIT_WINDOW = 16              # merges whose host time is set against their dev
 SLEEP_CYCLES = 400_000_000     # ~0.2 s of GPU clock: holds the stream while the host enqueues
 RTOL, ATOL = 1e-4, 1e-5        # height tolerance of the JAX package's kernel tests
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
+KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once a launch
+    "masked_argmin": ("masked_row_min", "first_min_over_rows"),
+    "lw_step": ("lw_step_kernel",),
+}
 
 
 def gpu_line() -> str:
@@ -189,22 +195,57 @@ def read_counters() -> dict:
 
 
 def run_cluster(torch, X):
-    """The main path, timed: wall and device seconds, peak memory, launches."""
+    """The main path: wall seconds, peak memory and launches of one run,
+    then the device's busy time over a second run of the same call."""
     from repro_torch.core import cluster
+
+    def call():
+        res = cluster(X, "complete", algorithm="lw", backend="kernel", keep_inputs=False)
+        torch.cuda.synchronize()
+        return res
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     reset_counters()
     t0 = time.perf_counter()
-    start.record()
-    res = cluster(X, "complete", algorithm="lw", backend="kernel", keep_inputs=False)
-    end.record()
-    end.synchronize()
+    res = call()
     wall = time.perf_counter() - t0
-    launches = read_counters()
-    return res, dict(wall_s=wall, device_s=start.elapsed_time(end) / 1e3,
-                     peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+    stats = dict(wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 launches=read_counters())
+    stats.update(device_busy(torch, call, wall, stats["launches"]))
+    return res, stats
+
+
+def device_busy(torch, call, wall_s: float, launches: dict) -> dict:
+    """Device busy seconds over a whole run of ``call``, summed from the
+    profiler's records of every kernel, copy and fill on the card (one
+    stream, so they do not overlap); the idle share is the rest of the
+    unprofiled run's wall time.  The profiler must have seen every launch
+    that the counters saw."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        profiled_wall = time.perf_counter() - t0
+    busy_us = 0.0
+    kernel_us, kernel_n = dict.fromkeys(KERNEL_SYMBOLS, 0.0), dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        busy_us += us
+        for name, symbols in KERNEL_SYMBOLS.items():
+            if any(sym in e.name for sym in symbols):
+                kernel_us[name] += us
+                kernel_n[name] += symbols[0] in e.name
+    if kernel_n != launches:
+        raise AssertionError(f"the profiler saw launches {kernel_n}, the counters {launches}")
+    return dict(device_busy_s=busy_us / 1e6, idle_share=1 - busy_us / 1e6 / wall_s,
+                profiled_wall_s=profiled_wall,
+                kernel_ms_mean={k: kernel_us[k] / 1e3 / max(kernel_n[k], 1) for k in kernel_us},
+                kernel_busy_share={k: kernel_us[k] / busy_us for k in kernel_us})
 
 
 def host_device_split(torch, X) -> dict:
@@ -283,6 +324,21 @@ def phase_full(torch, np) -> dict:
     return stats
 
 
+def summary(kernels: dict, paper: dict, full: dict) -> str:
+    """The numbers a reader checks first, on one line near the end."""
+    def g(x):
+        return f"{x:.6g}"
+
+    parts = [f"{name} n={n} ms {g(r['ms'])} bound {g(r['bound_ms'])} plain {g(r['plain_ms'])}"
+             for (name, n), r in kernels.items()]
+    for label, s in (("paper", paper), ("full", full)):
+        parts.append(f"{label} wall_s {g(s['wall_s'])} busy_s {g(s['device_busy_s'])} "
+                     f"idle {g(s['idle_share'])} host/device ms per merge "
+                     f"{g(s['host_ms_per_merge'])}/{g(s['device_ms_per_merge'])} "
+                     f"peak_gib {g(s['peak_gib'])}")
+    return "summary: " + "; ".join(parts)
+
+
 def main() -> int:
     import torch
 
@@ -334,6 +390,7 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None, n=FULL_N,
         ))
+    print(summary(kernels, paper, full))
     print(json.dumps({"kernels": inventory}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -194,9 +194,8 @@ def cluster(
     ``stop_at_k`` stops at ``k`` clusters; ``keep_inputs`` stores the
     input on the result (for ``exemplars``/``centroids``).
     """
-    from repro_torch.kernels.ops import check_knobs, lance_williams_kernelized
+    from repro_torch.kernels.ops import lance_williams_kernelized
 
-    check_knobs(method, variant, distance_threshold, compaction)
     if algorithm in _NOT_PORTED_ALGORITHMS:
         raise NotImplementedError(
             f"algorithm={algorithm!r} is not ported yet: ROADMAP.md "

@@ -143,18 +143,18 @@ def make_step(ops: StepOps) -> Callable[..., LWState]:
     return step
 
 
-def run_merge_loop(ops: StepOps, state: LWState, n_steps: int, *, start: int = 0) -> LWState:
-    """Seed the candidate, then run merge trips ``[start, n_steps)``.
+def run_merge_loop(ops: StepOps, state: LWState, n_steps: int) -> LWState:
+    """Seed the candidate, then run ``n_steps`` merge trips.
 
     A fixed trip count: ``stop_at_k`` shrinks it on the host, and no trip
     waits for the device.  (The ``distance_threshold`` exit of the JAX
     engine is not ported yet.)
     """
-    if n_steps <= start:   # stop_at_k >= n: nothing to merge
+    if n_steps <= 0:   # stop_at_k >= n: nothing to merge
         return state
     step = make_step(ops)
     state = ops.seed(state)
-    for t in range(start, n_steps):
+    for t in range(n_steps):
         state = step(state, t)
     return state
 

@@ -71,12 +71,12 @@ def _finish(name: str, started) -> str:
     return log
 
 
-def build_all(names=KERNELS) -> dict[str, str]:
+def build_all() -> dict[str, str]:
     """Compile every kernel that is not built yet, one ``nvcc`` per source,
     all started together.  Returns each compiler log (empty when the
     library was already there)."""
     with _lock:
-        started = {name: _start(name) for name in names}
+        started = {name: _start(name) for name in KERNELS}
         return {name: _finish(name, s) for name, s in started.items()}
 
 

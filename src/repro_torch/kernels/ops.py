@@ -21,7 +21,7 @@ from repro_torch.core.engine import (
 from repro_torch.core.linkage import METHODS
 
 
-def check_knobs(method: str, variant: str, distance_threshold, compaction) -> None:
+def _check(method: str, variant: str, distance_threshold, compaction) -> None:
     """Validate the engine knobs; those the port does not run yet raise
     ``NotImplementedError`` naming the ROADMAP.md item."""
     if method not in METHODS:
@@ -37,10 +37,10 @@ def check_knobs(method: str, variant: str, distance_threshold, compaction) -> No
         raise NotImplementedError(
             "distance_threshold (a device-side loop exit) is not ported yet: ROADMAP.md A1.1"
         )
-    if compaction in (True, "on"):
+    if compaction is True:
         raise NotImplementedError("compaction is not ported yet: ROADMAP.md A1.3")
-    if compaction not in (False, None, "off", "auto"):
-        raise ValueError(f"compaction must be a bool or 'auto', got {compaction!r}")
+    if compaction is not False and compaction != "auto":
+        raise ValueError(f"compaction must be 'auto', False or True, got {compaction!r}")
 
 
 def lance_williams_kernelized(
@@ -62,7 +62,7 @@ def lance_williams_kernelized(
     tolerance.  ``compaction="auto"`` runs without compaction: the merges
     are the same either way.
     """
-    check_knobs(method, variant, distance_threshold, compaction)
+    _check(method, variant, distance_threshold, compaction)
     dev = resolve_device(device)
     D = symmetrize(torch.as_tensor(D, dtype=torch.float32, device=dev))
     n = D.shape[0]

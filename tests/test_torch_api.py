@@ -54,6 +54,13 @@ def test_stop_at_k_result(rng):
     np.testing.assert_array_equal(got.labels(6), want.labels(6))
 
 
+def test_compaction_off_equals_auto(rng):
+    D = random_distance_matrix(rng, 30)
+    auto = cluster(D, "average", device="cpu")
+    np.testing.assert_array_equal(cluster(D, "average", compaction=False, device="cpu").merges,
+                                  auto.merges)
+
+
 @pytest.mark.parametrize("metric", ("euclidean", "sqeuclidean"))
 def test_build_distance_matrix_matches_reference(metric, rng):
     X = rng.normal(size=(50, 7)).astype(np.float32)
@@ -78,7 +85,8 @@ def test_knobs_not_ported_raise(knobs):
 
 @pytest.mark.parametrize("knobs", [dict(method="nope"), dict(variant="nope"),
                                    dict(algorithm="nope"), dict(backend="nope"),
-                                   dict(compaction="sometimes"), dict(metric="nope")])
+                                   dict(compaction="sometimes"), dict(compaction="on"),
+                                   dict(compaction=None), dict(metric="nope")])
 def test_bad_knobs_raise_value_error(knobs):
     X = np.zeros((6, 3), np.float32)
     with pytest.raises(ValueError):
