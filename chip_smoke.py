@@ -7,20 +7,42 @@ Phases, in order; a failing phase raises and the script exits non-zero:
 
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, started together) and print the card's name and power limit.
-2. Hold each kernel against its plain torch version on the card, on a
-   mid-run state with dead slots at n = 1968 and n = 16384, and time both.
+2. Hold each kernel against its plain torch version on the card, and time
+   both: the LW kernels on a mid-run state with dead slots at n = 1968 and
+   n = 16384, the row kernel at (m, d) = (1968, 64) and (32768, 128), with
+   the host's time to enqueue one call of each.  A kernel whose operands
+   fit in half the L2 is timed on L2-resident data, as its caller finds
+   them; its bound then takes the L2 read rate measured here (two torch
+   reductions over a 16 MiB buffer), else the HBM rate.
 3. The paper's configuration: n = 1968 points in 64 dimensions, complete
    linkage, through ``cluster(..., algorithm="lw", backend="kernel")``;
    merges equal the engine run with the plain step functions, heights
-   match scipy's, and the launch counters read 1 and n - 1.
+   match scipy's, and the launch counters read 1 and n - 1.  Then
+   ``cluster(X, "complete")`` with default knobs resolves to the NN chain,
+   whose dendrogram equals the LW loop's.
 4. Full size: n = 16384 (a 1 GiB float32 matrix) through the same call;
    wall time and peak memory; the first 256 merges equal the plain
    engine's.  Phases 3 and 4 also read the device's busy time over a
    second, profiled run of the whole call, and set the host's time per
    merge against the device's over a window (showing that the loop never
    waits for the card).
-5. One line ``{"kernels": [...]}`` with each kernel's numbers, the card's
+5. The dense NN chain on phase 4's input (``cluster(X, "complete")``,
+   default knobs): its dendrogram equals phase 4's; wall, trips, busy
+   time and idle share.  Phases 5 and 6 read the busy time and the trip
+   count over a profiled run of the chain engine alone.
+6. The matrix-free chain: ``cluster(X, "ward")`` with default knobs on
+   n = 32768 points in 128 dimensions (the matrix would be 4 GiB): no
+   matrix kept, one row-kernel launch a trip, peak memory under
+   0.25 GiB, and the dendrogram of the same chain built with the plain
+   row on the card.  The chain loop runs with the plain row and with the
+   kernel in turn (plain, kernel, kernel, plain), through one entry.  Then
+   at n = 4096 the matrix-free ward run against the LW loop on the kernel
+   backend.
+7. One line ``{"kernels": [...]}`` with each kernel's numbers, the card's
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+
+Every path is driven with the launch counters set to 0 just before it
+and read just after.
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.
 """
@@ -37,8 +59,15 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+L2_PROBE_MIB, L2_PROBE_REPS = 16, 16   # the L2 probe reads a 16 MiB buffer 16 times a launch
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 PAPER_N, FULL_N, DIM = 1968, 16384, 64
+CHAIN_N, CHAIN_DIM = 32768, 128  # matrix-free run: 16 MiB of summaries, no 4 GiB matrix
+CROSS_N = 4096                 # matrix-free ward held against the LW loop
+ROW_SHAPES = ((PAPER_N, DIM), (CHAIN_N, CHAIN_DIM))
+PEAK_LIMIT_GIB = 0.25          # the matrix-free run must stay O(n d)
+PROFILER_MISS_SHARE = 1e-3     # kernel records the profiler may drop in a whole run ...
+PROFILER_MISS_MIN = 50_000     # ... of this many launches or more (fewer: none)
 PREFIX = 256                   # merges of the full-size run held against the plain engine
 SPLIT_WINDOW = 16              # merges whose host time is set against their device time
 SLEEP_CYCLES = 400_000_000     # ~0.2 s of GPU clock: holds the stream while the host enqueues
@@ -47,7 +76,9 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once a launch
     "masked_argmin": ("masked_row_min", "first_min_over_rows"),
     "lw_step": ("lw_step_kernel",),
+    "row_sq_euclidean": ("row_sq_kernel",),
 }
+NO_LAUNCHES = dict.fromkeys(KERNEL_SYMBOLS, 0)
 
 
 def gpu_line() -> str:
@@ -74,10 +105,64 @@ def time_ms(torch, fn, reps: int = 20, batches: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """The least ms the card could take, and what bounds it."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host µs to enqueue one call of ``fn``, with a sleep kernel holding
+    the stream so that no call waits for the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def l2_read_rate(torch) -> float:
+    """The highest rate, bytes/s, at which two torch reductions read a
+    16 MiB buffer that stays in the 50 MB L2: one reads it L2_PROBE_REPS
+    times in a launch (a stride-0 view), one once.  A rate the card
+    reaches, so its L2 peak is at least this."""
+    buf = torch.rand(L2_PROBE_MIB * 2**18, device="cuda")
+    reps = buf.expand(L2_PROBE_REPS, -1)
+    n_bytes = buf.numel() * 4
+    return max(L2_PROBE_REPS * n_bytes / (time_ms(torch, lambda: reps.sum(1)) * 1e-3),
+               n_bytes / (time_ms(torch, lambda: buf.sum()) * 1e-3))
+
+
+def bound(torch, n_bytes: float, n_ops: float, resident_bytes: float,
+          l2_rate: float) -> dict:
+    """The least ms the card could take, what bounds it, and the byte rate
+    taken: the L2 read rate when the ``resident_bytes`` that a timed run
+    keeps touching fit in half the L2 (they stay there between launches),
+    else the HBM rate."""
+    in_l2 = resident_bytes <= torch.cuda.get_device_properties(0).L2_cache_size / 2
+    rate = l2_rate if in_l2 else HBM_BYTES_PER_S
+    t_bytes, t_ops = n_bytes / rate, n_ops / FP32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes_per_s=rate, hbm_bound_ms=max(n_bytes / HBM_BYTES_PER_S, t_ops) * 1e3)
+
+
+def check_equivalent(np, got, want, n: int, what: str) -> None:
+    """The two merge lists describe the same dendrogram (clusters equal,
+    heights within RTOL/ATOL); on failure, print the clusters that differ
+    with their heights in both lists before raising."""
+    from repro_torch.core.dendrogram import merge_leafsets, merges_equivalent
+
+    if merges_equivalent(got, want, n=n, rtol=RTOL, atol=ATOL):
+        return
+    hg = dict(zip(merge_leafsets(got, n), np.asarray(got)[:, 2]))
+    hw = dict(zip(merge_leafsets(want, n), np.asarray(want)[:, 2]))
+    only_g = sorted((float(hg[c]), len(c), min(c)) for c in set(hg) - set(hw))
+    only_w = sorted((float(hw[c]), len(c), min(c)) for c in set(hw) - set(hg))
+    worst = max((abs(float(hg[c]) - float(hw[c])), float(hg[c]), float(hw[c]))
+                for c in set(hg) & set(hw))
+    print(f"{what}: {len(only_g)} clusters only in the first list, {len(only_w)} only in the "
+          f"second; (height, size, slot), lowest first: {only_g[:4]} vs {only_w[:4]}; "
+          f"largest height gap on shared clusters (gap, first, second): {worst}", flush=True)
+    raise AssertionError(f"{what}: the dendrograms differ")
 
 
 def check_merges(np, got, want, what: str) -> None:
@@ -107,7 +192,7 @@ def mid_run_state(torch, n: int, squared: bool, seed: int):
     return D, alive, sizes.to(torch.float32), min(r, c), max(r, c), v
 
 
-def phase_kernels(torch, n: int) -> dict:
+def phase_kernels(torch, n: int, l2_rate: float) -> dict:
     """Each kernel against its plain version at size n; times and bounds."""
     from repro_torch.kernels import lw_step, minscan
 
@@ -120,13 +205,12 @@ def phase_kernels(torch, n: int) -> dict:
         raise AssertionError(f"masked_argmin n={n}: kernel {(float(v), int(flat))} "
                              f"!= plain {(float(vp), int(flatp))}")
     # read the live submatrix and alive, write one value and one index;
-    # one compare a live cell
-    bound_ms, bound_by = bound(4 * live * live + n + 12, live * live)
+    # one compare a live cell; the timed launches keep touching D
     out["masked_argmin"] = dict(
         n=n, live=live, max_abs_err=abs(float(v) - float(vp)),
         ms=time_ms(torch, lambda: minscan.masked_argmin(D, alive)),
         plain_ms=time_ms(torch, lambda: minscan.masked_argmin_plain(D, alive)),
-        bound_ms=bound_ms, bound_by=bound_by,
+        **bound(torch, 4 * live * live + n + 12, live * live, 4 * n * n, l2_rate),
     )
 
     for method in ("complete", "ward"):
@@ -155,16 +239,41 @@ def phase_kernels(torch, n: int) -> dict:
         # read the live submatrix, write row and column i, read the two rows,
         # sizes and alive, write rmin and rarg; a compare and a select a live
         # cell, about a dozen operations for the recurrence of each lane
-        bound_ms, bound_by = bound(4 * live_next * live_next + 8 * live_next + 25 * n,
-                                   2 * live_next * live_next + 12 * n)
         out[f"lw_step/{method}"] = dict(
             n=n, live=live_next, max_abs_err=err,
             ms=time_ms(torch, lambda: lw_step.lw_step(*kargs)),
             plain_ms=time_ms(torch, lambda: lw_step.lw_step_plain(*pargs)),
-            bound_ms=bound_ms, bound_by=bound_by,
+            **bound(torch, 4 * live_next * live_next + 8 * live_next + 25 * n,
+                    2 * live_next * live_next + 12 * n, 4 * n * n, l2_rate),
         )
         del Dk, Dp, kargs, pargs
     return out
+
+
+def phase_row(torch, m: int, d: int, l2_rate: float) -> dict:
+    """The row kernel against its plain version at (m, d), with the time
+    of the one PyTorch call that gives the same row (``cdist``, which also
+    takes the square root), and each one's host time to enqueue a call."""
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.kernels import pairwise
+
+    Y = torch.as_tensor(gaussian_mixture(seed=3, n=m, dim=d, return_labels=False),
+                        dtype=torch.float32, device="cuda")
+    x = Y[m // 3]
+    got = pairwise.row_sq_euclidean(x, Y)
+    want = pairwise.row_sq_euclidean_plain(x, Y)
+    torch.cuda.synchronize()
+    if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+        raise AssertionError(f"row_sq_euclidean m={m} d={d}: kernel differs from plain")
+    # read Y and x once, write the row; a subtract, a multiply and an add an element
+    n_bytes = 4 * (m * d + m + d)
+    return dict(m=m, d=d, max_abs_err=float((got - want).abs().max()),
+                ms=time_ms(torch, lambda: pairwise.row_sq_euclidean(x, Y)),
+                plain_ms=time_ms(torch, lambda: pairwise.row_sq_euclidean_plain(x, Y)),
+                library_ms=time_ms(torch, lambda: torch.cdist(x[None], Y)),
+                host_us=host_us(torch, lambda: pairwise.row_sq_euclidean(x, Y)),
+                plain_host_us=host_us(torch, lambda: pairwise.row_sq_euclidean_plain(x, Y)),
+                **bound(torch, n_bytes, 3 * m * d, n_bytes, l2_rate))
 
 
 def plain_engine_merges(torch, X, method: str, n_steps: int):
@@ -182,70 +291,104 @@ def plain_engine_merges(torch, X, method: str, n_steps: int):
 
 
 def reset_counters() -> None:
-    from repro_torch.kernels import lw_step, minscan
+    from repro_torch.kernels import lw_step, minscan, pairwise
 
     minscan.masked_argmin.launches = 0
     lw_step.lw_step.launches = 0
+    pairwise.row_sq_euclidean.launches = 0
 
 
 def read_counters() -> dict:
-    from repro_torch.kernels import lw_step, minscan
+    from repro_torch.kernels import lw_step, minscan, pairwise
 
-    return {"masked_argmin": minscan.masked_argmin.launches, "lw_step": lw_step.lw_step.launches}
+    return {"masked_argmin": minscan.masked_argmin.launches, "lw_step": lw_step.lw_step.launches,
+            "row_sq_euclidean": pairwise.row_sq_euclidean.launches}
 
 
-def run_cluster(torch, X):
-    """The main path: wall seconds, peak memory and launches of one run,
-    then the device's busy time over a second run of the same call."""
-    from repro_torch.core import cluster
+def check_launches(got: dict, want: dict, what: str) -> None:
+    if got != {**NO_LAUNCHES, **want}:
+        raise AssertionError(f"{what}: launches {got}, want {want} and no others")
 
-    def call():
-        res = cluster(X, "complete", algorithm="lw", backend="kernel", keep_inputs=False)
-        torch.cuda.synchronize()
-        return res
 
+def timed(torch, call):
+    """One run of ``call`` with the counters set to 0 just before it: wall
+    seconds, peak memory and launches."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     t0 = time.perf_counter()
     res = call()
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    stats = dict(wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                 launches=read_counters())
-    stats.update(device_busy(torch, call, wall, stats["launches"]))
+    return res, dict(wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     launches=read_counters())
+
+
+def run_cluster(torch, X):
+    """The LW loop on the kernel backend, as phases 3 and 4 drive it:
+    :func:`timed`, then the device's busy time over a second run of the
+    same call."""
+    from repro_torch.core import cluster
+
+    def call():
+        return cluster(X, "complete", algorithm="lw", backend="kernel", keep_inputs=False)
+
+    res, stats = timed(torch, call)
+    stats.update(device_busy(torch, call, stats["wall_s"], stats["launches"])[1])
     return res, stats
 
 
-def device_busy(torch, call, wall_s: float, launches: dict) -> dict:
+def per_trip(stats: dict, trips: int) -> dict:
+    """A chain run's time per trip: each trip reads one small tensor back,
+    so the host waits for the card once a trip; the host's share is the
+    wall the device spends idle."""
+    wall, busy = stats["wall_s"], stats["device_busy_s"]
+    return dict(trips=trips, ms_per_trip=wall / trips * 1e3,
+                device_ms_per_trip=busy / trips * 1e3,
+                host_ms_per_trip=(wall - busy) / trips * 1e3)
+
+
+def device_busy(torch, call, wall_s: float, launches: dict):
     """Device busy seconds over a whole run of ``call``, summed from the
     profiler's records of every kernel, copy and fill on the card (one
     stream, so they do not overlap); the idle share is the rest of the
-    unprofiled run's wall time.  The profiler must have seen every launch
-    that the counters saw."""
+    unprofiled run's wall time.  The profiler must have seen the launches
+    that the counters saw: none more, and none fewer but in a run of
+    PROFILER_MISS_MIN launches or more, where it may miss
+    PROFILER_MISS_SHARE of them (CUPTI dropped a few of ~98k records;
+    misses are reported as ``profiler_missed``).  Returns what ``call``
+    returned, and the numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        call()
+        res = call()
+        torch.cuda.synchronize()
         profiled_wall = time.perf_counter() - t0
-    busy_us = 0.0
-    kernel_us, kernel_n = dict.fromkeys(KERNEL_SYMBOLS, 0.0), dict.fromkeys(KERNEL_SYMBOLS, 0)
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    busy_ns = 0
+    kernel_ns, kernel_n = dict.fromkeys(KERNEL_SYMBOLS, 0), dict.fromkeys(KERNEL_SYMBOLS, 0)
+    # the raw records: building prof.events() costs ~70 us a record
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        us = e.time_range.elapsed_us()
-        busy_us += us
-        for name, symbols in KERNEL_SYMBOLS.items():
-            if any(sym in e.name for sym in symbols):
-                kernel_us[name] += us
-                kernel_n[name] += symbols[0] in e.name
-    if kernel_n != launches:
+        ns, name = e.duration_ns(), e.name()
+        busy_ns += ns
+        for kernel, symbols in KERNEL_SYMBOLS.items():
+            if any(sym in name for sym in symbols):
+                kernel_ns[kernel] += ns
+                kernel_n[kernel] += symbols[0] in name
+    missed = {k: launches[k] - kernel_n[k] for k in kernel_n}
+    allowed = {k: PROFILER_MISS_SHARE * n if n >= PROFILER_MISS_MIN else 0
+               for k, n in launches.items()}
+    if any(m < 0 or m > allowed[k] for k, m in missed.items()):
         raise AssertionError(f"the profiler saw launches {kernel_n}, the counters {launches}")
-    return dict(device_busy_s=busy_us / 1e6, idle_share=1 - busy_us / 1e6 / wall_s,
-                profiled_wall_s=profiled_wall,
-                kernel_ms_mean={k: kernel_us[k] / 1e3 / max(kernel_n[k], 1) for k in kernel_us},
-                kernel_busy_share={k: kernel_us[k] / busy_us for k in kernel_us})
+    busy_s = busy_ns / 1e9
+    return res, dict(device_busy_s=busy_s, idle_share=1 - busy_s / wall_s,
+                     profiled_wall_s=profiled_wall, profiler_missed=missed,
+                     kernel_ms_mean={k: kernel_ns[k] / 1e6 / max(kernel_n[k], 1)
+                                     for k in kernel_ns},
+                     kernel_busy_share={k: kernel_ns[k] / busy_ns for k in kernel_ns})
 
 
 def host_device_split(torch, X) -> dict:
@@ -294,14 +437,23 @@ def phase_paper(torch, np) -> dict:
     n = PAPER_N
     X = gaussian_mixture(seed=0, n=n, dim=DIM, return_labels=False)
     res, stats = run_cluster(torch, X)
-    if stats["launches"] != {"masked_argmin": 1, "lw_step": n - 1}:
-        raise AssertionError(f"paper run launches {stats['launches']}, want 1 and {n - 1}")
+    check_launches(stats["launches"], {"masked_argmin": 1, "lw_step": n - 1}, "paper run")
     validate_merges(res.merges, n=n)
     check_merges(np, res.merges, plain_engine_merges(torch, X, "complete", n - 1),
                  "paper run vs plain engine")
     want = np.sort(sch.linkage(X.astype(np.float64), "complete")[:, 2])
     np.testing.assert_allclose(np.sort(res.heights()), want, rtol=RTOL, err_msg="vs scipy")
     stats.update(host_device_split(torch, X))
+
+    # the default knobs: the dense NN chain, the same dendrogram
+    from repro_torch.core import cluster
+
+    chain, chain_stats = timed(torch, lambda: cluster(X, "complete"))
+    stats["chain_wall_s"] = chain_stats["wall_s"]
+    check_launches(chain_stats["launches"], {}, "paper chain run")
+    if (chain.algorithm, chain.backend) != ("nnchain", "serial"):
+        raise AssertionError(f"default knobs ran {chain.algorithm}/{chain.backend}, want nnchain")
+    check_equivalent(np, chain.merges, res.merges, n, "paper chain vs LW loop")
     return stats
 
 
@@ -312,8 +464,7 @@ def phase_full(torch, np) -> dict:
     n = FULL_N
     X = gaussian_mixture(seed=0, n=n, dim=DIM, return_labels=False)
     res, stats = run_cluster(torch, X)
-    if stats["launches"] != {"masked_argmin": 1, "lw_step": n - 1}:
-        raise AssertionError(f"full run launches {stats['launches']}, want 1 and {n - 1}")
+    check_launches(stats["launches"], {"masked_argmin": 1, "lw_step": n - 1}, "full run")
     validate_merges(res.merges, n=n)
     if not is_monotone(res.merges):
         raise AssertionError("complete-linkage heights are not monotone")
@@ -321,10 +472,118 @@ def phase_full(torch, np) -> dict:
                  f"first {PREFIX} merges vs plain engine")
 
     stats.update(host_device_split(torch, X))
+    return X, res.merges, stats
+
+
+def phase_dense_chain(torch, np, X, lw_merges) -> dict:
+    """``cluster(X, "complete")`` with default knobs at n = 16384: the dense
+    chain, held against phase 4's LW merges."""
+    from repro_torch.core import cluster
+    from repro_torch.core.api import build_distance_matrix
+    from repro_torch.core.dendrogram import validate_merges
+    from repro_torch.core.nnchain import nn_chain
+
+    n = X.shape[0]
+    res, stats = timed(torch, lambda: cluster(X, "complete"))
+    check_launches(stats["launches"], {}, "dense chain run")
+    if (res.algorithm, res.backend) != ("nnchain", "serial") or res.distances is None:
+        raise AssertionError(f"default knobs ran {res.algorithm}/{res.backend}, want the dense chain")
+    validate_merges(res.merges, n=n)
+    check_equivalent(np, res.merges, lw_merges, n, f"dense chain vs LW loop n={n}")
+    del res
+    # busy time and trips: the chain alone, profiled, on the same matrix
+    # (the distance build it leaves out is one matrix product)
+    D = build_distance_matrix(X, "euclidean")
+    chain, busy = device_busy(torch, lambda: nn_chain(D, "complete"), stats["wall_s"], NO_LAUNCHES)
+    if chain.n_merges != n - 1:
+        raise AssertionError(f"dense chain recorded {chain.n_merges} merges, want {n - 1}")
+    stats.update(busy)
+    stats.update(per_trip(stats, chain.iters))
     return stats
 
 
-def summary(kernels: dict, paper: dict, full: dict) -> str:
+def points_chain(torch, X, method: str, row_sq):
+    """The matrix-free chain loop on the card, its row built by ``row_sq``."""
+    from repro_torch.core import nnchain
+
+    W = torch.as_tensor(X, dtype=torch.float32, device="cuda").clone()
+    n = W.shape[0]
+    state = nnchain._init_state((W, torch.zeros(n, device="cuda")), n, "cuda")
+    ops = nnchain._points_nnchain_ops(method, row_sq)
+    return nnchain._chain_loop(ops, state, n - 1)
+
+
+def phase_points_chain(torch, np) -> dict:
+    """``cluster(X, "ward")`` with default knobs at n = 32768, d = 128."""
+    from repro_torch.core import cluster
+    from repro_torch.core.dendrogram import canonical_order, is_monotone, validate_merges
+    from repro_torch.core.nnchain import nn_chain_from_points
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.kernels.pairwise import row_sq_euclidean, row_sq_euclidean_plain
+
+    n = CHAIN_N
+    X = gaussian_mixture(seed=0, n=n, dim=CHAIN_DIM, return_labels=False)
+    res, stats = timed(torch, lambda: cluster(X, "ward"))
+    if (res.algorithm, res.backend, res.distances) != ("nnchain", "serial", None):
+        raise AssertionError(f"default knobs ran {res.algorithm}/{res.backend} with distances "
+                             f"{type(res.distances)}, want the matrix-free chain")
+    if stats["peak_gib"] >= PEAK_LIMIT_GIB:
+        raise AssertionError(f"matrix-free peak memory {stats['peak_gib']:.4f} GiB, "
+                             f"limit {PEAK_LIMIT_GIB} GiB")
+    validate_merges(res.merges, n=n)
+    if not is_monotone(res.merges):
+        raise AssertionError("ward heights are not monotone")
+
+    # busy time and trips: the chain alone, profiled (cluster() adds only
+    # the upload of the points to it)
+    reset_counters()
+    chain, busy = device_busy(torch, lambda: nn_chain_from_points(X, "ward"), stats["wall_s"],
+                              stats["launches"])
+    check_launches(read_counters(), {"row_sq_euclidean": chain.iters}, "matrix-free chain")
+    check_launches(stats["launches"], {"row_sq_euclidean": chain.iters}, "matrix-free cluster run")
+    stats.update(busy)
+    stats.update(per_trip(stats, chain.iters))
+
+    # the same loop with the plain row and with the kernel, in turn
+    rows = {"plain": row_sq_euclidean_plain, "kernel": row_sq_euclidean}
+    stats["row_ab_wall_s"] = []
+    for name in ("plain", "kernel", "kernel", "plain"):
+        run, s = timed(torch, lambda: points_chain(torch, X, "ward", rows[name]))
+        check_launches(s["launches"], {"row_sq_euclidean": run.iters} if name == "kernel" else {},
+                       f"{name}-row chain loop")
+        if run.iters != chain.iters:
+            raise AssertionError(f"{name}-row chain loop took {run.iters} trips, "
+                                 f"want {chain.iters}")
+        stats["row_ab_wall_s"].append([name, s["wall_s"]])
+        if name == "plain":
+            plain = run
+    check_equivalent(np, res.merges, canonical_order(plain.merges.cpu().numpy(), n=n), n,
+                     f"matrix-free chain vs plain-row chain n={n}")
+    return stats
+
+
+def phase_cross(torch, np) -> dict:
+    """At n = 4096, d = 128: the matrix-free ward chain against the LW loop
+    on the kernel backend (Gram-form matrix) — two engines, one dendrogram."""
+    from repro_torch.core import cluster
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    n = CROSS_N
+    X = gaussian_mixture(seed=0, n=n, dim=CHAIN_DIM, return_labels=False)
+    chain, chain_stats = timed(torch, lambda: cluster(X, "ward"))
+    trips = chain_stats["launches"]["row_sq_euclidean"]
+    if (chain.algorithm, chain.distances) != ("nnchain", None) or not trips:
+        raise AssertionError(f"n={n} ward ran {chain.algorithm}, launches {chain_stats['launches']}")
+    check_launches(chain_stats["launches"], {"row_sq_euclidean": trips}, f"n={n} chain")
+    lw, lw_stats = timed(torch, lambda: cluster(X, "ward", algorithm="lw", backend="kernel",
+                                                keep_inputs=False))
+    check_launches(lw_stats["launches"], {"masked_argmin": 1, "lw_step": n - 1}, f"n={n} LW run")
+    check_equivalent(np, chain.merges, lw.merges, n, f"matrix-free chain vs LW loop n={n}")
+    return dict(n=n, chain_wall_s=chain_stats["wall_s"], chain_trips=trips,
+                lw_wall_s=lw_stats["wall_s"])
+
+
+def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict) -> str:
     """The numbers a reader checks first, on one line near the end."""
     def g(x):
         return f"{x:.6g}"
@@ -336,7 +595,22 @@ def summary(kernels: dict, paper: dict, full: dict) -> str:
                      f"idle {g(s['idle_share'])} host/device ms per merge "
                      f"{g(s['host_ms_per_merge'])}/{g(s['device_ms_per_merge'])} "
                      f"peak_gib {g(s['peak_gib'])}")
+    for label, s in (("dense chain", dense), ("matrix-free chain", points)):
+        parts.append(f"{label} wall_s {g(s['wall_s'])} trips {s['trips']} busy_s "
+                     f"{g(s['device_busy_s'])} idle {g(s['idle_share'])} host/device ms per trip "
+                     f"{g(s['host_ms_per_trip'])}/{g(s['device_ms_per_trip'])} "
+                     f"peak_gib {g(s['peak_gib'])}")
+    parts.append("matrix-free chain loop wall_s by row " +
+                 " ".join(f"{name} {g(wall)}" for name, wall in points["row_ab_wall_s"]))
     return "summary: " + "; ".join(parts)
+
+
+T0 = time.perf_counter()
+
+
+def say(line: str) -> None:
+    """Print one phase's line with the seconds since the script started."""
+    print(f"[{time.perf_counter() - T0:.1f} s] {line}", flush=True)
 
 
 def main() -> int:
@@ -358,39 +632,65 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
     card = gpu_line()
-    print(f"phase 1 build: {build_s:.2f} s; torch {torch.__version__} cuda {torch.version.cuda}; "
-          f"{torch.cuda.get_device_name(0)}; {card}", flush=True)
+    say(f"phase 1 build: {build_s:.2f} s; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"{torch.cuda.get_device_name(0)}; {card}")
 
     # 2. kernels against their plain versions
+    l2_rate = l2_read_rate(torch)
+    say(f"phase 2 L2 read rate: {l2_rate:.6g} bytes/s; L2 "
+        f"{torch.cuda.get_device_properties(0).L2_cache_size} bytes")
     kernels = {}
     for n in (PAPER_N, FULL_N):
-        for name, row in phase_kernels(torch, n).items():
-            print(f"phase 2 {name} n={n}: " + json.dumps(row), flush=True)
+        for name, row in phase_kernels(torch, n, l2_rate).items():
+            say(f"phase 2 {name} n={n}: " + json.dumps(row))
             kernels[(name, n)] = row
         torch.cuda.empty_cache()
+    for m, d in ROW_SHAPES:
+        row = phase_row(torch, m, d, l2_rate)
+        say(f"phase 2 row_sq_euclidean m={m} d={d}: " + json.dumps(row))
+        kernels[("row_sq_euclidean", m)] = row
+    torch.cuda.empty_cache()
 
     # 3. the paper's configuration
     paper = phase_paper(torch, np)
-    print("phase 3 paper n=1968 complete: " + json.dumps(paper), flush=True)
+    say(f"phase 3 paper n={PAPER_N} complete: " + json.dumps(paper))
     torch.cuda.empty_cache()
 
     # 4. full size
-    full = phase_full(torch, np)
-    print(f"phase 4 full n={FULL_N} complete: " + json.dumps(full), flush=True)
+    X_full, lw_merges, full = phase_full(torch, np)
+    say(f"phase 4 full n={FULL_N} complete: " + json.dumps(full))
+    torch.cuda.empty_cache()
 
-    # 5. inventory, card, result
+    # 5. the dense chain on phase 4's input
+    dense = phase_dense_chain(torch, np, X_full, lw_merges)
+    say(f"phase 5 dense chain n={FULL_N} complete: " + json.dumps(dense))
+    del X_full, lw_merges
+    torch.cuda.empty_cache()
+
+    # 6. the matrix-free chain, and against the LW loop at n = 4096
+    points = phase_points_chain(torch, np)
+    say(f"phase 6 matrix-free chain n={CHAIN_N} d={CHAIN_DIM} ward: " + json.dumps(points))
+    cross = phase_cross(torch, np)
+    say(f"phase 6 matrix-free chain vs LW loop n={CROSS_N} ward: " + json.dumps(cross))
+
+    # 7. inventory, card, result
     src = {"masked_argmin": ("src/repro_torch/csrc/minscan.cu", "src/repro/kernels/minscan.py:71"),
-           "lw_step": ("src/repro_torch/csrc/lw_step.cu", "src/repro/kernels/lw_step.py:154")}
+           "lw_step": ("src/repro_torch/csrc/lw_step.cu", "src/repro/kernels/lw_step.py:154"),
+           "row_sq_euclidean": ("src/repro_torch/csrc/row_sq.cu",
+                                "src/repro/kernels/pairwise.py:148")}
     inventory = []
-    for name, key in (("masked_argmin", "masked_argmin"), ("lw_step", "lw_step/complete")):
-        row = kernels[(key, FULL_N)]
+    for name, key, path in (("masked_argmin", ("masked_argmin", FULL_N), full),
+                            ("lw_step", ("lw_step/complete", FULL_N), full),
+                            ("row_sq_euclidean", ("row_sq_euclidean", CHAIN_N), points)):
+        row = kernels[key]
         inventory.append(dict(
             name=name, route="cuda", source=src[name][0], replaces=src[name][1],
-            launches=full["launches"][name], max_abs_err=row["max_abs_err"],
+            launches=path["launches"][name], max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=None, n=FULL_N,
+            bound_by=row["bound_by"], library_ms=row.get("library_ms"), n=key[1],
+            bound_bytes_per_s=row["bound_bytes_per_s"],
         ))
-    print(summary(kernels, paper, full))
+    print(summary(kernels, paper, full, dense, points))
     print(json.dumps({"kernels": inventory}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

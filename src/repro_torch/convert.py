@@ -3,7 +3,9 @@
 Clustering has no weights: what crosses over is the problem and the
 merge-loop state.  :func:`lwstate_from_numpy` builds the port's
 :class:`~repro_torch.core.engine.LWState` from the numpy arrays of a JAX
-``LWState``, so both engines can resume from the same mid-run state;
+``LWState``, and :func:`summaries_from_numpy` the matrix-free chain's
+:class:`~repro_torch.core.nnchain.NNState` from a JAX chain's geometric
+summaries, so both packages can resume from the same mid-run state;
 :func:`to_numpy` turns the port's states and results back into numpy.
 """
 
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import LWState, resolve_device
+from repro_torch.core.nnchain import NNState
 
 
 def lwstate_from_numpy(D, alive, sizes, merges, n_merges, cand, device=None) -> LWState:
@@ -38,6 +41,20 @@ def lwstate_from_numpy(D, alive, sizes, merges, n_merges, cand, device=None) -> 
         cand=(i64(r), i64(c), f32(dmin)),
         cache=(),
     )
+
+
+def summaries_from_numpy(W, u, sizes, alive, device=None) -> NNState:
+    """The matrix-free chain's state from numpy arrays: summaries ``W``
+    ``(n, d)`` and ``u`` ``(n,)``, cluster ``sizes`` ``(n,)`` and ``alive``
+    ``(n,)`` bool, copied onto ``device`` (CUDA unless told otherwise) as
+    float32 (bool for ``alive``)."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
+
+    return NNState(rep=(f32(W), f32(u)), sizes=f32(sizes),
+                   alive=torch.tensor(np.asarray(alive), dtype=torch.bool, device=dev))
 
 
 def to_numpy(value):

@@ -1,11 +1,13 @@
 """Public clustering API of the port.
 
-Counterpart of :mod:`repro.core.api`, for the part this port runs: the
-Lance-Williams merge loop on the kernel backend.  ``cluster(...)`` takes
-raw ``(n, d)`` points or a pre-built ``(n, n)`` distance matrix and returns
-a :class:`ClusterResult` whose merge list equals the JAX package's
-``cluster(..., algorithm="lw", backend="kernel")``.  The knobs are
-documented once, in :func:`repro.core.api.cluster`.
+Counterpart of :mod:`repro.core.api`, for the parts this port runs: the
+NN-chain engine (dense, and matrix-free on points) behind the default
+knobs, and the Lance-Williams merge loop on the kernel backend.
+``cluster(...)`` takes raw ``(n, d)`` points or a pre-built ``(n, n)``
+distance matrix, resolves ``algorithm``/``backend``/``matrix_free`` as
+the JAX package's ``cluster`` does on one device, and returns a
+:class:`ClusterResult`.  The knobs are documented once, in
+:func:`repro.core.api.cluster`.
 """
 
 from __future__ import annotations
@@ -19,17 +21,21 @@ import torch
 from repro_torch.core import dendrogram as dg
 from repro_torch.core.distance import pairwise_euclidean, pairwise_sq_euclidean
 from repro_torch.core.engine import resolve_device, symmetrize
-from repro_torch.core.linkage import default_metric
+from repro_torch.core.linkage import METHODS, default_metric
+from repro_torch.core.nnchain import (
+    nn_chain,
+    nn_chain_from_points,
+    resolve_algorithm,
+    resolve_matrix_free,
+)
 
 #: Engines and backends of the JAX package that this port does not run yet,
 #: with the ROADMAP.md item that ports each.
 _NOT_PORTED_ALGORITHMS = {
-    "nnchain": "A6 (NN-chain, with kernel B5)",
     "twophase": "A10 (distributed)",
     "landmark": "A8 (landmark tier and streaming assignment, with kernel B4)",
 }
 _NOT_PORTED_BACKENDS = {
-    "serial": "A1.4 (the premasked dense serial backend)",
     "distributed": "A10 (distributed)",
 }
 
@@ -120,15 +126,18 @@ def build_distance_matrix(X, metric: str = "euclidean", *, device=None) -> torch
 
 
 def _interpret_input(data, method: str, metric: str | None,
-                     is_distance: bool | None = None, *, device=None):
+                     is_distance: bool | None = None):
     """A square 2-D array with ``metric is None`` is a pre-built distance
     matrix; anything else is points embedded via *metric* (default:
     :func:`repro_torch.core.linkage.default_metric`).  ``is_distance``
     settles the square case explicitly; left ``None``, a non-symmetric
     square array gets a ``UserWarning``.
 
-    Returns ``(D, points, metric_used)``; ``points``/``metric_used`` are
-    ``None`` for matrix input.  A built ``D`` lies on ``device``.
+    Returns ``(D, points, metric_used)``: the matrix and ``None, None``
+    for matrix input, ``None`` and the points and metric for points input.
+    The matrix of points is not built here (the JAX package's
+    ``materialize=False``): the matrix-free chain is chosen before any
+    ``(n, n)`` tensor exists, and the caller builds one when it needs it.
     """
     arr = np.asarray(data)
     looks_square = arr.ndim == 2 and arr.shape[0] == arr.shape[1]
@@ -164,7 +173,7 @@ def _interpret_input(data, method: str, metric: str | None,
         return arr, None, None
     if metric is None:
         metric = default_metric(method)
-    return build_distance_matrix(arr, metric, device=device), arr, metric
+    return None, arr, metric
 
 
 def cluster(
@@ -179,50 +188,111 @@ def cluster(
     stop_at_k: int = 1,
     distance_threshold: float | None = None,
     compaction: bool | str = "auto",
+    matrix_free: bool | str = "auto",
     keep_inputs: bool = True,
     device=None,
 ) -> ClusterResult:
-    """Hierarchically cluster *data* with the Lance-Williams merge loop.
+    """Hierarchically cluster *data*.
 
     ``data`` is an ``(n, n)`` distance matrix when square and ``metric is
-    None``, else ``(n, d)`` points embedded via ``metric``.  ``algorithm``
-    (``"lw"``/``"auto"``) and ``backend`` (``"kernel"``/``"auto"``) both
-    resolve to the LW loop on the CUDA kernels here; other engines,
-    backends and knobs raise ``NotImplementedError`` naming the ROADMAP.md
-    item that ports them.  ``device`` defaults to CUDA and raises without
-    it; ``device="cpu"`` runs the plain torch versions of the kernels.
-    ``stop_at_k`` stops at ``k`` clusters; ``keep_inputs`` stores the
-    input on the result (for ``exemplars``/``centroids``).
+    None``, else ``(n, d)`` points embedded via ``metric``.  The knobs
+    resolve as in :func:`repro.core.api.cluster` on one device:
+    ``backend="auto"`` is ``"serial"``, and ``algorithm="auto"`` runs the
+    NN-chain engine for reducible methods at ``n ≥ 256`` with default
+    engine knobs, matrix-free (no ``(n, n)`` tensor) under
+    ``matrix_free="auto"`` for ``(n, d)`` points of
+    ``ward``/``average``/``weighted`` on the squared-Euclidean metric at
+    ``n ≥ 4096``.  The chain runs the full agglomeration; ``stop_at_k``
+    and ``distance_threshold`` cut its canonical merge list afterwards.
+    Otherwise the LW merge loop runs on the CUDA kernels and reports
+    ``backend="kernel"``: the serial LW backend, other engines and knobs
+    raise ``NotImplementedError`` naming the ROADMAP.md item that ports
+    them.  ``device`` defaults to CUDA and raises without it;
+    ``device="cpu"`` runs the plain torch versions of the kernels.
+    ``keep_inputs`` stores the input on the result (for
+    ``exemplars``/``centroids``).
     """
     from repro_torch.kernels.ops import lance_williams_kernelized
 
+    if method not in METHODS:
+        raise ValueError(f"unknown linkage method {method!r}")
+    dev = resolve_device(device)
+    D, points, used_metric = _interpret_input(data, method, metric, is_distance)
+    n = int((D if points is None else points).shape[0])
+
+    if matrix_free not in (True, False, None, "auto"):
+        raise ValueError(f"matrix_free must be a bool or 'auto', got {matrix_free!r}")
+    if matrix_free not in (None, "auto"):
+        matrix_free = bool(matrix_free)
+    if matrix_free is True:
+        # matrix-free belongs to the chain: never build the (n, n) matrix
+        # the caller opted out of
+        if algorithm == "lw":
+            raise ValueError(
+                "matrix_free=True requires the NN-chain engine, but "
+                "algorithm='lw' pins the Lance-Williams loop (every LW "
+                "backend stores the dense matrix)"
+            )
+        if algorithm == "auto":
+            algorithm = "nnchain"
     if algorithm in _NOT_PORTED_ALGORITHMS:
         raise NotImplementedError(
             f"algorithm={algorithm!r} is not ported yet: ROADMAP.md "
             f"{_NOT_PORTED_ALGORITHMS[algorithm]}"
         )
-    if algorithm not in ("lw", "auto"):
-        raise ValueError(f"unknown algorithm {algorithm!r}")
     if backend in _NOT_PORTED_BACKENDS:
         raise NotImplementedError(
             f"backend={backend!r} is not ported yet: ROADMAP.md "
             f"{_NOT_PORTED_BACKENDS[backend]}"
         )
-    if backend not in ("kernel", "auto"):
+    if backend not in ("auto", "serial", "kernel"):
         raise ValueError(f"unknown backend {backend!r}")
-    dev = resolve_device(device)
+    requested_backend = backend
+    if backend == "auto":
+        backend = "serial"        # one device, as the JAX package resolves it
+    algorithm = resolve_algorithm(algorithm, method=method, backend=backend, n=n,
+                                  variant=variant, compaction=compaction)
 
-    D, points, used_metric = _interpret_input(data, method, metric, is_distance, device=dev)
-    n = int(D.shape[0])
-    res = lance_williams_kernelized(
-        D, method=method, variant=variant, stop_at_k=stop_at_k,
-        distance_threshold=distance_threshold, compaction=compaction, device=dev,
-    )
+    if algorithm == "nnchain":
+        use_points = resolve_matrix_free(
+            matrix_free, points_shape=None if points is None else points.shape,
+            method=method, metric=used_metric, n=n,
+        )
+        if use_points:
+            res = nn_chain_from_points(points, method, device=dev)
+        else:
+            if points is not None:
+                D = build_distance_matrix(points, used_metric, device=dev)
+            res = nn_chain(D, method, device=dev)
+        if n > 1 and res.n_merges != n - 1:
+            raise RuntimeError(
+                "NN-chain loop stopped before finishing — the input likely "
+                "contains NaNs (the chain invariant needs a total order on "
+                "distances)"
+            )
+        merges = dg.truncate_canonical(
+            dg.canonical_order(res.merges.cpu().numpy(), n=n),
+            n, stop_at_k, distance_threshold,
+        )
+    else:
+        if requested_backend == "serial":
+            raise NotImplementedError(
+                "backend='serial' with the LW loop is not ported yet: ROADMAP.md "
+                "A1.4 (the premasked dense serial backend of the LW loop)"
+            )
+        backend = "kernel"        # the LW loop the port runs
+        if points is not None:
+            D = build_distance_matrix(points, used_metric, device=dev)
+        res = lance_williams_kernelized(
+            D, method=method, variant=variant, stop_at_k=stop_at_k,
+            distance_threshold=distance_threshold, compaction=compaction, device=dev,
+        )
+        merges = res.merges[: res.n_merges].cpu().numpy()
     return ClusterResult(
-        merges=res.merges[: res.n_merges].cpu().numpy(),
+        merges=merges,
         method=method,
-        backend="kernel",
-        algorithm="lw",
+        backend=backend,
+        algorithm=algorithm,
         n_leaves=n,
         points=points if keep_inputs else None,
         distances=D if keep_inputs else None,

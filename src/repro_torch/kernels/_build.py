@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("minscan", "lw_step")
+KERNELS = ("minscan", "lw_step", "row_sq")
 
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -102,3 +102,12 @@ def check_cuda(ref, dtype, *others) -> None:
     for t in (ref, *others):
         if t.device != ref.device or not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous and on one device")
+
+
+def raw_stream(device_index: int) -> int:
+    """The handle of the current CUDA stream of a device, without building
+    the ``torch.cuda.Stream`` object that ``current_stream()`` returns:
+    the wrappers pass it to every launch."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device_index)

@@ -83,7 +83,7 @@ def lw_step(method, D, d_ki, d_kj, d_ij, n_i, n_j, sizes, alive, i, j):
         D.device.index, METHODS.index(method), D.data_ptr(), d_ki.data_ptr(), d_kj.data_ptr(),
         sizes.data_ptr(), alive.data_ptr(), d_ij.data_ptr(), n_i.data_ptr(), n_j.data_ptr(),
         i.data_ptr(), j.data_ptr(), n, rmin.data_ptr(), rarg.data_ptr(),
-        torch.cuda.current_stream().cuda_stream,
+        _build.raw_stream(D.device.index),
     )
     if err:
         raise RuntimeError(f"lw_step kernel launch failed: CUDA error {err}")

@@ -60,7 +60,7 @@ def masked_argmin(D: torch.Tensor, alive: torch.Tensor):
     v = torch.empty((), dtype=torch.float32, device=D.device)
     flat = torch.empty((), dtype=torch.int64, device=D.device)
     err = _kernel()(D.device.index, D.data_ptr(), alive.data_ptr(), n, rmin.data_ptr(), rarg.data_ptr(),
-                    v.data_ptr(), flat.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                    v.data_ptr(), flat.data_ptr(), _build.raw_stream(D.device.index))
     if err:
         raise RuntimeError(f"masked_argmin kernel launch failed: CUDA error {err}")
     masked_argmin.launches += 1

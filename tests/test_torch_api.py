@@ -1,5 +1,7 @@
 """Port public API vs the JAX package's ``cluster(..., algorithm="lw",
-backend="kernel")``, plus the port's own package rules."""
+backend="kernel")``, plus the port's own package rules.  The NN-chain
+routing of ``cluster()`` is held against the JAX package in
+``test_torch_nnchain.py``."""
 
 import os
 import subprocess
@@ -73,9 +75,9 @@ def test_build_distance_matrix_matches_reference(metric, rng):
 
 @pytest.mark.parametrize("knobs", [
     dict(variant="rowmin"), dict(variant="lazy"), dict(distance_threshold=1.0),
-    dict(compaction=True), dict(algorithm="nnchain"), dict(algorithm="twophase"),
-    dict(algorithm="landmark"), dict(backend="serial"), dict(backend="distributed"),
-    dict(metric="rmsd"),
+    dict(compaction=True), dict(algorithm="twophase"),
+    dict(algorithm="landmark"), dict(backend="serial"), dict(backend="serial", algorithm="lw"),
+    dict(backend="distributed"), dict(metric="rmsd"),
 ])
 def test_knobs_not_ported_raise(knobs):
     X = np.zeros((6, 3), np.float32)
@@ -85,6 +87,7 @@ def test_knobs_not_ported_raise(knobs):
 
 @pytest.mark.parametrize("knobs", [dict(method="nope"), dict(variant="nope"),
                                    dict(algorithm="nope"), dict(backend="nope"),
+                                   dict(algorithm="nnchain", backend="kernel"),
                                    dict(compaction="sometimes"), dict(compaction="on"),
                                    dict(compaction=None), dict(metric="nope")])
 def test_bad_knobs_raise_value_error(knobs):

@@ -3,7 +3,7 @@
 Marked ``cuda``: they skip where there is no CUDA device.  This file
 imports no jax, so it also runs where only the port is installed:
 
-    python -m pytest -m cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
 import numpy as np
@@ -11,8 +11,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import nnchain  # noqa: E402
 from repro_torch.core.linkage import METHODS  # noqa: E402
-from repro_torch.kernels import lw_step, minscan  # noqa: E402
+from repro_torch.kernels import lw_step, minscan, pairwise  # noqa: E402
 
 
 @pytest.fixture
@@ -103,3 +104,80 @@ def test_cuda_wrapper_rejects_strided_matrix(cuda):
     D = torch.zeros(8, 16, device=cuda)[:, :8]
     with pytest.raises(ValueError, match="contiguous"):
         minscan.masked_argmin(D, torch.ones(8, dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d", [(1, 3), (1968, 64), (4097, 130), (32768, 128), (5, 20000)])
+def test_cuda_row_sq_matches_plain(m, d, cuda, rng):
+    """B5 on its vector path (d % 4 == 0), its scalar path (d = 3, 130)
+    and on rows wider than a warp's one pass (d = 20000)."""
+    Y = torch.tensor(rng.normal(size=(m, d)).astype(np.float32), device=cuda)
+    x = Y[m // 2]
+    launches = pairwise.row_sq_euclidean.launches
+    got = pairwise.row_sq_euclidean(x, Y)
+    want = pairwise.row_sq_euclidean_plain(x, Y)
+    torch.cuda.synchronize()
+    assert pairwise.row_sq_euclidean.launches == launches + 1
+    assert got.shape == (m,) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert float(got[m // 2]) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_row_sq_unaligned_tip(cuda, rng):
+    """A tip that is not 16-byte aligned takes the scalar path."""
+    Y = torch.tensor(rng.normal(size=(300, 64)).astype(np.float32), device=cuda)
+    x = torch.tensor(rng.normal(size=65).astype(np.float32), device=cuda)[1:]
+    torch.testing.assert_close(pairwise.row_sq_euclidean(x, Y),
+                               pairwise.row_sq_euclidean_plain(x, Y), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_row_sq_rejects_bad_operands(cuda):
+    Y = torch.zeros(16, 8, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        pairwise.row_sq_euclidean(Y[0].double(), Y.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        pairwise.row_sq_euclidean(Y[0], torch.zeros(16, 16, device=cuda)[:, :8])
+    with pytest.raises(ValueError, match="one device"):
+        pairwise.row_sq_euclidean(Y[0].cpu(), Y)
+    with pytest.raises(ValueError, match=r"\(d,\)"):
+        pairwise.row_sq_euclidean(Y[0, :4], Y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", nnchain.POINTS_METHODS)
+def test_cuda_points_chain_counts_rows(method, cuda):
+    """The matrix-free chain on the card: one B5 launch a trip, and the
+    merges of the CPU run."""
+    from repro_torch.core import cluster
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    X = gaussian_mixture(seed=6, n=300, dim=16, return_labels=False)
+    pairwise.row_sq_euclidean.launches = 0
+    res = nnchain.nn_chain_from_points(X, method)       # the default device is CUDA
+    assert res.merges.device.type == "cuda" and res.n_merges == 299
+    assert pairwise.row_sq_euclidean.launches == res.iters
+    want = nnchain.nn_chain_from_points(X, method, device="cpu")
+    assert res.iters == want.iters
+    np.testing.assert_array_equal(res.merges.cpu().numpy()[:, [0, 1, 3]],
+                                  want.merges.numpy()[:, [0, 1, 3]])
+    np.testing.assert_allclose(res.merges.cpu().numpy()[:, 2], want.merges.numpy()[:, 2],
+                               rtol=1e-4, atol=1e-5)
+    pairwise.row_sq_euclidean.launches = 0
+    got = cluster(X, method, metric="sqeuclidean", matrix_free=True)
+    assert (got.algorithm, got.backend, got.distances) == ("nnchain", "serial", None)
+    assert pairwise.row_sq_euclidean.launches == res.iters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", nnchain.REDUCIBLE_METHODS)
+def test_cuda_dense_chain_matches_cpu(method, cuda, rng):
+    D = random_distance_matrix(rng, 97, squared=method == "ward").astype(np.float32)
+    got = nnchain.nn_chain(D, method)
+    want = nnchain.nn_chain(D, method, device="cpu")
+    assert (got.n_merges, got.iters) == (want.n_merges, want.iters)
+    np.testing.assert_array_equal(got.merges.cpu().numpy()[:, [0, 1, 3]],
+                                  want.merges.numpy()[:, [0, 1, 3]])
+    np.testing.assert_allclose(got.merges.cpu().numpy()[:, 2], want.merges.numpy()[:, 2],
+                               rtol=1e-4, atol=1e-5)
