@@ -9,8 +9,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    source, started together) and print the card's name and power limit.
 2. Hold each kernel against its plain torch version on the card, and time
    both: the LW kernels on a mid-run state with dead slots at n = 1968 and
-   n = 16384, the row kernel at (m, d) = (1968, 64) and (32768, 128), with
-   the host's time to enqueue one call of each.  A kernel whose operands
+   n = 16384 (the row update checked for all 7 methods), the row kernel at
+   (m, d) = (1968, 64) and (32768, 128), with the host's time to enqueue
+   one call of the row update and of the row kernel.  A kernel whose operands
    fit in half the L2 is timed on L2-resident data, as its caller finds
    them; its bound then takes the L2 read rate measured here (two torch
    reductions over a 16 MiB buffer), else the HBM rate.
@@ -34,12 +35,23 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    n = 32768 points in 128 dimensions (the matrix would be 4 GiB): no
    matrix kept, one row-kernel launch a trip, peak memory under
    0.25 GiB, and the dendrogram of the same chain built with the plain
-   row on the card.  The chain loop runs with the plain row and with the
-   kernel in turn (plain, kernel, kernel, plain), through one entry.  Then
+   row on the card.  The chain loop runs once with the plain row and once
+   with the kernel, through one entry.  Then
    at n = 4096 the matrix-free ward run against the LW loop on the kernel
    backend.
-7. One line ``{"kernels": [...]}`` with each kernel's numbers, the card's
-   ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+7. The serial LW backend: ``cluster(X, "centroid")`` with default knobs on
+   phase 4's input resolves to it, reports ``backend="serial"``, launches
+   no kernel, and gives the kernel backend's dendrogram; wall, busy time,
+   idle share and peak memory.  At n = 1968, complete linkage under the
+   ``rowmin`` and ``lazy`` variants gives phase 3's merges.
+8. The kernel backend's ``lazy`` variant at n = 16384: one row-update
+   launch a merge and no other kernel, phase 4's merges; wall, busy time,
+   idle share, and host and device ms per merge.  ``rowmin`` and ``lazy``
+   at n = 1968: the fused path's launches, and phase 3's merges.
+9. ``distance_threshold`` at the median merge height of phase 3's run, on
+   both LW backends: exactly the merges at or below it.
+10. One line ``{"kernels": [...]}`` with each kernel's numbers, the card's
+    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counters set to 0 just before it
 and read just after.
@@ -71,11 +83,13 @@ PROFILER_MISS_MIN = 50_000     # ... of this many launches or more (fewer: none)
 PREFIX = 256                   # merges of the full-size run held against the plain engine
 SPLIT_WINDOW = 16              # merges whose host time is set against their device time
 SLEEP_CYCLES = 400_000_000     # ~0.2 s of GPU clock: holds the stream while the host enqueues
+HOST_CALLS = 32                # calls timed on the host: ~400 launches of a plain version
 RTOL, ATOL = 1e-4, 1e-5        # height tolerance of the JAX package's kernel tests
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once a launch
     "masked_argmin": ("masked_row_min", "first_min_over_rows"),
     "lw_step": ("lw_step_kernel",),
+    "lw_update": ("lw_update_kernel",),
     "row_sq_euclidean": ("row_sq_kernel",),
 }
 NO_LAUNCHES = dict.fromkeys(KERNEL_SYMBOLS, 0)
@@ -105,18 +119,26 @@ def time_ms(torch, fn, reps: int = 20, batches: int = 5) -> float:
     return statistics.median(times)
 
 
-def host_us(torch, fn, calls: int = 200) -> float:
+def host_us(torch, fn, calls: int = HOST_CALLS) -> float:
     """Host µs to enqueue one call of ``fn``, with a sleep kernel holding
-    the stream so that no call waits for the card."""
+    the stream so that no call waits for the card.  The calls must fit in
+    the device's launch queue (about a thousand launches), or the host
+    blocks until the sleep ends: raises if the host time reached it."""
     fn()
     torch.cuda.synchronize()
+    held, start = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    held.record()
     torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
     t0 = time.perf_counter()
     for _ in range(calls):
         fn()
-    us = (time.perf_counter() - t0) / calls * 1e6
-    torch.cuda.synchronize()
-    return us
+    host_s = time.perf_counter() - t0
+    start.synchronize()
+    if host_s * 1e3 >= held.elapsed_time(start):
+        raise AssertionError(f"enqueueing {calls} calls took {host_s * 1e3:.1f} ms, as long "
+                             "as the stream was held: the launch queue filled")
+    return host_s / calls * 1e6
 
 
 def l2_read_rate(torch) -> float:
@@ -247,7 +269,54 @@ def phase_kernels(torch, n: int, l2_rate: float) -> dict:
                     2 * live_next * live_next + 12 * n, 4 * n * n, l2_rate),
         )
         del Dk, Dp, kargs, pargs
+    out["lw_update/complete"] = phase_row_update(torch, n, l2_rate)
     return out
+
+
+def phase_row_update(torch, n: int, l2_rate: float) -> dict:
+    """The row update against its plain version on a mid-run state, for
+    every method; ``complete`` timed, with the host's time to enqueue it."""
+    from repro_torch.core.linkage import METHODS
+    from repro_torch.kernels import lw_update
+
+    D, alive, sizes, i, j, dmin = mid_run_state(torch, n, squared=False, seed=3)
+    ij = torch.tensor([i, j], device="cuda")
+    rows, n_ij = D.index_select(0, ij), sizes.index_select(0, ij)
+    keep = alive.index_fill(0, ij, False)
+    err, bit_equal = 0.0, True
+
+    def args(method):
+        return (method, rows[0], rows[1], dmin.reshape(1), n_ij[0:1], n_ij[1:2], sizes, keep)
+
+    for method in METHODS:
+        got, want = lw_update.lw_update(*args(method)), lw_update.lw_update_plain(*args(method))
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+            raise AssertionError(f"lw_update {method} n={n}: kernel differs from plain")
+        err = max(err, float((got - want).abs().max()))
+        bit_equal &= torch.equal(got, want)
+    a, live = args("complete"), int(keep.sum())
+    n_bytes = lw_update_bytes("complete", n, live)
+    return dict(n=n, live=live, methods_checked=len(METHODS), max_abs_err=err,
+                bit_equal=bit_equal,
+                ms=time_ms(torch, lambda: lw_update.lw_update(*a)),
+                plain_ms=time_ms(torch, lambda: lw_update.lw_update_plain(*a)),
+                library_ms=None,
+                host_us=host_us(torch, lambda: lw_update.lw_update(*a)),
+                plain_host_us=host_us(torch, lambda: lw_update.lw_update_plain(*a)),
+                **bound(torch, n_bytes, 10 * live, n_bytes, l2_rate))
+
+
+def lw_update_bytes(method: str, n: int, live: int) -> int:
+    """The bytes one row update must move for ``method`` with ``live`` kept
+    lanes of ``n``: the bool mask read and the row written on every lane;
+    rows i and j (and, for ward, the sizes) read on the kept lanes only; and
+    of the merge scalars only those the method's coefficients use (D(i,j)
+    always, n_i and n_j for the size-weighted methods).  About ten
+    operations a kept lane."""
+    per_kept = 12 if method == "ward" else 8
+    scalars = 12 if method in ("average", "centroid", "ward") else 4
+    return 5 * n + per_kept * live + scalars
 
 
 def phase_row(torch, m: int, d: int, l2_rate: float) -> dict:
@@ -291,17 +360,19 @@ def plain_engine_merges(torch, X, method: str, n_steps: int):
 
 
 def reset_counters() -> None:
-    from repro_torch.kernels import lw_step, minscan, pairwise
+    from repro_torch.kernels import lw_step, lw_update, minscan, pairwise
 
     minscan.masked_argmin.launches = 0
     lw_step.lw_step.launches = 0
+    lw_update.lw_update.launches = 0
     pairwise.row_sq_euclidean.launches = 0
 
 
 def read_counters() -> dict:
-    from repro_torch.kernels import lw_step, minscan, pairwise
+    from repro_torch.kernels import lw_step, lw_update, minscan, pairwise
 
     return {"masked_argmin": minscan.masked_argmin.launches, "lw_step": lw_step.lw_step.launches,
+            "lw_update": lw_update.lw_update.launches,
             "row_sq_euclidean": pairwise.row_sq_euclidean.launches}
 
 
@@ -338,14 +409,14 @@ def run_cluster(torch, X):
     return res, stats
 
 
-def per_trip(stats: dict, trips: int) -> dict:
-    """A chain run's time per trip: each trip reads one small tensor back,
-    so the host waits for the card once a trip; the host's share is the
-    wall the device spends idle."""
+def per_step(stats: dict, steps: int, unit: str) -> dict:
+    """A run's time per step (a chain trip, a lazy merge): each step reads
+    one small tensor back, so the host waits for the card once a step; the
+    host's share is the wall the device spends idle."""
     wall, busy = stats["wall_s"], stats["device_busy_s"]
-    return dict(trips=trips, ms_per_trip=wall / trips * 1e3,
-                device_ms_per_trip=busy / trips * 1e3,
-                host_ms_per_trip=(wall - busy) / trips * 1e3)
+    return {f"{unit}s": steps, f"ms_per_{unit}": wall / steps * 1e3,
+            f"device_ms_per_{unit}": busy / steps * 1e3,
+            f"host_ms_per_{unit}": (wall - busy) / steps * 1e3}
 
 
 def device_busy(torch, call, wall_s: float, launches: dict):
@@ -454,7 +525,7 @@ def phase_paper(torch, np) -> dict:
     if (chain.algorithm, chain.backend) != ("nnchain", "serial"):
         raise AssertionError(f"default knobs ran {chain.algorithm}/{chain.backend}, want nnchain")
     check_equivalent(np, chain.merges, res.merges, n, "paper chain vs LW loop")
-    return stats
+    return X, res.merges, stats
 
 
 def phase_full(torch, np) -> dict:
@@ -498,7 +569,7 @@ def phase_dense_chain(torch, np, X, lw_merges) -> dict:
     if chain.n_merges != n - 1:
         raise AssertionError(f"dense chain recorded {chain.n_merges} merges, want {n - 1}")
     stats.update(busy)
-    stats.update(per_trip(stats, chain.iters))
+    stats.update(per_step(stats, chain.iters, "trip"))
     return stats
 
 
@@ -542,7 +613,7 @@ def phase_points_chain(torch, np) -> dict:
     check_launches(read_counters(), {"row_sq_euclidean": chain.iters}, "matrix-free chain")
     check_launches(stats["launches"], {"row_sq_euclidean": chain.iters}, "matrix-free cluster run")
     stats.update(busy)
-    stats.update(per_trip(stats, chain.iters))
+    stats.update(per_step(stats, chain.iters, "trip"))
 
     # the same loop with the plain row and with the kernel, in turn
     rows = {"plain": row_sq_euclidean_plain, "kernel": row_sq_euclidean}
@@ -583,7 +654,96 @@ def phase_cross(torch, np) -> dict:
                 lw_wall_s=lw_stats["wall_s"])
 
 
-def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict) -> str:
+def phase_serial(torch, np, X, paper_X, paper_merges) -> dict:
+    """``cluster(X, "centroid")`` with default knobs at n = 16384: the
+    serial LW backend, held against the kernel backend; then the serial
+    ``rowmin`` and ``lazy`` variants at n = 1968 against phase 3."""
+    from repro_torch.core import cluster
+    from repro_torch.core.dendrogram import validate_merges
+
+    n = X.shape[0]
+
+    def call():
+        return cluster(X, "centroid", keep_inputs=False)
+
+    res, stats = timed(torch, call)
+    check_launches(stats["launches"], {}, "serial centroid run")
+    if (res.algorithm, res.backend) != ("lw", "serial"):
+        raise AssertionError(f"centroid default knobs ran {res.algorithm}/{res.backend}, "
+                             "want the serial LW loop")
+    validate_merges(res.merges, n=n)
+    stats.update(device_busy(torch, call, stats["wall_s"], stats["launches"])[1])
+    kernel, kernel_stats = timed(torch, lambda: cluster(X, "centroid", algorithm="lw",
+                                                         backend="kernel", keep_inputs=False))
+    check_launches(kernel_stats["launches"], {"masked_argmin": 1, "lw_step": n - 1},
+                   "kernel centroid run")
+    check_merges(np, res.merges, kernel.merges, f"serial vs kernel backend, centroid n={n}")
+    stats["kernel_wall_s"] = kernel_stats["wall_s"]
+    for variant in ("rowmin", "lazy"):
+        r, s = timed(torch, lambda: cluster(paper_X, "complete", algorithm="lw", variant=variant,
+                                            keep_inputs=False))
+        check_launches(s["launches"], {}, f"serial {variant} run")
+        if r.backend != "serial":
+            raise AssertionError(f"serial {variant} run reported {r.backend}")
+        check_merges(np, r.merges, paper_merges, f"serial {variant} vs phase 3, n={PAPER_N}")
+        stats[f"paper_{variant}_wall_s"] = s["wall_s"]
+    return stats
+
+
+def phase_lazy(torch, np, X, lw_merges, paper_X, paper_merges) -> dict:
+    """The kernel backend's ``lazy`` variant at n = 16384 (the row-update
+    kernel, once a merge) against phase 4; ``rowmin`` and ``lazy`` at
+    n = 1968 against phase 3."""
+    from repro_torch.core import cluster
+
+    n = X.shape[0]
+
+    def call():
+        return cluster(X, "complete", algorithm="lw", backend="kernel", variant="lazy",
+                       keep_inputs=False)
+
+    res, stats = timed(torch, call)
+    check_launches(stats["launches"], {"lw_update": n - 1}, "kernel lazy run")
+    check_merges(np, res.merges, lw_merges, f"kernel lazy vs phase 4, n={n}")
+    stats.update(device_busy(torch, call, stats["wall_s"], stats["launches"])[1])
+    stats.update(per_step(stats, n - 1, "merge"))
+    for variant, launches in (("rowmin", {"masked_argmin": 1, "lw_step": PAPER_N - 1}),
+                              ("lazy", {"lw_update": PAPER_N - 1})):
+        r, s = timed(torch, lambda: cluster(paper_X, "complete", algorithm="lw", backend="kernel",
+                                            variant=variant, keep_inputs=False))
+        check_launches(s["launches"], launches, f"kernel {variant} run n={PAPER_N}")
+        check_merges(np, r.merges, paper_merges, f"kernel {variant} vs phase 3, n={PAPER_N}")
+        stats[f"paper_{variant}_wall_s"] = s["wall_s"]
+    return stats
+
+
+def phase_threshold(torch, np, paper_X, paper_merges) -> dict:
+    """``distance_threshold`` at the median merge height of phase 3's run
+    (complete linkage: monotone heights, so the merges at or below it are
+    a prefix), on both LW backends.  The loop checks the heights once
+    every ``THRESHOLD_CHECK_TRIPS`` merges, so the kernel run launches the
+    step kernel up to the end of the chunk that holds the stop."""
+    from repro_torch.core import cluster
+    from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS
+
+    n = paper_X.shape[0]
+    thr = float(np.median(paper_merges[:, 2]))
+    k = int(np.sum(paper_merges[:, 2] <= np.float32(thr)))
+    trips = min(n - 1, (k // THRESHOLD_CHECK_TRIPS + 1) * THRESHOLD_CHECK_TRIPS)
+    out = dict(threshold=thr, merges_at_or_below=k, trips=trips)
+    for backend, launches in (("serial", {}), ("kernel", {"masked_argmin": 1, "lw_step": trips})):
+        r, s = timed(torch, lambda: cluster(paper_X, "complete", algorithm="lw", backend=backend,
+                                            distance_threshold=thr, keep_inputs=False))
+        check_launches(s["launches"], launches, f"{backend} threshold run")
+        if r.n_merges != k:
+            raise AssertionError(f"{backend} threshold run kept {r.n_merges} merges, want {k}")
+        check_merges(np, r.merges, paper_merges[:k], f"{backend} threshold run vs phase 3 prefix")
+        out[f"{backend}_wall_s"] = s["wall_s"]
+    return out
+
+
+def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
+            serial: dict, lazy: dict) -> str:
     """The numbers a reader checks first, on one line near the end."""
     def g(x):
         return f"{x:.6g}"
@@ -602,6 +762,13 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict) -
                      f"peak_gib {g(s['peak_gib'])}")
     parts.append("matrix-free chain loop wall_s by row " +
                  " ".join(f"{name} {g(wall)}" for name, wall in points["row_ab_wall_s"]))
+    parts.append(f"serial centroid wall_s {g(serial['wall_s'])} busy_s {g(serial['device_busy_s'])} "
+                 f"idle {g(serial['idle_share'])} peak_gib {g(serial['peak_gib'])} "
+                 f"(kernel backend wall_s {g(serial['kernel_wall_s'])})")
+    parts.append(f"kernel lazy wall_s {g(lazy['wall_s'])} busy_s {g(lazy['device_busy_s'])} "
+                 f"idle {g(lazy['idle_share'])} host/device ms per merge "
+                 f"{g(lazy['host_ms_per_merge'])}/{g(lazy['device_ms_per_merge'])} "
+                 f"peak_gib {g(lazy['peak_gib'])}")
     return "summary: " + "; ".join(parts)
 
 
@@ -652,7 +819,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 3. the paper's configuration
-    paper = phase_paper(torch, np)
+    X_paper, paper_merges, paper = phase_paper(torch, np)
     say(f"phase 3 paper n={PAPER_N} complete: " + json.dumps(paper))
     torch.cuda.empty_cache()
 
@@ -664,7 +831,6 @@ def main() -> int:
     # 5. the dense chain on phase 4's input
     dense = phase_dense_chain(torch, np, X_full, lw_merges)
     say(f"phase 5 dense chain n={FULL_N} complete: " + json.dumps(dense))
-    del X_full, lw_merges
     torch.cuda.empty_cache()
 
     # 6. the matrix-free chain, and against the LW loop at n = 4096
@@ -672,15 +838,33 @@ def main() -> int:
     say(f"phase 6 matrix-free chain n={CHAIN_N} d={CHAIN_DIM} ward: " + json.dumps(points))
     cross = phase_cross(torch, np)
     say(f"phase 6 matrix-free chain vs LW loop n={CROSS_N} ward: " + json.dumps(cross))
+    torch.cuda.empty_cache()
 
-    # 7. inventory, card, result
+    # 7. the serial LW backend
+    serial = phase_serial(torch, np, X_full, X_paper, paper_merges)
+    say(f"phase 7 serial LW backend n={FULL_N} centroid: " + json.dumps(serial))
+    torch.cuda.empty_cache()
+
+    # 8. the kernel backend's lazy variant
+    lazy = phase_lazy(torch, np, X_full, lw_merges, X_paper, paper_merges)
+    say(f"phase 8 kernel lazy n={FULL_N} complete: " + json.dumps(lazy))
+    del X_full, lw_merges
+    torch.cuda.empty_cache()
+
+    # 9. distance_threshold on both LW backends
+    threshold = phase_threshold(torch, np, X_paper, paper_merges)
+    say(f"phase 9 distance_threshold n={PAPER_N} complete: " + json.dumps(threshold))
+
+    # 10. inventory, card, result
     src = {"masked_argmin": ("src/repro_torch/csrc/minscan.cu", "src/repro/kernels/minscan.py:71"),
            "lw_step": ("src/repro_torch/csrc/lw_step.cu", "src/repro/kernels/lw_step.py:154"),
+           "lw_update": ("src/repro_torch/csrc/lw_update.cu", "src/repro/kernels/lw_update.py:72"),
            "row_sq_euclidean": ("src/repro_torch/csrc/row_sq.cu",
                                 "src/repro/kernels/pairwise.py:148")}
     inventory = []
     for name, key, path in (("masked_argmin", ("masked_argmin", FULL_N), full),
                             ("lw_step", ("lw_step/complete", FULL_N), full),
+                            ("lw_update", ("lw_update/complete", FULL_N), lazy),
                             ("row_sq_euclidean", ("row_sq_euclidean", CHAIN_N), points)):
         row = kernels[key]
         inventory.append(dict(
@@ -690,7 +874,7 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row.get("library_ms"), n=key[1],
             bound_bytes_per_s=row["bound_bytes_per_s"],
         ))
-    print(summary(kernels, paper, full, dense, points))
+    print(summary(kernels, paper, full, dense, points, serial, lazy))
     print(json.dumps({"kernels": inventory}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

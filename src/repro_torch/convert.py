@@ -3,7 +3,8 @@
 Clustering has no weights: what crosses over is the problem and the
 merge-loop state.  :func:`lwstate_from_numpy` builds the port's
 :class:`~repro_torch.core.engine.LWState` from the numpy arrays of a JAX
-``LWState``, and :func:`summaries_from_numpy` the matrix-free chain's
+``LWState`` (its ``(rmin, rarg)`` cache included), and
+:func:`summaries_from_numpy` the matrix-free chain's
 :class:`~repro_torch.core.nnchain.NNState` from a JAX chain's geometric
 summaries, so both packages can resume from the same mid-run state;
 :func:`to_numpy` turns the port's states and results back into numpy.
@@ -18,10 +19,12 @@ from repro_torch.core.engine import LWState, resolve_device
 from repro_torch.core.nnchain import NNState
 
 
-def lwstate_from_numpy(D, alive, sizes, merges, n_merges, cand, device=None) -> LWState:
+def lwstate_from_numpy(D, alive, sizes, merges, n_merges, cand, cache=(),
+                       device=None) -> LWState:
     """The port's loop state from numpy arrays: ``D`` ``(n, n)``, ``alive``
     ``(n,)`` bool, ``sizes`` ``(n,)``, ``merges`` ``(n_steps, 4)``, the
-    merge count and the candidate ``(r, c, dmin)``.  The arrays are copied
+    merge count, the candidate ``(r, c, dmin)`` and the cache: ``()``, or
+    the cached variants' per-row ``(rmin, rarg)``.  The arrays are copied
     onto ``device`` (CUDA unless told otherwise)."""
     dev = resolve_device(device)
 
@@ -39,7 +42,7 @@ def lwstate_from_numpy(D, alive, sizes, merges, n_merges, cand, device=None) -> 
         merges=f32(merges),
         n_merges=int(n_merges),
         cand=(i64(r), i64(c), f32(dmin)),
-        cache=(),
+        cache=tuple(f(a) for f, a in zip((f32, i64), cache)),
     )
 
 

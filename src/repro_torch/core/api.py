@@ -2,7 +2,8 @@
 
 Counterpart of :mod:`repro.core.api`, for the parts this port runs: the
 NN-chain engine (dense, and matrix-free on points) behind the default
-knobs, and the Lance-Williams merge loop on the kernel backend.
+knobs, and the Lance-Williams merge loop on the serial and kernel
+backends.
 ``cluster(...)`` takes raw ``(n, d)`` points or a pre-built ``(n, n)``
 distance matrix, resolves ``algorithm``/``backend``/``matrix_free`` as
 the JAX package's ``cluster`` does on one device, and returns a
@@ -204,14 +205,18 @@ def cluster(
     ``ward``/``average``/``weighted`` on the squared-Euclidean metric at
     ``n ≥ 4096``.  The chain runs the full agglomeration; ``stop_at_k``
     and ``distance_threshold`` cut its canonical merge list afterwards.
-    Otherwise the LW merge loop runs on the CUDA kernels and reports
-    ``backend="kernel"``: the serial LW backend, other engines and knobs
-    raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-    them.  ``device`` defaults to CUDA and raises without it;
-    ``device="cpu"`` runs the plain torch versions of the kernels.
+    Otherwise the LW merge loop runs: in plain torch on the serial
+    backend, on the CUDA kernels on ``backend="kernel"``, each with every
+    ``variant``, ``stop_at_k`` and ``distance_threshold``.  Engines and
+    knobs not ported yet (``compaction=True``, the distributed backend,
+    the two-phase and landmark engines) raise ``NotImplementedError``
+    naming the ROADMAP.md item that ports them.  ``device`` defaults to
+    CUDA and raises without it; ``device="cpu"`` runs the plain torch
+    versions of the kernels.
     ``keep_inputs`` stores the input on the result (for
     ``exemplars``/``centroids``).
     """
+    from repro_torch.core.lance_williams import lance_williams
     from repro_torch.kernels.ops import lance_williams_kernelized
 
     if method not in METHODS:
@@ -247,7 +252,6 @@ def cluster(
         )
     if backend not in ("auto", "serial", "kernel"):
         raise ValueError(f"unknown backend {backend!r}")
-    requested_backend = backend
     if backend == "auto":
         backend = "serial"        # one device, as the JAX package resolves it
     algorithm = resolve_algorithm(algorithm, method=method, backend=backend, n=n,
@@ -275,15 +279,10 @@ def cluster(
             n, stop_at_k, distance_threshold,
         )
     else:
-        if requested_backend == "serial":
-            raise NotImplementedError(
-                "backend='serial' with the LW loop is not ported yet: ROADMAP.md "
-                "A1.4 (the premasked dense serial backend of the LW loop)"
-            )
-        backend = "kernel"        # the LW loop the port runs
         if points is not None:
             D = build_distance_matrix(points, used_metric, device=dev)
-        res = lance_williams_kernelized(
+        run_lw = lance_williams if backend == "serial" else lance_williams_kernelized
+        res = run_lw(
             D, method=method, variant=variant, stop_at_k=stop_at_k,
             distance_threshold=distance_threshold, compaction=compaction, device=dev,
         )

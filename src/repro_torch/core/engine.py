@@ -1,34 +1,79 @@
-"""The Lance-Williams merge loop on the kernel backend, in torch.
+"""The Lance-Williams merge loop, in torch.
 
-Counterpart of :mod:`repro.core.engine`, for the loop that
-``cluster(..., algorithm="lw", backend="kernel")`` runs with
-``variant="baseline"``: find the global minimum, apply the recurrence,
-tombstone the absorbed slot, record the merge — once per merge.  The
-step is assembled from primitives (:class:`StepOps`); on the kernel
-backend the candidate is seeded by the min-scan kernel and each merge is
-one launch of the fused step kernel.
+Counterpart of :mod:`repro.core.engine`: find the global minimum, apply
+the recurrence, tombstone the absorbed slot, record the merge — once per
+merge.  The step is assembled from primitives (:class:`StepOps`); two
+compositions of them run the loop on one device:
 
-Storage is the *garbage* representation of the JAX engine: dead cells
-keep inert values and liveness is applied at argmin time, inside the
-kernels.  Merges are index-identical to the JAX package's, with heights
-equal to float tolerance.
+* **serial** (:func:`dense_ops`, :func:`run_dense`): plain torch over the
+  *premasked* matrix.  Dead rows, dead columns and the diagonal hold
+  ``+inf``, written once up front and then as slots die, so the argmin
+  is a plain row-min with no mask.  It launches no hand-written kernel.
+* **kernel** (:func:`kernel_ops`, :func:`run_kernel`): the *garbage*
+  representation.  Dead cells keep inert values and liveness is applied
+  at argmin time.  ``baseline`` and ``rowmin`` are the min-scan seed and
+  one launch of the fused step kernel a merge (the fused kernel recomputes
+  every row minimum, so ``rowmin``'s cache would be dead carry: both run
+  cache-free and are identical by construction, as in the JAX engine).
+  ``lazy`` is one launch of the row-update kernel a merge, with the
+  cached row minima kept over the masked view.
+
+The argmin ``variant`` picks the candidate search: a full row-min every
+merge (``baseline``), or per-row ``(min, first argmin)`` caches that the
+merged column can only lower, with the rows whose cached argmin pointed
+into the merged slots rescanned (``rowmin``, ``lazy``).  The JAX engine
+rescans those rows in a full masked pass (``rowmin``) or ``K`` at a time
+in a ``while_loop`` (``lazy``); each rescan reads the same matrix, so
+rescanning all of them in one gather gives the same caches, and that is
+what both do here.  Merges are index-identical to the JAX package's for
+every backend and variant, with heights equal to float tolerance.
 
 The JAX loop traces into one compiled program.  Here the loop is a
-Python ``for`` over a fixed trip count, and everything a step needs
-(the candidate, the merged slots, the sizes) stays on the device: no
-step reads a value back to the host, so the host only enqueues launches
-and the device runs ahead.  ``D`` and the merge record are updated in
-place.
+Python ``for`` over a fixed trip count, and the candidate, the merged
+slots and the sizes stay on the device.  The baseline steps read nothing
+back, so the host only enqueues launches and the device runs ahead; the
+cached variants read back the rows to rescan, once a merge; a
+``distance_threshold`` run reads back the recorded heights once every
+:data:`THRESHOLD_CHECK_TRIPS` merges.  ``D`` and the merge record are
+updated in place.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 
-#: Argmin-op variants of the JAX engine; only ``baseline`` is ported.
+from repro_torch.core.linkage import METHODS, update_row
+
+#: Argmin-op variants of the JAX engine, all ported.
 VARIANTS: tuple[str, ...] = ("baseline", "rowmin", "lazy")
+
+#: Merges a ``distance_threshold`` run takes between two reads of the
+#: recorded heights: at most this many trips run past the stop and are
+#: trimmed.
+THRESHOLD_CHECK_TRIPS = 128
+
+#: Rows gathered at once when row minima are rebuilt, which bounds the
+#: rescan's temporaries to this many rows.
+RESCAN_ROWS = 1024
+
+_INF = float("inf")
+
+
+def check_knobs(method: str, variant: str, compaction) -> None:
+    """Validate the engine knobs of both LW backends; compaction, which the
+    port does not run yet, raises ``NotImplementedError`` naming the
+    ROADMAP.md item."""
+    if method not in METHODS:
+        raise ValueError(f"unknown linkage method {method!r}")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; pick from {VARIANTS}")
+    if compaction is True:
+        raise NotImplementedError("compaction is not ported yet: ROADMAP.md A1.3")
+    if compaction is not False and compaction != "auto":
+        raise ValueError(f"compaction must be 'auto', False or True, got {compaction!r}")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -50,7 +95,9 @@ class LWResult(NamedTuple):
 
     merges: ``(n_steps, 4)`` float32 rows ``(i, j, dist, new_size)``, ``i < j``
         the slots merged at that step (slot ``i`` keeps the union).
-    n_merges: merges recorded (``n_steps``: the loop has a fixed trip count).
+    n_merges: merges recorded.  Equals ``n_steps`` unless
+        ``distance_threshold`` stopped the run early; rows past
+        ``n_merges`` are zero.
     """
 
     merges: torch.Tensor
@@ -60,12 +107,14 @@ class LWResult(NamedTuple):
 class LWState(NamedTuple):
     """Carry of the merge loop.
 
-    ``D`` is the ``(n, n)`` matrix in the garbage representation, ``alive``
-    the ``(n,)`` bool liveness, ``sizes`` the ``(n,)`` float32 cluster
-    sizes.  ``cand`` is the next merge candidate ``(r, c, dmin)`` as 0-d
-    device tensors (int64, int64, float32), computed at the tail of each
-    step.  ``n_merges`` is a host int: with a fixed trip count it is known
-    without asking the device.  ``cache`` is ``()`` for the baseline op.
+    ``D`` is the ``(n, n)`` matrix in the backend's representation
+    (premasked or garbage), ``alive`` the ``(n,)`` bool liveness, ``sizes``
+    the ``(n,)`` float32 cluster sizes.  ``cand`` is the next merge
+    candidate ``(r, c, dmin)`` as 0-d device tensors (int64, int64,
+    float32), computed at the tail of each step.  ``n_merges`` is a host
+    int: with a fixed trip count it is known without asking the device.
+    ``cache`` is ``()`` for the cache-free ops and the per-row
+    ``(rmin, rarg)`` (float32, int64) for the cached variants.
     """
 
     D: torch.Tensor
@@ -78,21 +127,29 @@ class LWState(NamedTuple):
 
 
 class StepOps(NamedTuple):
-    """The primitives a step is assembled from (fused tail only).
+    """The primitives a step is assembled from.
 
-    seed:   fill ``cand`` from the initial state.
-    fetch:  ``(state, ij) -> (d_ki, d_kj)``, copies of rows ``i`` and ``j``.
-    commit: ``(state, ij, dmin, d_ki, d_kj, n_ij) -> (D, cand)``: applies
-            the recurrence, commits the merged row and computes the next
-            candidate in one matrix pass.
+    seed:    fill ``cand`` (and ``cache``) from the initial state.
+    fetch:   ``(state, ij) -> (d_ki, d_kj)``, copies of rows ``i`` and ``j``.
+    commit:  the fused tail, ``(state, ij, dmin, d_ki, d_kj, n_ij) -> (D, cand)``:
+             applies the recurrence, commits the merged row and computes
+             the next candidate in one matrix pass.
+    update:  ``(d_ki, d_kj, d_ij, n_i, n_j, sizes, keep) -> new``: the
+             recurrence over a whole row, dropped lanes filled with the
+             representation's tombstone (``+inf`` premasked, 0 garbage).
+    write:   ``(state, ij, new) -> D``: commit the merged row in place.
+    refresh: ``(state, ij, new, keep) -> state``: the next ``cand`` (and
+             ``cache``) after the write.
 
-    The unfused ``update``/``write``/``refresh`` primitives of the JAX
-    engine serve the ``lazy`` variant, which is not ported yet.
+    A step runs ``commit`` when it is set, else update → write → refresh.
     """
 
     seed: Callable[[LWState], LWState]
     fetch: Callable[[LWState, torch.Tensor], tuple[torch.Tensor, torch.Tensor]]
-    commit: Callable[..., tuple]
+    commit: Callable[..., tuple] | None = None
+    update: Callable[..., torch.Tensor] | None = None
+    write: Callable[[LWState, torch.Tensor, torch.Tensor], torch.Tensor] | None = None
+    refresh: Callable[..., LWState] | None = None
 
 
 def symmetrize(D: torch.Tensor) -> torch.Tensor:
@@ -108,6 +165,15 @@ def symmetrize(D: torch.Tensor) -> torch.Tensor:
     has_lower = torch.any(torch.tril(D, diagonal=-1) != 0, dim=(-2, -1), keepdim=True)
     full_sym = torch.where(has_lower, D, upper + upper.transpose(-2, -1))
     return torch.where(eye, 0.0, 0.5 * (full_sym + full_sym.transpose(-2, -1)))
+
+
+def premask(D: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """Apply the liveness/diagonal mask once, up front, in place: dead rows,
+    dead columns and the diagonal of ``D`` become ``+inf`` (the serial
+    backend's premasked representation)."""
+    D.diagonal().fill_(_INF)
+    dead = ~alive
+    return D.masked_fill_(dead[:, None], _INF).masked_fill_(dead[None, :], _INF)
 
 
 def resolve_n_steps(n: int, stop_at_k: int) -> int:
@@ -137,25 +203,50 @@ def make_step(ops: StepOps) -> Callable[..., LWState]:
         s.merges[s.n_merges if t is None else t] = torch.cat(
             (ij.to(torch.float32), dmin.reshape(1), new_size.reshape(1))
         )
-        D, cand = ops.commit(s, ij, dmin, d_ki, d_kj, n_ij)
-        return LWState(D, alive, sizes, s.merges, s.n_merges + 1, cand, s.cache)
+        if ops.commit is not None:
+            D, cand = ops.commit(s, ij, dmin, d_ki, d_kj, n_ij)
+            return LWState(D, alive, sizes, s.merges, s.n_merges + 1, cand, s.cache)
+        keep = s.alive.index_fill(0, ij, False)      # live spectators of the merge
+        new = ops.update(d_ki, d_kj, dmin.reshape(1), n_ij[:1], n_ij[1:], s.sizes, keep)
+        D = ops.write(s, ij, new)
+        return ops.refresh(LWState(D, alive, sizes, s.merges, s.n_merges + 1, s.cand, s.cache),
+                           ij, new, keep)
 
     return step
 
 
-def run_merge_loop(ops: StepOps, state: LWState, n_steps: int) -> LWState:
+def run_merge_loop(ops: StepOps, state: LWState, n_steps: int,
+                   distance_threshold: float | None = None) -> LWState:
     """Seed the candidate, then run ``n_steps`` merge trips.
 
-    A fixed trip count: ``stop_at_k`` shrinks it on the host, and no trip
-    waits for the device.  (The ``distance_threshold`` exit of the JAX
-    engine is not ported yet.)
+    Without a threshold the trip count is fixed: ``stop_at_k`` shrinks it
+    on the host, and no trip waits for the device.  With one the run ends
+    before the first merge whose height exceeds ``float32(threshold)``, as
+    the JAX engine's ``while_loop`` does.  Here the trips run in chunks of
+    :data:`THRESHOLD_CHECK_TRIPS`; after each chunk its recorded heights
+    are read back once, and at the first height above the threshold (or
+    NaN) the run stops, the merges past it are zeroed and ``n_merges``
+    counts those before it.
     """
     if n_steps <= 0:   # stop_at_k >= n: nothing to merge
         return state
     step = make_step(ops)
     state = ops.seed(state)
-    for t in range(n_steps):
-        state = step(state, t)
+    if distance_threshold is None:
+        for t in range(n_steps):
+            state = step(state, t)
+        return state
+    # compared in float32, as the reference casts the threshold
+    thr = torch.tensor(float(distance_threshold), dtype=torch.float32)
+    for start in range(0, n_steps, THRESHOLD_CHECK_TRIPS):
+        stop = min(start + THRESHOLD_CHECK_TRIPS, n_steps)
+        for t in range(start, stop):
+            state = step(state, t)
+        over = torch.nonzero(~(state.merges[start:stop, 2].cpu() <= thr))
+        if over.numel():
+            n_merges = start + int(over[0, 0])
+            state.merges[n_merges:] = 0.0
+            return state._replace(n_merges=n_merges)
     return state
 
 
@@ -172,18 +263,170 @@ def _init_state(D: torch.Tensor, alive: torch.Tensor, n_steps: int) -> LWState:
     )
 
 
+def _fetch_rows(s: LWState, ij: torch.Tensor):
+    rows = s.D.index_select(0, ij)   # D is symmetric: rows i, j are columns i, j
+    return rows[0], rows[1]
+
+
+# ---------------------------------------------------------------------------
+# argmin ops over the matrix and over cached row minima
+# ---------------------------------------------------------------------------
+
+
+def _first_where(mask: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
+    """Smallest index with ``mask`` true (``n`` when none), as a 0-d tensor:
+    the first minimum whatever order the device reduces in."""
+    return torch.where(mask, ks, ks.numel()).amin()
+
+
+def _row_major_first_min(D: torch.Tensor, ks: torch.Tensor):
+    """``(r, c, min)`` of a premasked matrix with ``jnp.argmin``'s row-major
+    first-minimum tie-breaking, from a row-min pass and two index searches."""
+    rowmin = D.amin(dim=1)
+    m = rowmin.amin()
+    r = _first_where(rowmin == m, ks)
+    c = _first_where(D.index_select(0, r.reshape(1))[0] == m, ks)
+    return r, c, m
+
+
+def _masked_row_mins(D: torch.Tensor, alive: torch.Tensor, rows: torch.Tensor,
+                     ks: torch.Tensor):
+    """Per-row ``(min, first-column argmin)`` of ``rows`` of the masked view
+    of ``D`` (dead rows, dead columns and the diagonal at ``+inf``; a fully
+    masked row gives ``(inf, 0)``), gathered :data:`RESCAN_ROWS` at a time.
+    The mask is a no-op on a premasked matrix."""
+    n = ks.numel()
+    rmins, rargs = [], []
+    for part in rows.split(RESCAN_ROWS):
+        valid = (alive[None, :] & (ks[None, :] != part[:, None])
+                 & alive.index_select(0, part)[:, None])
+        sub = torch.where(valid, D.index_select(0, part), _INF)
+        rm = sub.amin(dim=1)
+        rmins.append(rm)
+        rargs.append(torch.where(sub == rm[:, None], ks, n).amin(dim=1))
+    return torch.cat(rmins), torch.cat(rargs)
+
+
+def _cached_cand(alive, rmin, rarg, ks):
+    """Global row-major first minimum from exact ``(rmin, rarg)`` caches."""
+    rvals = torch.where(alive, rmin, _INF)
+    m = rvals.amin()
+    r = _first_where(rvals == m, ks)
+    return r, rarg.index_select(0, r.reshape(1)).reshape(()), m
+
+
+def _cache_invalidate(cache: tuple, ij: torch.Tensor, col: torch.Tensor,
+                      ks: torch.Tensor, alive: torch.Tensor):
+    """The rowmin/lazy cache-maintenance algebra of the JAX engine.
+
+    The rewritten column ``i`` (``col``, masked) can only *lower* a cached
+    row minimum in place, exactly, with first-column tie-breaking: on an
+    equal value the smaller column wins.  Rows whose cached argmin pointed
+    into the merged slots, and row ``i`` itself, are stale and must rescan.
+    Returns ``(rmin, rarg, stale)``.
+    """
+    rmin, rarg = cache
+    i, j = ij[0], ij[1]
+    lower = (col < rmin) | ((col == rmin) & (i < rarg))
+    lower &= (ks != i) & (ks != j)
+    rmin = torch.where(lower, col, rmin)
+    rarg = torch.where(lower, i, rarg)
+    stale = ((rarg == i) | (rarg == j) | (ks == i)) & ~lower & alive
+    return rmin, rarg, stale
+
+
+def _drain_cache(D, alive, rmin, rarg, stale, ks):
+    """Rescan the stale rows against ``D``, all in one gather.  Reading
+    which rows they are is the one read-back of a merge."""
+    rows = stale.nonzero().squeeze(1)
+    if rows.numel():
+        rm, ra = _masked_row_mins(D, alive, rows, ks)
+        rmin, rarg = rmin.index_copy(0, rows, rm), rarg.index_copy(0, rows, ra)
+    return rmin, rarg
+
+
+def _cached_argmin(ks: torch.Tensor):
+    """``seed`` and ``refresh`` of the cached row-minima variants, over the
+    masked view of either representation."""
+
+    def seed(s: LWState) -> LWState:
+        rmin, rarg = _masked_row_mins(s.D, s.alive, ks, ks)
+        return s._replace(cache=(rmin, rarg), cand=_cached_cand(s.alive, rmin, rarg, ks))
+
+    def refresh(s: LWState, ij, new, keep) -> LWState:
+        # column i of the masked view after the write: ``new`` on the live
+        # spectators, +inf elsewhere (the garbage write leaves 0 there)
+        col = torch.where(keep, new, _INF)
+        rmin, rarg, stale = _cache_invalidate(s.cache, ij, col, ks, s.alive)
+        rmin, rarg = _drain_cache(s.D, s.alive, rmin, rarg, stale, ks)
+        return s._replace(cache=(rmin, rarg), cand=_cached_cand(s.alive, rmin, rarg, ks))
+
+    return seed, refresh
+
+
+# ---------------------------------------------------------------------------
+# serial backend: plain torch over the premasked matrix
+# ---------------------------------------------------------------------------
+
+
+def dense_ops(method: str, n: int, variant: str, device) -> StepOps:
+    """Primitives over the premasked representation, in plain torch.
+
+    ``update`` fills dropped lanes with ``+inf``; ``write`` commits row and
+    column ``i`` and tombstones row and column ``j`` in place.  ``baseline``
+    finds each candidate with a row-min pass over the matrix; ``rowmin``
+    and ``lazy`` keep the cached row minima.
+    """
+    ks = torch.arange(n, device=device)
+
+    def update(d_ki, d_kj, d_ij, n_i, n_j, sizes, keep):
+        return torch.where(keep, update_row(method, d_ki, d_kj, d_ij, n_i, n_j, sizes), _INF)
+
+    def write(s: LWState, ij, new):
+        i, j = ij[:1], ij[1:]
+        s.D.index_copy_(0, i, new[None, :]).index_copy_(1, i, new[:, None])
+        return s.D.index_fill_(0, j, _INF).index_fill_(1, j, _INF)
+
+    if variant == "baseline":
+
+        def seed(s: LWState) -> LWState:
+            return s._replace(cand=_row_major_first_min(s.D, ks))
+
+        def refresh(s: LWState, ij, new, keep) -> LWState:
+            return seed(s)
+
+    elif variant in ("rowmin", "lazy"):
+        seed, refresh = _cached_argmin(ks)
+    else:
+        raise ValueError(f"unknown variant {variant!r}; pick from {VARIANTS}")
+    return StepOps(seed=seed, fetch=_fetch_rows, update=update, write=write, refresh=refresh)
+
+
+def run_dense(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_steps: int,
+              variant: str = "baseline", distance_threshold: float | None = None) -> LWResult:
+    """The merge loop over the serial primitives.  ``D`` is premasked and
+    then updated in place; slots with ``alive=False`` are dead from the
+    start."""
+    n = D.shape[-1]
+    out = run_merge_loop(dense_ops(method, n, variant, D.device),
+                         _init_state(premask(D, alive), alive, n_steps), n_steps,
+                         distance_threshold)
+    return LWResult(merges=out.merges, n_merges=out.n_merges)
+
+
+# ---------------------------------------------------------------------------
+# kernel backend: the hand-written CUDA kernels over the garbage matrix
+# ---------------------------------------------------------------------------
+
+
 def _fused_ops(method: str, n: int, masked_argmin, lw_step) -> StepOps:
-    """The fused baseline primitives over a min-scan and a step function
-    with the signatures of :mod:`repro_torch.kernels.minscan` and
-    :mod:`repro_torch.kernels.lw_step`."""
+    """The fused ``baseline``/``rowmin`` primitives over a min-scan and a
+    step function with the signatures of :mod:`repro_torch.kernels.minscan`
+    and :mod:`repro_torch.kernels.lw_step`."""
 
     def seed(s: LWState) -> LWState:
         v, flat = masked_argmin(s.D, s.alive)
         return s._replace(cand=(torch.div(flat, n, rounding_mode="floor"), flat % n, v))
-
-    def fetch(s: LWState, ij: torch.Tensor):
-        rows = s.D.index_select(0, ij)   # D is symmetric: rows i, j are columns i, j
-        return rows[0], rows[1]
 
     def commit(s: LWState, ij, dmin, d_ki, d_kj, n_ij):
         D, rmin, rarg = lw_step(method, s.D, d_ki, d_kj, dmin, n_ij[0], n_ij[1],
@@ -194,22 +437,45 @@ def _fused_ops(method: str, n: int, masked_argmin, lw_step) -> StepOps:
         m, r = torch.min(rmin, dim=0)
         return D, (r, rarg.index_select(0, r.reshape(1)).reshape(()), m)
 
-    return StepOps(seed=seed, fetch=fetch, commit=commit)
+    return StepOps(seed=seed, fetch=_fetch_rows, commit=commit)
 
 
-def kernel_ops(method: str, n: int) -> StepOps:
-    """Primitives routing the seed through the min-scan kernel and every
-    merge through one launch of the fused step kernel (plain torch versions
-    for CPU tensors)."""
+def _lazy_ops(method: str, n: int, lw_update, device) -> StepOps:
+    """The ``lazy`` primitives over a row-update function with the
+    signature of :mod:`repro_torch.kernels.lw_update`: one update a merge,
+    row and column ``i`` written in place (``j`` stays as garbage), and the
+    cached row minima over the masked view."""
+
+    def write(s: LWState, ij, new):
+        i = ij[:1]      # new[i] == 0 keeps the diagonal
+        return s.D.index_copy_(0, i, new[None, :]).index_copy_(1, i, new[:, None])
+
+    seed, refresh = _cached_argmin(torch.arange(n, device=device))
+    return StepOps(seed=seed, fetch=_fetch_rows, update=functools.partial(lw_update, method),
+                   write=write, refresh=refresh)
+
+
+def kernel_ops(method: str, n: int, variant: str = "baseline", device=None) -> StepOps:
+    """Primitives on the CUDA kernels (their plain torch versions for CPU
+    tensors): the min-scan seed and the fused step for ``baseline`` and
+    ``rowmin``, the row update for ``lazy``."""
+    if variant == "lazy":
+        from repro_torch.kernels.lw_update import lw_update
+
+        return _lazy_ops(method, n, lw_update, device)
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; pick from {VARIANTS}")
     from repro_torch.kernels.lw_step import lw_step
     from repro_torch.kernels.minscan import masked_argmin
 
     return _fused_ops(method, n, masked_argmin, lw_step)
 
 
-def run_kernel(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_steps: int) -> LWResult:
+def run_kernel(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_steps: int,
+               variant: str = "baseline", distance_threshold: float | None = None) -> LWResult:
     """The merge loop over the kernel primitives.  ``D`` is updated in place;
     slots with ``alive=False`` are dead from the start."""
     n = D.shape[-1]
-    out = run_merge_loop(kernel_ops(method, n), _init_state(D, alive, n_steps), n_steps)
+    out = run_merge_loop(kernel_ops(method, n, variant, D.device),
+                         _init_state(D, alive, n_steps), n_steps, distance_threshold)
     return LWResult(merges=out.merges, n_merges=out.n_merges)

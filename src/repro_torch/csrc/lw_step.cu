@@ -22,40 +22,15 @@
 // cells instead of n^2.  The merge scalars (d_ij, n_i, n_j, i, j) are read
 // from device memory, so the host never waits for them.
 //
-// The recurrence uses the _rn intrinsics: no multiply-add contraction, each
-// operation rounded on its own in the order of linkage.update_row, so the
-// kernel agrees bit for bit with the plain torch step.
+// The recurrence is the shared lance_williams.cuh, rounded operation by
+// operation as linkage.update_row, so the kernel agrees bit for bit with
+// the plain torch step.
 #include "first_min.cuh"
+#include "lance_williams.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-// Order of repro_torch.core.linkage.METHODS.
-enum Method { kSingle = 0, kComplete, kAverage, kWeighted, kCentroid, kMedian, kWard };
-
-template <int M>
-__device__ __forceinline__ float lance_williams(float dki, float dkj, float dij,
-                                                float ni, float nj, float nk) {
-    float ai = 0.5f, aj = 0.5f, b = 0.0f, g = 0.0f;
-    if (M == kSingle) g = -0.5f;
-    if (M == kComplete) g = 0.5f;
-    if (M == kAverage || M == kCentroid) {
-        const float tot = __fadd_rn(ni, nj);
-        ai = __fdiv_rn(ni, tot);
-        aj = __fdiv_rn(nj, tot);
-        if (M == kCentroid) b = __fdiv_rn(-__fmul_rn(ni, nj), __fmul_rn(tot, tot));
-    }
-    if (M == kMedian) b = -0.25f;
-    if (M == kWard) {
-        const float tot = __fadd_rn(__fadd_rn(ni, nj), nk);
-        ai = __fdiv_rn(__fadd_rn(ni, nk), tot);
-        aj = __fdiv_rn(__fadd_rn(nj, nk), tot);
-        b = __fdiv_rn(-nk, tot);
-    }
-    const float s = __fadd_rn(__fadd_rn(__fmul_rn(ai, dki), __fmul_rn(aj, dkj)), __fmul_rn(b, dij));
-    return __fadd_rn(s, __fmul_rn(g, fabsf(__fsub_rn(dki, dkj))));
-}
 
 template <int M>
 __global__ void __launch_bounds__(kThreads)
@@ -125,15 +100,7 @@ extern "C" int lw_step(int device, int method, float* D, const float* dki, const
                        long long n, float* rmin, long long* rarg, cudaStream_t stream) {
     const cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    switch (method) {
-        case kSingle: launch<kSingle>(D, dki, dkj, sizes, alive, dij, ni, nj, i, j, n, rmin, rarg, stream); break;
-        case kComplete: launch<kComplete>(D, dki, dkj, sizes, alive, dij, ni, nj, i, j, n, rmin, rarg, stream); break;
-        case kAverage: launch<kAverage>(D, dki, dkj, sizes, alive, dij, ni, nj, i, j, n, rmin, rarg, stream); break;
-        case kWeighted: launch<kWeighted>(D, dki, dkj, sizes, alive, dij, ni, nj, i, j, n, rmin, rarg, stream); break;
-        case kCentroid: launch<kCentroid>(D, dki, dkj, sizes, alive, dij, ni, nj, i, j, n, rmin, rarg, stream); break;
-        case kMedian: launch<kMedian>(D, dki, dkj, sizes, alive, dij, ni, nj, i, j, n, rmin, rarg, stream); break;
-        case kWard: launch<kWard>(D, dki, dkj, sizes, alive, dij, ni, nj, i, j, n, rmin, rarg, stream); break;
-        default: return (int)cudaErrorInvalidValue;
-    }
+    LW_DISPATCH_METHOD(method, launch, D, dki, dkj, sizes, alive, dij, ni, nj, i, j, n, rmin, rarg,
+                       stream)
     return (int)cudaGetLastError();
 }

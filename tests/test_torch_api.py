@@ -1,6 +1,6 @@
-"""Port public API vs the JAX package's ``cluster(..., algorithm="lw",
-backend="kernel")``, plus the port's own package rules.  The NN-chain
-routing of ``cluster()`` is held against the JAX package in
+"""Port public API vs the JAX package's ``cluster(...)`` on the LW loop
+(serial and kernel backends), plus the port's own package rules.  The
+NN-chain routing of ``cluster()`` is held against the JAX package in
 ``test_torch_nnchain.py``."""
 
 import os
@@ -22,7 +22,7 @@ from tests.conftest import SRC, random_distance_matrix  # noqa: E402
 def test_quickstart_flow():
     X, truth = gaussian_mixture(seed=0, n=200, dim=16, k=5)
     result = cluster(X, method="complete", device="cpu")
-    assert (result.backend, result.algorithm, result.n) == ("kernel", "lw", 200)
+    assert (result.backend, result.algorithm, result.n) == ("serial", "lw", 200)
     labels = result.labels(5)
     purity = sum(np.bincount(truth[labels == c]).max()
                  for c in range(5) if (labels == c).any()) / len(truth)
@@ -73,11 +73,38 @@ def test_build_distance_matrix_matches_reference(metric, rng):
     assert torch.backends.cuda.matmul.allow_tf32 is False     # left as the caller had it
 
 
+LW_KNOBS = [
+    (60, "complete", dict(variant="rowmin")),
+    (60, "complete", dict(variant="lazy")),
+    (60, "complete", dict(distance_threshold=3.2)),
+    (60, "complete", dict(backend="serial")),
+    (60, "complete", dict(backend="serial", algorithm="lw")),
+    # cluster() resolves to the LW loop on the serial backend: centroid,
+    # n < 256, and an explicit algorithm="lw"
+    (97, "centroid", {}),
+    (40, "complete", {}),
+    (300, "average", dict(algorithm="lw")),
+    (60, "ward", dict(backend="kernel", variant="lazy", distance_threshold=30.0)),
+]
+
+
+@pytest.mark.parametrize("n,method,knobs", LW_KNOBS,
+                         ids=[f"{n}-{m}-{'-'.join(map(str, k.items()))}" for n, m, k in LW_KNOBS])
+def test_lw_knobs_match_reference(n, method, knobs):
+    """The LW loop's knobs run, resolve and report as in the JAX package."""
+    X = gaussian_mixture(seed=n, n=n, dim=8, return_labels=False)
+    got = cluster(X, method, device="cpu", **knobs)
+    want = jcluster(X, method, **knobs)
+    assert (got.algorithm, got.backend) == (want.algorithm, want.backend)
+    assert got.algorithm == "lw"
+    assert got.n == want.n == n and got.n_merges == want.n_merges
+    np.testing.assert_array_equal(got.merges[:, [0, 1, 3]], want.merges[:, [0, 1, 3]])
+    np.testing.assert_allclose(got.merges[:, 2], want.merges[:, 2], rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("knobs", [
-    dict(variant="rowmin"), dict(variant="lazy"), dict(distance_threshold=1.0),
     dict(compaction=True), dict(algorithm="twophase"),
-    dict(algorithm="landmark"), dict(backend="serial"), dict(backend="serial", algorithm="lw"),
-    dict(backend="distributed"), dict(metric="rmsd"),
+    dict(algorithm="landmark"), dict(backend="distributed"), dict(metric="rmsd"),
 ])
 def test_knobs_not_ported_raise(knobs):
     X = np.zeros((6, 3), np.float32)

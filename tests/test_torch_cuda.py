@@ -12,8 +12,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import nnchain  # noqa: E402
+from repro_torch.core.engine import VARIANTS  # noqa: E402
 from repro_torch.core.linkage import METHODS  # noqa: E402
-from repro_torch.kernels import lw_step, minscan, pairwise  # noqa: E402
+from repro_torch.kernels import lw_step, lw_update, minscan, pairwise  # noqa: E402
 
 
 @pytest.fixture
@@ -50,6 +51,30 @@ def torch_step_args(D, alive, sizes, i, j, device="cpu"):
     Dt = t(D)
     return (Dt, Dt[i].clone(), Dt[j].clone(), t([D[i, j]]), t([sizes[i]]), t([sizes[j]]),
             t(sizes), t(alive, torch.bool), t([i], torch.int64), t([j], torch.int64))
+
+
+def lw_update_args(D, alive, sizes, i, j, device="cpu"):
+    """The row update's operands for the merge of i and j in a step problem."""
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    keep = alive & (np.arange(len(alive)) != i) & (np.arange(len(alive)) != j)
+    return (t(D[i]), t(D[j]), t([D[i, j]]), t([sizes[i]]), t([sizes[j]]), t(sizes),
+            t(keep, torch.bool))
+
+
+def reset_launches():
+    minscan.masked_argmin.launches = lw_step.lw_step.launches = lw_update.lw_update.launches = 0
+
+
+def launches():
+    return (minscan.masked_argmin.launches, lw_step.lw_step.launches,
+            lw_update.lw_update.launches)
+
+
+def assert_same_merges(got, want):
+    np.testing.assert_array_equal(got[:, [0, 1, 3]], want[:, [0, 1, 3]])
+    np.testing.assert_allclose(got[:, 2], want[:, 2], rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -91,12 +116,71 @@ def test_cuda_cluster_matches_cpu(method, cuda):
     from repro_torch.data.synthetic import gaussian_mixture
 
     X = gaussian_mixture(seed=4, n=97, dim=8, return_labels=False)
-    minscan.masked_argmin.launches = lw_step.lw_step.launches = 0
-    got = cluster(X, method)                       # the default device is CUDA
-    assert (minscan.masked_argmin.launches, lw_step.lw_step.launches) == (1, 96)
-    want = cluster(X, method, device="cpu")
-    np.testing.assert_array_equal(got.merges[:, :2], want.merges[:, :2])
-    np.testing.assert_allclose(got.merges[:, 2], want.merges[:, 2], rtol=1e-4, atol=1e-5)
+    reset_launches()
+    got = cluster(X, method, algorithm="lw", backend="kernel")  # the default device is CUDA
+    assert launches() == (1, 96, 0)
+    want = cluster(X, method, algorithm="lw", backend="kernel", device="cpu")
+    assert_same_merges(got.merges, want.merges)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("n", (97, 1968))
+def test_cuda_lw_update_matches_plain(method, n, cuda, rng):
+    """B3 on a ragged n with dead slots: equal to its plain version, 0 on
+    the dropped lanes."""
+    D, alive, sizes, i, j = step_problem(rng, n, method)
+    args = lw_update_args(D, alive, sizes, i, j, device=cuda)
+    before = lw_update.lw_update.launches
+    got = lw_update.lw_update(method, *args)
+    want = lw_update.lw_update_plain(method, *args)
+    torch.cuda.synchronize()
+    assert lw_update.lw_update.launches == before + 1
+    # the kernel rounds each operation as torch does: equal, not just close
+    assert torch.equal(got, want)
+    assert (got[~args[-1]] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ("complete", "centroid", "ward"))
+def test_cuda_kernel_variants_match_baseline(method, cuda):
+    """Kernel ``lazy`` is one B3 launch a merge and no B1/B2; ``rowmin`` is
+    the fused path.  Both give the baseline's merges."""
+    from repro_torch.core import cluster
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    X = gaussian_mixture(seed=5, n=300, dim=8, return_labels=False)
+    runs, counts = {}, {}
+    for variant in VARIANTS:
+        reset_launches()
+        runs[variant] = cluster(X, method, algorithm="lw", backend="kernel", variant=variant)
+        counts[variant] = launches()
+    assert counts == {"baseline": (1, 299, 0), "rowmin": (1, 299, 0), "lazy": (0, 0, 299)}
+    for variant in ("rowmin", "lazy"):
+        assert_same_merges(runs[variant].merges, runs["baseline"].merges)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_cuda_serial_matches_kernel(variant, cuda):
+    """The serial backend on the card launches no kernel and gives the
+    kernel backend's merges, also under a threshold on a merge height."""
+    from repro_torch.core import cluster
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    X = gaussian_mixture(seed=6, n=300, dim=8, return_labels=False)
+    reset_launches()
+    got = cluster(X, "centroid", variant=variant)
+    assert (got.algorithm, got.backend, launches()) == ("lw", "serial", (0, 0, 0))
+    want = cluster(X, "centroid", algorithm="lw", backend="kernel")
+    assert_same_merges(got.merges, want.merges)
+    thr = float(want.merges[150, 2])
+    for backend in ("serial", "kernel"):
+        cut = cluster(X, "centroid", algorithm="lw", backend=backend, variant=variant,
+                      distance_threshold=thr)
+        k = int(np.argmax(~(want.merges[:, 2] <= np.float32(thr))))
+        assert cut.n_merges == k > 0
+        assert_same_merges(cut.merges, want.merges[:k])
 
 
 @pytest.mark.cuda

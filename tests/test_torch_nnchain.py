@@ -162,10 +162,7 @@ def test_cluster_routing_matches_reference(n, method, knobs):
     X = gaussian_mixture(seed=n, n=n, dim=16, return_labels=False)
     got = cluster(X, method, device="cpu", **knobs)
     want = jcluster(X, method, **knobs)
-    assert got.algorithm == want.algorithm
-    # the LW loop runs on the kernel backend here (the serial LW backend
-    # is not ported); the chain is the serial composition in both
-    assert got.backend == ("serial" if want.algorithm == "nnchain" else "kernel")
+    assert (got.algorithm, got.backend) == (want.algorithm, want.backend)
     assert (got.distances is None) == (want.distances is None)
     assert got.n == want.n == n and got.n_merges == want.n_merges
     if n < 4096 or want.distances is None:
