@@ -10,8 +10,10 @@ Phases, in order; a failing phase raises and the script exits non-zero:
 2. Hold each kernel against its plain torch version on the card, and time
    both: the LW kernels on a mid-run state with dead slots at n = 1968 and
    n = 16384 (the row update checked for all 7 methods), the row kernel at
-   (m, d) = (1968, 64) and (32768, 128), with the host's time to enqueue
-   one call of the row update and of the row kernel.  A kernel whose operands
+   (m, d) = (1968, 64) and (32768, 128), the pairwise kernel at the landmark
+   assignment's (n, m, d) = (124917, 6155, 128) and the streaming shape
+   (65536, 4096, 128), with the host's time to enqueue one call of the row
+   update, the row kernel and the pairwise kernel.  A kernel whose operands
    fit in half the L2 is timed on L2-resident data, as its caller finds
    them; its bound then takes the L2 read rate measured here (two torch
    reductions over a 16 MiB buffer), else the HBM rate.
@@ -27,9 +29,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    second, profiled run of the whole call, and set the host's time per
    merge against the device's over a window (showing that the loop never
    waits for the card).
-5. The dense NN chain on phase 4's input (``cluster(X, "complete")``,
-   default knobs): its dendrogram equals phase 4's; wall, trips, busy
-   time and idle share.  Phases 5 and 6 read the busy time and the trip
+5. The dense NN chain on the first 8192 of phase 4's points
+   (``cluster(X, "complete")``, default knobs): its dendrogram equals the
+   LW loop's on the same points; wall, trips, busy time and idle share.  Phases 5 and 6 read the busy time and the trip
    count over a profiled run of the chain engine alone.
 6. The matrix-free chain: ``cluster(X, "ward")`` with default knobs on
    n = 32768 points in 128 dimensions (the matrix would be 4 GiB): no
@@ -40,21 +42,39 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    at n = 4096 the matrix-free ward run against the LW loop on the kernel
    backend.
 7. The serial LW backend: ``cluster(X, "centroid")`` with default knobs on
-   phase 4's input resolves to it, reports ``backend="serial"``, launches
+   phase 5's points resolves to it, reports ``backend="serial"``, launches
    no kernel, and gives the kernel backend's dendrogram; wall, busy time,
    idle share and peak memory.  At n = 1968, complete linkage under the
    ``rowmin`` and ``lazy`` variants gives phase 3's merges.
-8. The kernel backend's ``lazy`` variant at n = 16384: one row-update
-   launch a merge and no other kernel, phase 4's merges; wall, busy time,
-   idle share, and host and device ms per merge.  ``rowmin`` and ``lazy``
+8. The kernel backend's ``lazy`` variant on phase 5's points: one
+   row-update launch a merge and no other kernel, phase 5's LW merges; wall, busy time, idle share,
+   and host and device ms per merge.  ``rowmin`` and ``lazy``
    at n = 1968: the fused path's launches, and phase 3's merges.
 9. ``distance_threshold`` at the median merge height of phase 3's run, on
    both LW backends: exactly the merges at or below it.
-10. One line ``{"kernels": [...]}`` with each kernel's numbers, the card's
+10. Streaming assignment: a centroid index at k = 4096 of phase 6's fit and
+    an exemplar index at k = 64 of phase 3's chain fit label 65536 fresh
+    queries of the same mixtures with ``assign(backend="kernel")`` (one
+    pairwise-kernel launch, the profiler agreeing) and ``backend="auto"``:
+    equal labels on every row whose top-two gap exceeds the kernel's
+    tolerance, near-ties counted; wall, busy time and idle share.
+11. The landmark tier: ``cluster(X, "ward", algorithm="landmark")`` on
+    n = 131072 points in 128 dimensions (k = 6155; the matrix would be
+    64 GiB): the reference's query-budget gates, ARI >= 0.95 against the
+    mixture's labels at the 8-cut, the same merges in a profiled second run,
+    peak memory under 32 GiB; ``assign(backend="kernel")`` of the
+    non-landmarks against the run's landmarks gives its groups.  At
+    n = 8192 the landmark run against the exact chain at the 8-cut.
+12. The paper's protein mode: ``cluster(C, "complete", metric="rmsd")`` on
+    1968 conformations of 24 atoms builds its matrix on the card, which
+    agrees with the plain rmsd's on the CPU, and equals the serial LW
+    backend's run on that matrix.
+13. One line ``{"kernels": [...]}`` with each kernel's numbers, the card's
     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counters set to 0 just before it
-and read just after.
+and read just after.  Phases 10-12 run in a child process of this script
+(``--later-phases``), for the profiler's sake (``run_later_phases``).
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.
 """
@@ -62,6 +82,7 @@ Needs one CUDA device and ``nvcc``; exits non-zero without them.
 from __future__ import annotations
 
 import json
+import pickle
 import statistics
 import subprocess
 import sys
@@ -76,7 +97,17 @@ FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 PAPER_N, FULL_N, DIM = 1968, 16384, 64
 CHAIN_N, CHAIN_DIM = 32768, 128  # matrix-free run: 16 MiB of summaries, no 4 GiB matrix
 CROSS_N = 4096                 # matrix-free ward held against the LW loop
+MID_N = 8192                   # phases 5, 7, 8: n = 16384 until the smoke outgrew 700 s
 ROW_SHAPES = ((PAPER_N, DIM), (CHAIN_N, CHAIN_DIM))
+LANDMARK_N, LANDMARK_K = 131072, 6155   # k = ceil(sqrt(n) log2 n); the matrix would be 64 GiB
+LANDMARK_PEAK_LIMIT_GIB = 32.0          # half of that matrix
+LANDMARK_CROSS_N = 8192                 # the landmark run held against the exact chain
+QUERY_N, CENTROID_K, EXEMPLAR_K = 65536, 4096, 64
+PAIRWISE_SHAPES = ((LANDMARK_N - LANDMARK_K, LANDMARK_K, CHAIN_DIM),
+                   (QUERY_N, CENTROID_K, CHAIN_DIM))
+PAIRWISE_RTOL, PAIRWISE_ATOL_SCALE = 1e-4, 1e-6   # atol = scale * max(|x|^2 + |y|^2)
+CUT_K, QUALITY_MIN = 8, 0.95           # the mixtures' 8 components; the reference's gate
+RMSD_N, RMSD_ATOMS, RMSD_ATOL = 1968, 24, 1e-4
 PEAK_LIMIT_GIB = 0.25          # the matrix-free run must stay O(n d)
 PROFILER_MISS_SHARE = 1e-3     # kernel records the profiler may drop in a whole run ...
 PROFILER_MISS_MIN = 50_000     # ... of this many launches or more (fewer: none)
@@ -91,6 +122,7 @@ KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once
     "lw_step": ("lw_step_kernel",),
     "lw_update": ("lw_update_kernel",),
     "row_sq_euclidean": ("row_sq_kernel",),
+    "pairwise_sq_euclidean": ("pairwise_sq_kernel",),
 }
 NO_LAUNCHES = dict.fromkeys(KERNEL_SYMBOLS, 0)
 
@@ -345,6 +377,44 @@ def phase_row(torch, m: int, d: int, l2_rate: float) -> dict:
                 **bound(torch, n_bytes, 3 * m * d, n_bytes, l2_rate))
 
 
+def pairwise_atol(X, Y) -> float:
+    """The pairwise kernel's absolute tolerance: PAIRWISE_ATOL_SCALE times
+    the largest ``|x|^2 + |y|^2``, the scale of the Gram form's
+    cancellation (its relative tolerance is PAIRWISE_RTOL)."""
+    return PAIRWISE_ATOL_SCALE * (float((X * X).sum(1).max()) + float((Y * Y).sum(1).max()))
+
+
+def phase_pairwise(torch, n: int, m: int, d: int, l2_rate: float) -> dict:
+    """The pairwise kernel against its plain version at (n, m, d) on points
+    of one mixture, with the time of the one PyTorch call that gives the
+    same matrix (``cdist``, which also takes the square root) and each
+    one's host time to enqueue a call."""
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.kernels import pairwise
+
+    P = torch.as_tensor(gaussian_mixture(seed=4, n=n + m, dim=d, return_labels=False),
+                        device="cuda")
+    X, Y = P[:n], P[n:]
+    got = pairwise.pairwise_sq_euclidean(X, Y)
+    want = pairwise.pairwise_sq_euclidean_plain(X, Y)
+    torch.cuda.synchronize()
+    atol = pairwise_atol(X, Y)
+    if not torch.allclose(got, want, rtol=PAIRWISE_RTOL, atol=atol):
+        raise AssertionError(f"pairwise_sq_euclidean {(n, m, d)}: kernel differs from plain")
+    err = float((got - want).abs().max())
+    del got, want
+    # read X and Y once, write the matrix; a multiply and an add per element
+    # of the product (the norms and the epilogue are O(n m + (n + m) d) more)
+    n_bytes = 4 * (n * d + m * d + n * m)
+    return dict(n=n, m=m, d=d, max_abs_err=err, rtol=PAIRWISE_RTOL, atol=atol,
+                ms=time_ms(torch, lambda: pairwise.pairwise_sq_euclidean(X, Y), reps=5),
+                plain_ms=time_ms(torch, lambda: pairwise.pairwise_sq_euclidean_plain(X, Y), reps=5),
+                library_ms=time_ms(torch, lambda: torch.cdist(X, Y), reps=5),
+                host_us=host_us(torch, lambda: pairwise.pairwise_sq_euclidean(X, Y)),
+                plain_host_us=host_us(torch, lambda: pairwise.pairwise_sq_euclidean_plain(X, Y)),
+                **bound(torch, n_bytes, 2 * n * m * d, n_bytes, l2_rate))
+
+
 def plain_engine_merges(torch, X, method: str, n_steps: int):
     """The same problem through the engine with the plain step functions."""
     from repro_torch.core import engine
@@ -366,6 +436,7 @@ def reset_counters() -> None:
     lw_step.lw_step.launches = 0
     lw_update.lw_update.launches = 0
     pairwise.row_sq_euclidean.launches = 0
+    pairwise.pairwise_sq_euclidean.launches = 0
 
 
 def read_counters() -> dict:
@@ -373,7 +444,8 @@ def read_counters() -> dict:
 
     return {"masked_argmin": minscan.masked_argmin.launches, "lw_step": lw_step.lw_step.launches,
             "lw_update": lw_update.lw_update.launches,
-            "row_sq_euclidean": pairwise.row_sq_euclidean.launches}
+            "row_sq_euclidean": pairwise.row_sq_euclidean.launches,
+            "pairwise_sq_euclidean": pairwise.pairwise_sq_euclidean.launches}
 
 
 def check_launches(got: dict, want: dict, what: str) -> None:
@@ -525,7 +597,9 @@ def phase_paper(torch, np) -> dict:
     if (chain.algorithm, chain.backend) != ("nnchain", "serial"):
         raise AssertionError(f"default knobs ran {chain.algorithm}/{chain.backend}, want nnchain")
     check_equivalent(np, chain.merges, res.merges, n, "paper chain vs LW loop")
-    return X, res.merges, stats
+    # kept for phase 10's exemplar index, on the host: out of later peaks
+    chain.distances = chain.distances.cpu()
+    return X, res.merges, chain, stats
 
 
 def phase_full(torch, np) -> dict:
@@ -546,15 +620,20 @@ def phase_full(torch, np) -> dict:
     return X, res.merges, stats
 
 
-def phase_dense_chain(torch, np, X, lw_merges) -> dict:
-    """``cluster(X, "complete")`` with default knobs at n = 16384: the dense
-    chain, held against phase 4's LW merges."""
+def phase_dense_chain(torch, np, X):
+    """``cluster(X, "complete")`` with default knobs: the dense chain, held
+    against the LW loop on the kernel backend on the same points.  Returns
+    the LW merges and the chain's numbers."""
     from repro_torch.core import cluster
     from repro_torch.core.api import build_distance_matrix
     from repro_torch.core.dendrogram import validate_merges
     from repro_torch.core.nnchain import nn_chain
 
     n = X.shape[0]
+    lw, lw_stats = timed(torch, lambda: cluster(X, "complete", algorithm="lw", backend="kernel",
+                                                keep_inputs=False))
+    check_launches(lw_stats["launches"], {"masked_argmin": 1, "lw_step": n - 1}, f"LW run n={n}")
+    lw_merges = lw.merges
     res, stats = timed(torch, lambda: cluster(X, "complete"))
     check_launches(stats["launches"], {}, "dense chain run")
     if (res.algorithm, res.backend) != ("nnchain", "serial") or res.distances is None:
@@ -570,7 +649,8 @@ def phase_dense_chain(torch, np, X, lw_merges) -> dict:
         raise AssertionError(f"dense chain recorded {chain.n_merges} merges, want {n - 1}")
     stats.update(busy)
     stats.update(per_step(stats, chain.iters, "trip"))
-    return stats
+    stats["lw_wall_s"] = lw_stats["wall_s"]
+    return lw_merges, stats
 
 
 def points_chain(torch, X, method: str, row_sq):
@@ -630,7 +710,7 @@ def phase_points_chain(torch, np) -> dict:
             plain = run
     check_equivalent(np, res.merges, canonical_order(plain.merges.cpu().numpy(), n=n), n,
                      f"matrix-free chain vs plain-row chain n={n}")
-    return stats
+    return res, stats
 
 
 def phase_cross(torch, np) -> dict:
@@ -655,8 +735,8 @@ def phase_cross(torch, np) -> dict:
 
 
 def phase_serial(torch, np, X, paper_X, paper_merges) -> dict:
-    """``cluster(X, "centroid")`` with default knobs at n = 16384: the
-    serial LW backend, held against the kernel backend; then the serial
+    """``cluster(X, "centroid")`` with default knobs: the serial LW
+    backend, held against the kernel backend; then the serial
     ``rowmin`` and ``lazy`` variants at n = 1968 against phase 3."""
     from repro_torch.core import cluster
     from repro_torch.core.dendrogram import validate_merges
@@ -691,9 +771,9 @@ def phase_serial(torch, np, X, paper_X, paper_merges) -> dict:
 
 
 def phase_lazy(torch, np, X, lw_merges, paper_X, paper_merges) -> dict:
-    """The kernel backend's ``lazy`` variant at n = 16384 (the row-update
-    kernel, once a merge) against phase 4; ``rowmin`` and ``lazy`` at
-    n = 1968 against phase 3."""
+    """The kernel backend's ``lazy`` variant (the row-update kernel, once a
+    merge) against phase 5's LW merges on the same points; ``rowmin`` and
+    ``lazy`` at n = 1968 against phase 3."""
     from repro_torch.core import cluster
 
     n = X.shape[0]
@@ -704,7 +784,7 @@ def phase_lazy(torch, np, X, lw_merges, paper_X, paper_merges) -> dict:
 
     res, stats = timed(torch, call)
     check_launches(stats["launches"], {"lw_update": n - 1}, "kernel lazy run")
-    check_merges(np, res.merges, lw_merges, f"kernel lazy vs phase 4, n={n}")
+    check_merges(np, res.merges, lw_merges, f"kernel lazy vs phase 5's LW run, n={n}")
     stats.update(device_busy(torch, call, stats["wall_s"], stats["launches"])[1])
     stats.update(per_step(stats, n - 1, "merge"))
     for variant, launches in (("rowmin", {"masked_argmin": 1, "lw_step": PAPER_N - 1}),
@@ -742,8 +822,241 @@ def phase_threshold(torch, np, paper_X, paper_merges) -> dict:
     return out
 
 
+def check_labels(torch, np, got, want, Q, reps, what: str) -> dict:
+    """Labels from two routes agree on every row whose top-two gap exceeds
+    the pairwise kernel's tolerance (twice it: both distances carry it);
+    rows under it are near-ties, which may go either way.  Returns the
+    counts of near-tie rows and of rows that differ."""
+    from repro_torch.kernels.pairwise import pairwise_sq_euclidean_plain
+
+    Qt = torch.as_tensor(Q, device="cuda")
+    R = torch.as_tensor(reps, device="cuda")
+    D = pairwise_sq_euclidean_plain(Qt, R)
+    atol = pairwise_atol(Qt, R)
+    if R.shape[0] >= 2:
+        top2 = torch.topk(D, 2, dim=1, largest=False).values
+        near = (top2[:, 1] - top2[:, 0]) <= 2 * (PAIRWISE_RTOL * top2[:, 1] + atol)
+    else:
+        near = torch.zeros(D.shape[0], dtype=torch.bool, device="cuda")
+    del D
+    near = near.cpu().numpy()
+    differ = np.asarray(got) != np.asarray(want)
+    if np.any(differ & ~near):
+        bad = np.flatnonzero(differ & ~near)
+        raise AssertionError(f"{what}: {bad.size} labels differ away from any near-tie, "
+                             f"first at row {bad[:3]}")
+    return dict(near_tie_rows=int(near.sum()), differing_rows=int(differ.sum()))
+
+
+def build_indexes(paper_chain, points_res) -> dict:
+    """Phase 10's indexes: the centroids of phase 6's fit at k = 4096 and
+    the exemplars of phase 3's chain fit at k = 64."""
+    from repro_torch.service.assign import build_index
+
+    t0 = time.perf_counter()
+    indexes = {"centroid": build_index(points_res, CENTROID_K, kind="centroid"),
+               "exemplar": build_index(paper_chain, EXEMPLAR_K, kind="exemplar")}
+    return dict(indexes=indexes, index_build_s=time.perf_counter() - t0)
+
+
+def phase_assign(torch, np, indexes: dict, index_build_s: float) -> dict:
+    """Streaming assignment on phase 10's two indexes, each labeling
+    QUERY_N fresh points of its fit's mixture (the same seed draws the
+    same centers first) through the kernel and the Gram builder."""
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.service.assign import assign
+
+    out = {"index_build_s": index_build_s}
+    for kind, idx in indexes.items():
+        Q = gaussian_mixture(seed=0, n=QUERY_N, dim=idx.reps.shape[1], return_labels=False)
+        row = dict(k=idx.k, d=idx.reps.shape[1], queries=QUERY_N)
+        labels = {}
+        for backend, want in (("kernel", {"pairwise_sq_euclidean": 1}), ("auto", {})):
+            def call():
+                return assign(idx, Q, backend=backend)
+
+            labels[backend], s = timed(torch, call)
+            check_launches(s["launches"], want, f"{kind} index, backend={backend}")
+            s.update(device_busy(torch, call, s["wall_s"], s["launches"])[1])
+            row[backend] = {key: s[key] for key in ("wall_s", "device_busy_s", "idle_share",
+                                                    "peak_gib", "launches")}
+            row[backend]["pairwise_profiled_ms"] = s["kernel_ms_mean"]["pairwise_sq_euclidean"]
+        row.update(check_labels(torch, np, labels["kernel"], labels["auto"], Q, idx.reps,
+                                f"{kind} index: kernel vs auto labels"))
+        out[kind] = row
+    return out
+
+
+def phase_landmark(torch, np) -> dict:
+    """``cluster(X, "ward", algorithm="landmark")`` at n = 131072, d = 128;
+    then B4 on the run's own landmark index; then at n = 8192 the landmark
+    run against the exact chain."""
+    from repro_torch.core import cluster, count_distance_queries
+    from repro_torch.core.dendrogram import (
+        adjusted_rand_index, cut, cut_label_agreement, is_monotone, validate_merges)
+    from repro_torch.core.landmark import default_landmark_count, landmark_cluster
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.service.assign import AssignIndex, assign
+
+    n, k = LANDMARK_N, LANDMARK_K
+    if default_landmark_count(n) != k:
+        raise AssertionError(f"default landmark count {default_landmark_count(n)}, want {k}")
+    X, truth = gaussian_mixture(seed=0, n=n, dim=CHAIN_DIM)
+    with count_distance_queries() as budget:
+        res, stats = timed(torch, lambda: cluster(X, "ward", algorithm="landmark"))
+    q, tags = budget.queries, budget.by_tag
+    if not (q <= 3 * (n * k + k * k) and q < n * n and tags["sq_euclidean"] == (n - k) * k
+            and tags["landmark_chain"] % k == 0 and tags["landmark_chain"] <= (4 * k + 8) * k):
+        raise AssertionError(f"landmark budget fails the reference's gates: {budget}")
+    trips = tags["landmark_chain"] // k
+    check_launches(stats["launches"], {"row_sq_euclidean": trips}, "landmark run")
+    if (res.algorithm, res.backend, res.distances) != ("landmark", "serial", None):
+        raise AssertionError(f"landmark run ran {res.algorithm}/{res.backend}")
+    if stats["peak_gib"] >= LANDMARK_PEAK_LIMIT_GIB:
+        raise AssertionError(f"landmark peak memory {stats['peak_gib']:.3f} GiB, "
+                             f"limit {LANDMARK_PEAK_LIMIT_GIB} GiB")
+    validate_merges(res.merges, n=n)
+    if not is_monotone(res.merges):
+        raise AssertionError("landmark merges are not monotone")
+    ari = adjusted_rand_index(res.labels(CUT_K), truth)
+    if ari < QUALITY_MIN:
+        raise AssertionError(f"landmark ARI at the {CUT_K}-cut {ari:.4f} < {QUALITY_MIN}")
+    stats.update(queries=q, queries_by_tag=dict(tags), k=k, trips=trips, ari=ari)
+
+    # the tier alone, profiled: the same merges (seeded determinism)
+    lm, busy = device_busy(torch, lambda: landmark_cluster(X, "ward"), stats["wall_s"],
+                           stats["launches"])
+    if not np.array_equal(lm.merges, res.merges):
+        raise AssertionError("the profiled landmark run gave other merges")
+    stats.update(busy)
+
+    # B4 on the run's own landmark index: the groups of the non-landmarks
+    rest = np.setdiff1d(np.arange(n), lm.landmarks)
+    idx = AssignIndex(reps=X[lm.landmarks], metric="sqeuclidean", kind="landmark")
+    labels, s = timed(torch, lambda: assign(idx, X[rest], backend="kernel"))
+    check_launches(s["launches"], {"pairwise_sq_euclidean": 1}, "landmark index assignment")
+    stats["kernel_assign"] = dict(queries=int(rest.size), wall_s=s["wall_s"],
+                                  peak_gib=s["peak_gib"],
+                                  **check_labels(torch, np, labels, lm.group_labels[rest],
+                                                 X[rest], idx.reps,
+                                                 "kernel labels vs the landmark groups"))
+    del res, lm, labels, X
+
+    # against the exact chain at n = 8192
+    n8 = LANDMARK_CROSS_N
+    X8, truth8 = gaussian_mixture(seed=0, n=n8, dim=CHAIN_DIM)
+    approx, s_lm = timed(torch, lambda: cluster(X8, "ward", algorithm="landmark"))
+    exact, s_ex = timed(torch, lambda: cluster(X8, "ward"))
+    if exact.algorithm != "nnchain" or exact.distances is not None:
+        raise AssertionError(f"n={n8} ward ran {exact.algorithm}, want the matrix-free chain")
+    agree = cut_label_agreement(approx.merges, exact.merges, CUT_K, n=n8)
+    ari8 = adjusted_rand_index(cut(approx.merges, CUT_K, n=n8), truth8)
+    if agree < QUALITY_MIN or ari8 < QUALITY_MIN:
+        raise AssertionError(f"n={n8}: landmark vs exact agreement {agree:.4f}, ARI {ari8:.4f}")
+    stats["cross"] = dict(n=n8, landmark_wall_s=s_lm["wall_s"], exact_wall_s=s_ex["wall_s"],
+                          cut_label_agreement=agree, ari=ari8)
+    return stats
+
+
+def phase_rmsd(torch, np) -> dict:
+    """The paper's protein mode at its size: ``cluster(C, "complete",
+    metric="rmsd")`` builds the rmsd matrix on the card and runs the
+    default knobs' dense chain on it.  Its matrix is held against the one
+    the plain rmsd builds on the CPU, and its dendrogram against the
+    serial LW backend's on the same matrix.  (On the CPU's matrix the
+    dendrogram differs by float noise: ~330 conformations of one fold lie
+    at RMSD ~0.34 from each other, so merge heights tie within the two
+    builds' ~1e-5 difference; the count of clusters that differ there is
+    printed, not gated.)"""
+    from repro_torch.core import build_distance_matrix, cluster
+    from repro_torch.core.dendrogram import merge_leafsets
+    from repro_torch.data.synthetic import conformations
+
+    n = RMSD_N
+    C, _ = conformations(seed=0, n=n, atoms=RMSD_ATOMS)
+    res, stats = timed(torch, lambda: cluster(C, "complete", metric="rmsd"))
+    check_launches(stats["launches"], {}, "rmsd run")
+    if (res.algorithm, res.backend, res.metric) != ("nnchain", "serial", "rmsd"):
+        raise AssertionError(f"rmsd run ran {res.algorithm}/{res.backend}/{res.metric}")
+    D_card = res.distances.cpu()
+    t0 = time.perf_counter()
+    D_cpu = build_distance_matrix(C, "rmsd", device="cpu")
+    stats["cpu_build_s"] = time.perf_counter() - t0
+    _, s = timed(torch, lambda: build_distance_matrix(C, "rmsd"))
+    stats["card_build_s"] = s["wall_s"]
+    err = float((D_card - D_cpu).abs().max())
+    if not torch.allclose(D_card, D_cpu, rtol=RTOL, atol=RMSD_ATOL):
+        raise AssertionError(f"rmsd matrix on the card differs from the CPU's by {err}")
+    serial, s = timed(torch, lambda: cluster(D_card.numpy(), "complete", algorithm="lw",
+                                             backend="serial", keep_inputs=False))
+    check_equivalent(np, res.merges, serial.merges, n, "rmsd chain vs serial LW, one matrix")
+    on_cpu_matrix = cluster(D_cpu.numpy(), "complete", algorithm="lw", backend="serial",
+                            keep_inputs=False)
+    differ = len(set(merge_leafsets(res.merges, n)) - set(merge_leafsets(on_cpu_matrix.merges, n)))
+    stats.update(n=n, atoms=RMSD_ATOMS, matrix_max_abs_err=err, serial_wall_s=s["wall_s"],
+                 clusters_differing_on_cpu_matrix=differ)
+    return stats
+
+
+LATER_PHASES_FLAG = "--later-phases"
+
+
+def run_later_phases(torch, indexes: dict) -> dict:
+    """Phases 10-12 in a fresh process: ``python3 chip_smoke.py
+    --later-phases``, phase 10's indexes pickled on its standard input.
+
+    After a profiling session of some 10^5 records, later sessions of the
+    same process lose records at random (on an H100 80GB HBM3 with torch
+    2.11: a session of one assign call, five device records, saw none of
+    them in about half the tries, while the first sessions of a process
+    saw every record), and these phases profile short runs.  The child prints its phase lines and, last,
+    one JSON object of their numbers; it is waited for."""
+    torch.cuda.empty_cache()
+    spec = dict(indexes, elapsed=time.perf_counter() - T0)
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), LATER_PHASES_FLAG],
+                          input=pickle.dumps(spec), stdout=subprocess.PIPE, timeout=1100)
+    lines = proc.stdout.decode().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if proc.returncode != 0 or not lines:
+        print("\n".join(lines[-1:]), flush=True)
+        raise AssertionError(f"phases 10-12 failed (exit code {proc.returncode})")
+    return json.loads(lines[-1])
+
+
+def phases_10_to_12(torch, np, spec: dict) -> dict:
+    # 10. streaming assignment
+    assigned = phase_assign(torch, np, spec["indexes"], spec["index_build_s"])
+    say(f"phase 10 streaming assignment of {QUERY_N} queries: " + json.dumps(assigned))
+    torch.cuda.empty_cache()
+
+    # 11. the landmark tier
+    landmark = phase_landmark(torch, np)
+    say(f"phase 11 landmark tier n={LANDMARK_N} d={CHAIN_DIM} ward: " + json.dumps(landmark))
+    torch.cuda.empty_cache()
+
+    # 12. rmsd
+    rmsd = phase_rmsd(torch, np)
+    say(f"phase 12 rmsd n={RMSD_N} atoms={RMSD_ATOMS} complete: " + json.dumps(rmsd))
+    return dict(assigned=assigned, landmark=landmark, rmsd=rmsd)
+
+
+def later_phases() -> int:
+    """The child of :func:`run_later_phases`."""
+    import numpy as np
+    import torch
+
+    global T0
+    spec = pickle.load(sys.stdin.buffer)
+    T0 = time.perf_counter() - spec["elapsed"]
+    if not torch.cuda.is_available():
+        raise AssertionError("phases 10-12: no CUDA device")
+    print(json.dumps(phases_10_to_12(torch, np, spec)), flush=True)
+    return 0
+
+
 def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
-            serial: dict, lazy: dict) -> str:
+            serial: dict, lazy: dict, assigned: dict, landmark: dict, rmsd: dict) -> str:
     """The numbers a reader checks first, on one line near the end."""
     def g(x):
         return f"{x:.6g}"
@@ -755,20 +1068,37 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
                      f"idle {g(s['idle_share'])} host/device ms per merge "
                      f"{g(s['host_ms_per_merge'])}/{g(s['device_ms_per_merge'])} "
                      f"peak_gib {g(s['peak_gib'])}")
-    for label, s in (("dense chain", dense), ("matrix-free chain", points)):
+    for label, s in ((f"dense chain n={MID_N}", dense), ("matrix-free chain", points)):
         parts.append(f"{label} wall_s {g(s['wall_s'])} trips {s['trips']} busy_s "
                      f"{g(s['device_busy_s'])} idle {g(s['idle_share'])} host/device ms per trip "
                      f"{g(s['host_ms_per_trip'])}/{g(s['device_ms_per_trip'])} "
                      f"peak_gib {g(s['peak_gib'])}")
     parts.append("matrix-free chain loop wall_s by row " +
                  " ".join(f"{name} {g(wall)}" for name, wall in points["row_ab_wall_s"]))
-    parts.append(f"serial centroid wall_s {g(serial['wall_s'])} busy_s {g(serial['device_busy_s'])} "
+    parts.append(f"serial centroid n={MID_N} wall_s {g(serial['wall_s'])} busy_s {g(serial['device_busy_s'])} "
                  f"idle {g(serial['idle_share'])} peak_gib {g(serial['peak_gib'])} "
                  f"(kernel backend wall_s {g(serial['kernel_wall_s'])})")
-    parts.append(f"kernel lazy wall_s {g(lazy['wall_s'])} busy_s {g(lazy['device_busy_s'])} "
+    parts.append(f"kernel lazy n={MID_N} wall_s {g(lazy['wall_s'])} busy_s {g(lazy['device_busy_s'])} "
                  f"idle {g(lazy['idle_share'])} host/device ms per merge "
                  f"{g(lazy['host_ms_per_merge'])}/{g(lazy['device_ms_per_merge'])} "
                  f"peak_gib {g(lazy['peak_gib'])}")
+    for kind in ("centroid", "exemplar"):
+        a = assigned[kind]
+        parts.append(f"assign {kind} k={a['k']} kernel wall_s {g(a['kernel']['wall_s'])} busy_s "
+                     f"{g(a['kernel']['device_busy_s'])} idle {g(a['kernel']['idle_share'])}; "
+                     f"auto wall_s {g(a['auto']['wall_s'])} busy_s {g(a['auto']['device_busy_s'])}; "
+                     f"near-tie rows {a['near_tie_rows']} differing {a['differing_rows']}")
+    parts.append(f"landmark n={LANDMARK_N} k={landmark['k']} wall_s {g(landmark['wall_s'])} "
+                 f"busy_s {g(landmark['device_busy_s'])} idle {g(landmark['idle_share'])} "
+                 f"trips {landmark['trips']} queries {landmark['queries']} ari {g(landmark['ari'])} "
+                 f"peak_gib {g(landmark['peak_gib'])}; kernel assign wall_s "
+                 f"{g(landmark['kernel_assign']['wall_s'])} near-tie rows "
+                 f"{landmark['kernel_assign']['near_tie_rows']}; n={landmark['cross']['n']} "
+                 f"agreement {g(landmark['cross']['cut_label_agreement'])}")
+    parts.append(f"rmsd n={rmsd['n']} wall_s {g(rmsd['wall_s'])} card build_s "
+                 f"{g(rmsd['card_build_s'])} cpu build_s {g(rmsd['cpu_build_s'])} matrix err "
+                 f"{g(rmsd['matrix_max_abs_err'])} clusters differing on the CPU's matrix "
+                 f"{rmsd['clusters_differing_on_cpu_matrix']}")
     return "summary: " + "; ".join(parts)
 
 
@@ -817,9 +1147,14 @@ def main() -> int:
         say(f"phase 2 row_sq_euclidean m={m} d={d}: " + json.dumps(row))
         kernels[("row_sq_euclidean", m)] = row
     torch.cuda.empty_cache()
+    for n, m, d in PAIRWISE_SHAPES:
+        row = phase_pairwise(torch, n, m, d, l2_rate)
+        say(f"phase 2 pairwise_sq_euclidean n={n} m={m} d={d}: " + json.dumps(row))
+        kernels[("pairwise_sq_euclidean", n)] = row
+        torch.cuda.empty_cache()
 
     # 3. the paper's configuration
-    X_paper, paper_merges, paper = phase_paper(torch, np)
+    X_paper, paper_merges, paper_chain, paper = phase_paper(torch, np)
     say(f"phase 3 paper n={PAPER_N} complete: " + json.dumps(paper))
     torch.cuda.empty_cache()
 
@@ -828,44 +1163,54 @@ def main() -> int:
     say(f"phase 4 full n={FULL_N} complete: " + json.dumps(full))
     torch.cuda.empty_cache()
 
-    # 5. the dense chain on phase 4's input
-    dense = phase_dense_chain(torch, np, X_full, lw_merges)
-    say(f"phase 5 dense chain n={FULL_N} complete: " + json.dumps(dense))
+    # 5. the dense chain on the first MID_N of phase 4's points
+    X_mid = X_full[:MID_N]
+    del X_full, lw_merges
+    mid_merges, dense = phase_dense_chain(torch, np, X_mid)
+    say(f"phase 5 dense chain n={MID_N} complete: " + json.dumps(dense))
     torch.cuda.empty_cache()
 
     # 6. the matrix-free chain, and against the LW loop at n = 4096
-    points = phase_points_chain(torch, np)
+    points_res, points = phase_points_chain(torch, np)
     say(f"phase 6 matrix-free chain n={CHAIN_N} d={CHAIN_DIM} ward: " + json.dumps(points))
     cross = phase_cross(torch, np)
     say(f"phase 6 matrix-free chain vs LW loop n={CROSS_N} ward: " + json.dumps(cross))
     torch.cuda.empty_cache()
 
     # 7. the serial LW backend
-    serial = phase_serial(torch, np, X_full, X_paper, paper_merges)
-    say(f"phase 7 serial LW backend n={FULL_N} centroid: " + json.dumps(serial))
+    serial = phase_serial(torch, np, X_mid, X_paper, paper_merges)
+    say(f"phase 7 serial LW backend n={MID_N} centroid: " + json.dumps(serial))
     torch.cuda.empty_cache()
 
     # 8. the kernel backend's lazy variant
-    lazy = phase_lazy(torch, np, X_full, lw_merges, X_paper, paper_merges)
-    say(f"phase 8 kernel lazy n={FULL_N} complete: " + json.dumps(lazy))
-    del X_full, lw_merges
+    lazy = phase_lazy(torch, np, X_mid, mid_merges, X_paper, paper_merges)
+    say(f"phase 8 kernel lazy n={MID_N} complete: " + json.dumps(lazy))
+    del X_mid, mid_merges
     torch.cuda.empty_cache()
 
     # 9. distance_threshold on both LW backends
     threshold = phase_threshold(torch, np, X_paper, paper_merges)
     say(f"phase 9 distance_threshold n={PAPER_N} complete: " + json.dumps(threshold))
 
-    # 10. inventory, card, result
+    # 10-12 run in a process of their own (run_later_phases says why)
+    later = run_later_phases(torch, build_indexes(paper_chain, points_res))
+    assigned, landmark, rmsd = later["assigned"], later["landmark"], later["rmsd"]
+
+    # 13. inventory, card, result
     src = {"masked_argmin": ("src/repro_torch/csrc/minscan.cu", "src/repro/kernels/minscan.py:71"),
            "lw_step": ("src/repro_torch/csrc/lw_step.cu", "src/repro/kernels/lw_step.py:154"),
            "lw_update": ("src/repro_torch/csrc/lw_update.cu", "src/repro/kernels/lw_update.py:72"),
            "row_sq_euclidean": ("src/repro_torch/csrc/row_sq.cu",
-                                "src/repro/kernels/pairwise.py:148")}
+                                "src/repro/kernels/pairwise.py:148"),
+           "pairwise_sq_euclidean": ("src/repro_torch/csrc/pairwise.cu",
+                                     "src/repro/kernels/pairwise.py:60")}
     inventory = []
     for name, key, path in (("masked_argmin", ("masked_argmin", FULL_N), full),
                             ("lw_step", ("lw_step/complete", FULL_N), full),
                             ("lw_update", ("lw_update/complete", FULL_N), lazy),
-                            ("row_sq_euclidean", ("row_sq_euclidean", CHAIN_N), points)):
+                            ("row_sq_euclidean", ("row_sq_euclidean", CHAIN_N), points),
+                            ("pairwise_sq_euclidean", ("pairwise_sq_euclidean", QUERY_N),
+                             assigned["centroid"]["kernel"])):
         row = kernels[key]
         inventory.append(dict(
             name=name, route="cuda", source=src[name][0], replaces=src[name][1],
@@ -874,7 +1219,7 @@ def main() -> int:
             bound_by=row["bound_by"], library_ms=row.get("library_ms"), n=key[1],
             bound_bytes_per_s=row["bound_bytes_per_s"],
         ))
-    print(summary(kernels, paper, full, dense, points, serial, lazy))
+    print(summary(kernels, paper, full, dense, points, serial, lazy, assigned, landmark, rmsd))
     print(json.dumps({"kernels": inventory}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -884,4 +1229,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(later_phases() if sys.argv[1:] == [LATER_PHASES_FLAG] else main())

@@ -8,6 +8,8 @@ merge-loop state.  :func:`lwstate_from_numpy` builds the port's
 :class:`~repro_torch.core.nnchain.NNState` from a JAX chain's geometric
 summaries, so both packages can resume from the same mid-run state;
 :func:`to_numpy` turns the port's states and results back into numpy.
+The streaming labeler's ``AssignIndex`` and the landmark tier's results
+hold numpy arrays in both packages, so they need no conversion.
 """
 
 from __future__ import annotations

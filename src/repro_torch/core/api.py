@@ -2,12 +2,13 @@
 
 Counterpart of :mod:`repro.core.api`, for the parts this port runs: the
 NN-chain engine (dense, and matrix-free on points) behind the default
-knobs, and the Lance-Williams merge loop on the serial and kernel
-backends.
-``cluster(...)`` takes raw ``(n, d)`` points or a pre-built ``(n, n)``
-distance matrix, resolves ``algorithm``/``backend``/``matrix_free`` as
-the JAX package's ``cluster`` does on one device, and returns a
-:class:`ClusterResult`.  The knobs are documented once, in
+knobs, the Lance-Williams merge loop on the serial and kernel backends,
+and the landmark tier.
+``cluster(...)`` takes raw ``(n, d)`` points, ``(n, atoms, 3)``
+conformations (``metric="rmsd"``) or a pre-built ``(n, n)`` distance
+matrix, resolves ``algorithm``/``backend``/``matrix_free`` and the
+landmark knobs as the JAX package's ``cluster`` does on one device, and
+returns a :class:`ClusterResult`.  The knobs are documented once, in
 :func:`repro.core.api.cluster`.
 """
 
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import dendrogram as dg
-from repro_torch.core.distance import pairwise_euclidean, pairwise_sq_euclidean
+from repro_torch.core.distance import pairwise_euclidean, pairwise_rmsd, pairwise_sq_euclidean
 from repro_torch.core.engine import resolve_device, symmetrize
 from repro_torch.core.linkage import METHODS, default_metric
 from repro_torch.core.nnchain import (
@@ -34,7 +35,6 @@ from repro_torch.core.nnchain import (
 #: with the ROADMAP.md item that ports each.
 _NOT_PORTED_ALGORITHMS = {
     "twophase": "A10 (distributed)",
-    "landmark": "A8 (landmark tier and streaming assignment, with kernel B4)",
 }
 _NOT_PORTED_BACKENDS = {
     "distributed": "A10 (distributed)",
@@ -114,10 +114,14 @@ class ClusterResult:
 
 
 def build_distance_matrix(X, metric: str = "euclidean", *, device=None) -> torch.Tensor:
-    """``(n, d)`` points → ``(n, n)`` float32 distances on ``device``."""
+    """``(n, d)`` points (``(n, atoms, 3)`` conformations for ``rmsd``) →
+    ``(n, n)`` float32 distances on ``device``."""
     X = np.asarray(X)
     if metric == "rmsd":
-        raise NotImplementedError("the rmsd metric is not ported yet: ROADMAP.md A2")
+        if X.ndim != 3 or X.shape[-1] != 3:
+            raise ValueError("rmsd metric expects (n, atoms, 3) conformations")
+        return pairwise_rmsd(torch.as_tensor(X, dtype=torch.float32,
+                                             device=resolve_device(device)))
     if X.ndim != 2:
         raise ValueError(f"expected (n, d) points, got {X.shape}")
     if metric not in ("euclidean", "sqeuclidean"):
@@ -191,6 +195,9 @@ def cluster(
     compaction: bool | str = "auto",
     matrix_free: bool | str = "auto",
     keep_inputs: bool = True,
+    n_landmarks: int | None = None,
+    seed: int = 0,
+    refine: int = 0,
     device=None,
 ) -> ClusterResult:
     """Hierarchically cluster *data*.
@@ -207,10 +214,15 @@ def cluster(
     and ``distance_threshold`` cut its canonical merge list afterwards.
     Otherwise the LW merge loop runs: in plain torch on the serial
     backend, on the CUDA kernels on ``backend="kernel"``, each with every
-    ``variant``, ``stop_at_k`` and ``distance_threshold``.  Engines and
-    knobs not ported yet (``compaction=True``, the distributed backend,
-    the two-phase and landmark engines) raise ``NotImplementedError``
-    naming the ROADMAP.md item that ports them.  ``device`` defaults to
+    ``variant``, ``stop_at_k`` and ``distance_threshold``.
+    ``algorithm="landmark"`` runs the landmark tier
+    (:func:`repro_torch.core.landmark.landmark_cluster`) on points or
+    conformations, with ``n_landmarks``, ``seed`` and ``refine``; an
+    explicit ``n_landmarks`` or ``refine`` makes ``"auto"`` mean it and
+    contradicts any other explicit engine.  Engines and knobs not ported
+    yet (``compaction=True``, the distributed backend, the two-phase
+    engine) raise ``NotImplementedError`` naming the ROADMAP.md item that
+    ports them.  ``device`` defaults to
     CUDA and raises without it; ``device="cpu"`` runs the plain torch
     versions of the kernels.
     ``keep_inputs`` stores the input on the result (for
@@ -240,6 +252,20 @@ def cluster(
             )
         if algorithm == "auto":
             algorithm = "nnchain"
+    if n_landmarks is not None or refine != 0:
+        # the landmark knobs name the landmark tier, as matrix_free=True
+        # names the chain
+        if algorithm == "auto":
+            algorithm = "landmark"
+        elif algorithm != "landmark":
+            raise ValueError(
+                f"n_landmarks/refine belong to the landmark tier, but "
+                f"algorithm={algorithm!r} pins a different engine"
+            )
+    if algorithm == "landmark":
+        return _cluster_landmark(points, method, used_metric, backend, stop_at_k,
+                                 distance_threshold, keep_inputs, n_landmarks, seed,
+                                 refine, dev)
     if algorithm in _NOT_PORTED_ALGORITHMS:
         raise NotImplementedError(
             f"algorithm={algorithm!r} is not ported yet: ROADMAP.md "
@@ -296,4 +322,46 @@ def cluster(
         points=points if keep_inputs else None,
         distances=D if keep_inputs else None,
         metric=used_metric,
+    )
+
+
+def _cluster_landmark(points, method, metric, backend, stop_at_k, distance_threshold,
+                      keep_inputs, n_landmarks, seed, refine, dev) -> ClusterResult:
+    """``cluster(..., algorithm="landmark")``: validate, run the tier, and
+    truncate its canonical merges."""
+    from repro_torch.core.landmark import LANDMARK_METRICS, landmark_cluster
+
+    if points is None:
+        raise ValueError(
+            "algorithm='landmark' samples landmarks from coordinates "
+            "and assigns the rest through the streaming labeler: it "
+            "needs (n, d) points or (n, atoms, 3) conformations, not "
+            "a pre-built distance matrix (which already paid the "
+            "Ω(n²) evaluations this tier exists to avoid)"
+        )
+    if metric not in LANDMARK_METRICS:
+        raise ValueError(
+            f"algorithm='landmark' supports metrics {LANDMARK_METRICS} "
+            f"(the assignment labeler's), got {metric!r}"
+        )
+    backend = "serial" if backend == "auto" else backend
+    if backend != "serial":
+        raise ValueError(
+            f"algorithm='landmark' is single-device (the whole point "
+            f"is that n·k work fits one host), got backend={backend!r}"
+        )
+    n = int(points.shape[0])
+    res = landmark_cluster(points, method, metric=metric, n_landmarks=n_landmarks,
+                           seed=seed, refine=refine, device=dev)
+    # heights are already monotone-repaired and canonical: only truncate
+    merges = dg.truncate_canonical(res.merges, n, stop_at_k, distance_threshold)
+    return ClusterResult(
+        merges=merges,
+        method=method,
+        backend=backend,
+        algorithm="landmark",
+        n_leaves=n,
+        points=points if keep_inputs else None,
+        distances=None,
+        metric=metric,
     )

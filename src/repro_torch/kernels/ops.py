@@ -1,9 +1,11 @@
-"""The kernel-backend entry point of the merge loop.
+"""The public wrappers of the kernel backend: the merge loop and the
+pairwise distance build.
 
-Counterpart of :func:`repro.kernels.ops.lance_williams_kernelized`.  The
-TPU wrappers padded every matrix to a 128-lane multiple and picked
-interpret mode off the TPU; the CUDA kernels take the raw ``n`` and mask
-their own ragged edge, so neither is needed here.
+Counterpart of :func:`repro.kernels.ops.lance_williams_kernelized` and
+:func:`repro.kernels.ops.pairwise`.  The TPU wrappers padded every operand
+to a 128-lane multiple and picked interpret mode off the TPU; the CUDA
+kernels take the raw sizes and mask their own ragged edges, so neither is
+needed here.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from repro_torch.core.engine import (
     run_kernel,
     symmetrize,
 )
+from repro_torch.kernels.pairwise import pairwise_sq_euclidean
 
 
 def lance_williams_kernelized(
@@ -53,3 +56,18 @@ def lance_williams_kernelized(
         variant=variant,
         distance_threshold=distance_threshold,
     )
+
+
+def pairwise(X: torch.Tensor, Y: torch.Tensor | None = None) -> torch.Tensor:
+    """Pairwise squared-Euclidean distances through kernel B4, on ``X``'s
+    device (the plain version for a CPU tensor).
+
+    Cast to float32 first, as the reference is, so no other type reaches
+    the kernel.  With ``Y=None`` the diagonal is whatever the Gram form
+    gives, not zeroed: the reference kernel route's contract, unlike
+    :func:`repro_torch.core.distance.pairwise_sq_euclidean`.  Records no
+    distance queries, as the reference's jitted route does not.
+    """
+    X = torch.as_tensor(X, dtype=torch.float32).contiguous()
+    Y = X if Y is None else torch.as_tensor(Y, dtype=torch.float32, device=X.device).contiguous()
+    return pairwise_sq_euclidean(X, Y)

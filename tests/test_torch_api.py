@@ -103,8 +103,7 @@ def test_lw_knobs_match_reference(n, method, knobs):
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(compaction=True), dict(algorithm="twophase"),
-    dict(algorithm="landmark"), dict(backend="distributed"), dict(metric="rmsd"),
+    dict(compaction=True), dict(algorithm="twophase"), dict(backend="distributed"),
 ])
 def test_knobs_not_ported_raise(knobs):
     X = np.zeros((6, 3), np.float32)

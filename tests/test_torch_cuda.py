@@ -265,3 +265,114 @@ def test_cuda_dense_chain_matches_cpu(method, cuda, rng):
                                   want.merges.numpy()[:, [0, 1, 3]])
     np.testing.assert_allclose(got.merges.cpu().numpy()[:, 2], want.merges.numpy()[:, 2],
                                rtol=1e-4, atol=1e-5)
+
+
+def pairwise_tolerance(X, Y):
+    """B4's tolerance against its plain version: rtol 1e-4 and an atol of
+    1e-6 · max(‖x‖² + ‖y‖²), the scale of the Gram form's cancellation."""
+    scale = float((X * X).sum(1).max()) + float((Y * Y).sum(1).max()) if len(X) and len(Y) else 0.0
+    return dict(rtol=1e-4, atol=1e-6 * max(scale, 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d", [(70, 130, 7), (300, 300, 50), (1, 1, 1), (257, 65, 1),
+                                   (129, 200, 128), (0, 5, 3), (4, 0, 3), (3, 2, 0)])
+def test_cuda_pairwise_matches_plain(n, m, d, cuda, rng):
+    """B4 on ragged n, m and d (none a multiple of the 64-row tile or the
+    16-column chunk), d = 1, and empty operands."""
+    X = torch.tensor((rng.normal(size=(n, d)) * 5).astype(np.float32), device=cuda)
+    Y = torch.tensor((rng.normal(size=(m, d)) * 5).astype(np.float32), device=cuda)
+    before = pairwise.pairwise_sq_euclidean.launches
+    got = pairwise.pairwise_sq_euclidean(X, Y)
+    want = pairwise.pairwise_sq_euclidean_plain(X, Y)
+    torch.cuda.synchronize()
+    assert pairwise.pairwise_sq_euclidean.launches == before + (n > 0 and m > 0)
+    assert got.shape == (n, m) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, **pairwise_tolerance(X, Y))
+    assert bool((got >= 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_pairwise_rejects_bad_operands(cuda):
+    X = torch.zeros(16, 8, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        pairwise.pairwise_sq_euclidean(X.double(), X.double())
+    with pytest.raises(ValueError, match="float32"):
+        pairwise.pairwise_sq_euclidean(X, X.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        pairwise.pairwise_sq_euclidean(X, torch.zeros(16, 16, device=cuda)[:, :8])
+    with pytest.raises(ValueError, match="contiguous"):
+        pairwise.pairwise_sq_euclidean(torch.zeros(8, 16, device=cuda).T, X)
+    with pytest.raises(ValueError, match="one device"):
+        pairwise.pairwise_sq_euclidean(X, X.cpu())
+    with pytest.raises(ValueError, match=r"\(m, d\)"):
+        pairwise.pairwise_sq_euclidean(X, X[:, :4])
+
+
+@pytest.mark.cuda
+def test_cuda_ops_pairwise_casts_and_launches_once(cuda, rng):
+    from repro_torch.kernels import ops
+
+    X = torch.tensor(rng.normal(size=(100, 20)), device=cuda)          # float64
+    pairwise.pairwise_sq_euclidean.launches = 0
+    got = ops.pairwise(X[:, ::2])                                       # strided, Y = X
+    assert pairwise.pairwise_sq_euclidean.launches == 1 and got.dtype == torch.float32
+    Xf = X[:, ::2].float().contiguous()
+    torch.testing.assert_close(got, pairwise.pairwise_sq_euclidean_plain(Xf, Xf),
+                               **pairwise_tolerance(Xf, Xf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ("sqeuclidean", "euclidean"))
+def test_cuda_assign_kernel_matches_auto(metric, cuda):
+    """``assign(backend="kernel")`` launches B4 once and gives the labels of
+    the Gram builder, on the card and against the CPU."""
+    from repro_torch.core import cluster
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.service.assign import assign, build_index
+
+    pts, _ = gaussian_mixture(seed=0, n=600, dim=16, k=6, spread=8.0)
+    Q = gaussian_mixture(seed=0, n=3000, dim=16, k=6, spread=8.0, return_labels=False)
+    res = cluster(pts, "ward")
+    for kind in ("exemplar", "centroid"):
+        idx = build_index(res, 6, kind=kind, metric=metric)
+        pairwise.pairwise_sq_euclidean.launches = 0
+        got = assign(idx, Q, backend="kernel")
+        assert pairwise.pairwise_sq_euclidean.launches == 1
+        np.testing.assert_array_equal(got, assign(idx, Q, backend="auto"))
+        np.testing.assert_array_equal(got, assign(idx, Q, backend="kernel", device="cpu"))
+        assert pairwise.pairwise_sq_euclidean.launches == 1
+
+
+@pytest.mark.cuda
+def test_cuda_landmark_matches_cpu(cuda):
+    """The landmark tier on the card: the CPU run's landmarks, groups and
+    merges; its chain launches B5, its assignment takes the Gram builder."""
+    from repro_torch.core import landmark
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    pts, _ = gaussian_mixture(seed=1, n=2000, dim=16, k=6, spread=10.0)
+    pairwise.row_sq_euclidean.launches = pairwise.pairwise_sq_euclidean.launches = 0
+    got = landmark.landmark_cluster(pts, "ward")
+    assert pairwise.row_sq_euclidean.launches > 0
+    assert pairwise.pairwise_sq_euclidean.launches == 0
+    want = landmark.landmark_cluster(pts, "ward", device="cpu")
+    np.testing.assert_array_equal(got.landmarks, want.landmarks)
+    np.testing.assert_array_equal(got.group_labels, want.group_labels)
+    assert_same_merges(got.merges, want.merges)
+
+
+@pytest.mark.cuda
+def test_cuda_rmsd_matches_cpu(cuda):
+    from repro_torch.core import build_distance_matrix
+    from repro_torch.core.distance import kabsch_rmsd
+    from repro_torch.data.synthetic import conformations
+
+    C, _ = conformations(0, 150, 24)
+    got = build_distance_matrix(C, "rmsd")
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), build_distance_matrix(C, "rmsd", device="cpu"),
+                               rtol=1e-4, atol=1e-4)
+    A, B = torch.tensor(C[:75], device=cuda), torch.tensor(C[75:], device=cuda)
+    torch.testing.assert_close(kabsch_rmsd(A, B).cpu(), kabsch_rmsd(A.cpu(), B.cpu()),
+                               rtol=1e-4, atol=1e-4)

@@ -1,5 +1,6 @@
-"""Port kernels vs the Pallas kernels: the min-scan seed (B1) and the
-fused merge step (B2).
+"""Port kernels vs the Pallas kernels: the min-scan seed (B1), the fused
+merge step (B2) and the pairwise distance build (B4, through
+``ops.pairwise``).
 
 On the CPU the port's wrappers take the plain torch versions, which are
 held against the JAX package's kernels run as ``tests/test_kernels.py``
@@ -17,7 +18,9 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core.linkage import METHODS  # noqa: E402
 from repro.kernels import ops, ref  # noqa: E402
 from repro.kernels.lw_step import lw_step_pallas  # noqa: E402
-from repro_torch.kernels import lw_step, minscan  # noqa: E402
+from repro_torch.core.distance import count_distance_queries  # noqa: E402
+from repro_torch.kernels import lw_step, minscan, pairwise  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
 from tests.conftest import random_distance_matrix  # noqa: E402
 from tests.test_torch_cuda import step_problem, torch_step_args  # noqa: E402
 
@@ -90,8 +93,65 @@ def test_wrappers_reject_bad_operands():
 
 def test_cpu_wrappers_launch_nothing(rng):
     """CPU tensors take the plain versions: no kernel, no launch counted."""
-    before = (minscan.masked_argmin.launches, lw_step.lw_step.launches)
+    def counts():
+        return (minscan.masked_argmin.launches, lw_step.lw_step.launches,
+                pairwise.pairwise_sq_euclidean.launches)
+
+    before = counts()
     D, alive, sizes, i, j = step_problem(rng, 32, "complete")
     minscan.masked_argmin(torch.from_numpy(D), torch.from_numpy(alive))
     lw_step.lw_step("complete", *torch_step_args(D, alive, sizes, i, j))
-    assert (minscan.masked_argmin.launches, lw_step.lw_step.launches) == before
+    tops.pairwise(torch.from_numpy(D))
+    assert counts() == before
+
+
+@pytest.mark.parametrize("n,m,d", [(64, 64, 16), (128, 96, 32), (300, 300, 50),
+                                   (256, 256, 128), (70, 130, 7)])
+@pytest.mark.parametrize("dtype", (jnp.float32, jnp.bfloat16))
+def test_pairwise_sweep(n, m, d, dtype, rng):
+    """``ops.pairwise`` against the JAX ``ops.pairwise`` (the Pallas kernel in
+    interpret mode) over ``tests/test_kernels.py``'s shapes.  Both cast to
+    float32 first, so the bf16 inputs reach both builds as the same float32
+    values, and the tolerance is the float32 one, 1e-4."""
+    X = jnp.asarray(rng.normal(size=(n, d)), dtype)
+    Y = jnp.asarray(rng.normal(size=(m, d)), dtype)
+    want = np.asarray(ops.pairwise(X, Y))
+    tdtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    Xt = torch.from_numpy(np.array(X, np.float32)).to(tdtype)
+    Yt = torch.from_numpy(np.array(Y, np.float32)).to(tdtype)
+    got = tops.pairwise(Xt, Yt)
+    assert got.dtype == torch.float32 and got.shape == (n, m)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_pairwise_self_keeps_gram_diagonal(rng):
+    """With ``Y=None`` the kernel route does not zero the diagonal (the
+    reference route's contract), unlike the distance builder."""
+    X = (rng.normal(size=(50, 9)) * 30.0).astype(np.float32)
+    got = tops.pairwise(torch.from_numpy(X)).numpy()
+    np.testing.assert_allclose(got, np.asarray(ops.pairwise(jnp.asarray(X))), rtol=1e-4, atol=1e-2)
+    np.testing.assert_allclose(got, got.T, rtol=1e-5, atol=1e-2)
+    assert np.all(got >= 0.0)
+    gram = pairwise.pairwise_sq_euclidean_plain(torch.from_numpy(X), torch.from_numpy(X))
+    np.testing.assert_array_equal(np.diag(got), np.diag(gram.numpy()))
+
+
+@pytest.mark.parametrize("n,m,d", [(0, 5, 3), (4, 0, 3), (3, 2, 0), (1, 1, 1)])
+def test_pairwise_ragged_and_empty(n, m, d, rng):
+    X = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    Y = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32))
+    got = pairwise.pairwise_sq_euclidean(X, Y)
+    assert got.shape == (n, m) and got.dtype == torch.float32
+    want = ((X[:, None, :] - Y[None, :, :]) ** 2).sum(-1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_pairwise_records_no_queries_and_rejects_bad_shapes():
+    X = torch.zeros(4, 3)
+    with count_distance_queries() as budget:
+        tops.pairwise(X, X)
+    assert budget.queries == 0
+    with pytest.raises(ValueError, match=r"\(m, d\)"):
+        pairwise.pairwise_sq_euclidean(X, torch.zeros(4, 2))
+    with pytest.raises(ValueError, match=r"\(n, d\)"):
+        pairwise.pairwise_sq_euclidean(torch.zeros(4), X)
