@@ -9,7 +9,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    source, started together) and print the card's name and power limit.
 2. Hold each kernel against its plain torch version on the card, and time
    both: the LW kernels on a mid-run state with dead slots at n = 1968 and
-   n = 16384 (the row update checked for all 7 methods), the row kernel at
+   n = 16384 (the step kernel through both its entries, the per-row step
+   and the resident merge, with the bytes it reads and the rate it reaches;
+   the row update checked for all 7 methods), the row kernel at
    (m, d) = (1968, 64) and (32768, 128), the pairwise kernel at the landmark
    assignment's (n, m, d) = (124917, 6155, 128) and the streaming shape
    (65536, 4096, 128), with the host's time to enqueue one call of the row
@@ -18,7 +20,8 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    them; its bound then takes the L2 read rate measured here (two torch
    reductions over a 16 MiB buffer), else the HBM rate.
 3. The paper's configuration: n = 1968 points in 64 dimensions, complete
-   linkage, through ``cluster(..., algorithm="lw", backend="kernel")``;
+   linkage, through ``cluster(..., algorithm="lw", backend="kernel")``,
+   whose merges replay from a captured CUDA graph of 128 merges;
    merges equal the engine run with the plain step functions, heights
    match scipy's, and the launch counters read 1 and n - 1.  Then
    ``cluster(X, "complete")`` with default knobs resolves to the NN chain,
@@ -26,9 +29,10 @@ Phases, in order; a failing phase raises and the script exits non-zero:
 4. Full size: n = 16384 (a 1 GiB float32 matrix) through the same call;
    wall time and peak memory; the first 256 merges equal the plain
    engine's.  Phases 3 and 4 also read the device's busy time over a
-   second, profiled run of the whole call, and set the host's time per
-   merge against the device's over a window (showing that the loop never
-   waits for the card).
+   second, profiled run of the whole call (the profiler sees every merge
+   launched from a graph replay), and set the host's time per merge
+   against the device's over two graph replays (showing that the loop
+   never waits for the card).
 5. The dense NN chain on the first 8192 of phase 4's points
    (``cluster(X, "complete")``, default knobs): its dendrogram equals the
    LW loop's on the same points; wall, trips, busy time and idle share.  Phases 5 and 6 read the busy time and the trip
@@ -112,14 +116,16 @@ PEAK_LIMIT_GIB = 0.25          # the matrix-free run must stay O(n d)
 PROFILER_MISS_SHARE = 1e-3     # kernel records the profiler may drop in a whole run ...
 PROFILER_MISS_MIN = 50_000     # ... of this many launches or more (fewer: none)
 PREFIX = 256                   # merges of the full-size run held against the plain engine
-SPLIT_WINDOW = 16              # merges whose host time is set against their device time
+SPLIT_REPLAYS = 2              # graph replays whose host time is set against their device time
+MERGE_REPS = 20                # merges a timed batch of the step kernel's merge entry makes
 SLEEP_CYCLES = 400_000_000     # ~0.2 s of GPU clock: holds the stream while the host enqueues
 HOST_CALLS = 32                # calls timed on the host: ~400 launches of a plain version
 RTOL, ATOL = 1e-4, 1e-5        # height tolerance of the JAX package's kernel tests
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once a launch
     "masked_argmin": ("masked_row_min", "first_min_over_rows"),
-    "lw_step": ("lw_step_kernel",),
+    "lw_step": ("lw_step_kernel", "pack_alive_kernel"),
+    "lw_merge": ("lw_merge_kernel",),
     "lw_update": ("lw_update_kernel",),
     "row_sq_euclidean": ("row_sq_kernel",),
     "pairwise_sq_euclidean": ("pairwise_sq_kernel",),
@@ -248,7 +254,7 @@ def mid_run_state(torch, n: int, squared: bool, seed: int):
 
 def phase_kernels(torch, n: int, l2_rate: float) -> dict:
     """Each kernel against its plain version at size n; times and bounds."""
-    from repro_torch.kernels import lw_step, minscan
+    from repro_torch.kernels import minscan
 
     out = {}
     D, alive, sizes, i, j, _ = mid_run_state(torch, n, squared=False, seed=1)
@@ -268,41 +274,104 @@ def phase_kernels(torch, n: int, l2_rate: float) -> dict:
     )
 
     for method in ("complete", "ward"):
-        D, alive, sizes, i, j, dmin = mid_run_state(torch, n, squared=method == "ward", seed=2)
-        ij = torch.tensor([i, j], device="cuda")
-        n_ij = sizes.index_select(0, ij)
-
-        def args(Dm):
-            rows = Dm.index_select(0, ij)
-            return (method, Dm, rows[0], rows[1], dmin.reshape(1), n_ij[0:1], n_ij[1:2],
-                    sizes, alive, ij[0:1], ij[1:2])
-
-        Dk, Dp = D.clone(), D.clone()
-        kargs, pargs = args(Dk), args(Dp)
-        _, rmin_k, rarg_k = lw_step.lw_step(*kargs)
-        _, rmin_p, rarg_p = lw_step.lw_step_plain(*pargs)
-        torch.cuda.synchronize()
-        if not torch.equal(rarg_k, rarg_p):
-            raise AssertionError(f"lw_step {method} n={n}: rarg differs")
-        for a, b, what in ((Dk, Dp, "D"), (rmin_k, rmin_p, "rmin")):
-            if not torch.allclose(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
-                raise AssertionError(f"lw_step {method} n={n}: {what} differs")
-        fin = torch.isfinite(rmin_p)
-        err = max(float((Dk - Dp).abs().max()), float((rmin_k[fin] - rmin_p[fin]).abs().max()))
-        live_next = int(alive.sum()) - 1      # j dies in the merge
-        # read the live submatrix, write row and column i, read the two rows,
-        # sizes and alive, write rmin and rarg; a compare and a select a live
-        # cell, about a dozen operations for the recurrence of each lane
-        out[f"lw_step/{method}"] = dict(
-            n=n, live=live_next, max_abs_err=err,
-            ms=time_ms(torch, lambda: lw_step.lw_step(*kargs)),
-            plain_ms=time_ms(torch, lambda: lw_step.lw_step_plain(*pargs)),
-            **bound(torch, 4 * live_next * live_next + 8 * live_next + 25 * n,
-                    2 * live_next * live_next + 12 * n, 4 * n * n, l2_rate),
-        )
-        del Dk, Dp, kargs, pargs
+        state = mid_run_state(torch, n, squared=method == "ward", seed=2)
+        out[f"lw_step/{method}"] = phase_step(torch, method, *state, l2_rate)
+        out[f"lw_merge/{method}"] = phase_merge(torch, method, *state, l2_rate)
+        del state
     out["lw_update/complete"] = phase_row_update(torch, n, l2_rate)
     return out
+
+
+def step_bound(torch, n: int, live: float, l2_rate: float) -> dict:
+    """The step's bound with ``live`` slots live after the merge: read the
+    live submatrix, write row and column i, read the sizes and the
+    liveness, write each row's (min, first column); a compare and a select
+    a live cell, about a dozen operations for the recurrence of each lane.
+    The timed launches keep touching D."""
+    return bound(torch, 4 * live * live + 8 * live + 17 * n, 2 * live * live + 12 * n,
+                 4 * n * n, l2_rate)
+
+
+def phase_step(torch, method: str, D, alive, sizes, i: int, j: int, dmin, l2_rate: float) -> dict:
+    """B2's per-row entry against its plain version on a mid-run state, bit
+    for bit, and timed (each call applies the same merge to D again)."""
+    from repro_torch.kernels import lw_step
+
+    n = D.shape[0]
+    ij = torch.tensor([i, j], device="cuda")
+    n_ij = sizes.index_select(0, ij)
+
+    def args(Dm):
+        rows = Dm.index_select(0, ij)
+        return (method, Dm, rows[0], rows[1], dmin.reshape(1), n_ij[0:1], n_ij[1:2],
+                sizes, alive, ij[0:1], ij[1:2])
+
+    Dk, Dp = D.clone(), D.clone()
+    kargs, pargs = args(Dk), args(Dp)
+    _, rmin_k, rarg_k = lw_step.lw_step(*kargs)
+    _, rmin_p, rarg_p = lw_step.lw_step_plain(*pargs)
+    torch.cuda.synchronize()
+    for a, b, what in ((Dk, Dp, "D"), (rmin_k, rmin_p, "rmin"), (rarg_k, rarg_p, "rarg")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"lw_step {method} n={n}: {what} differs from the plain version")
+    live = int(alive.sum()) - 1      # j dies in the merge
+    return dict(n=n, live=live, max_abs_err=float((Dk - Dp).abs().max()), bit_equal=True,
+                ms=time_ms(torch, lambda: lw_step.lw_step(*kargs)),
+                plain_ms=time_ms(torch, lambda: lw_step.lw_step_plain(*pargs)),
+                library_ms=None, **step_bound(torch, n, live, l2_rate))
+
+
+def time_merges(torch, merge, b0, b, batches: int = 5) -> float:
+    """Median device ms of one merge: CUDA events around MERGE_REPS merges
+    made from the state ``b0``, restored into the buffers ``b`` before each
+    batch, queued behind a sleep kernel."""
+    times = []
+    for batch in range(batches + 1):      # the first batch warms up
+        for dst, src in zip(b, b0):
+            dst.copy_(src)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(MERGE_REPS):
+            merge(b)
+        end.record()
+        end.synchronize()
+        if batch:
+            times.append(start.elapsed_time(end) / MERGE_REPS)
+    return statistics.median(times)
+
+
+def phase_merge(torch, method: str, D, alive, sizes, i: int, j: int, dmin,
+                l2_rate: float) -> dict:
+    """B2's merge entry, the main path's, against its plain twin on a
+    mid-run state: one merge, every buffer bit for bit; then timed over
+    MERGE_REPS merges from that state, with the bytes of the live rows it
+    reads (4 L' n) and the rate it reads them at."""
+    from repro_torch.kernels import lw_step
+
+    n = D.shape[0]
+    cand = (torch.tensor(i, device="cuda"), torch.tensor(j, device="cuda"), dmin)
+    b0 = lw_step.merge_buffers(D, alive, sizes, torch.zeros((n, 4), device="cuda"), cand, 0)
+    bk, bp = (lw_step.MergeBuffers(*(t.clone() for t in b0)) for _ in range(2))
+    lw_step.lw_merge(method, bk)
+    lw_step.lw_merge_plain(method, bp)
+    torch.cuda.synchronize()
+    for name, a, b in zip(lw_step.MergeBuffers._fields, bk, bp):
+        if name != "sync" and not torch.equal(a, b):
+            raise AssertionError(f"lw_merge {method} n={n}: {name} differs from the plain twin")
+    if not torch.equal(bk.sync, b0.sync):
+        raise AssertionError(f"lw_merge {method} n={n}: the kernel left its key/ticket at {bk.sync}")
+    err = float((bk.D - bp.D).abs().max())
+    del bp
+    ms = time_merges(torch, lambda b: lw_step.lw_merge(method, b), b0, bk)
+    plain_ms = time_merges(torch, lambda b: lw_step.lw_merge_plain(method, b), b0, bk)
+    live = int(alive.sum()) - 1
+    live_mean = live - (MERGE_REPS - 1) / 2      # a timed merge kills one slot
+    read = 4 * live_mean * n                     # the live rows, read whole
+    return dict(n=n, live=live, max_abs_err=err, bit_equal=True, ms=ms, plain_ms=plain_ms,
+                library_ms=None, read_bytes=read, read_bytes_per_s=read / (ms * 1e-3),
+                **step_bound(torch, n, live_mean, l2_rate))
 
 
 def phase_row_update(torch, n: int, l2_rate: float) -> dict:
@@ -423,7 +492,7 @@ def plain_engine_merges(torch, X, method: str, n_steps: int):
 
     D = engine.symmetrize(build_distance_matrix(X, "euclidean"))
     n = D.shape[0]
-    ops = engine._fused_ops(method, n, minscan.masked_argmin_plain, lw_step.lw_step_plain)
+    ops = engine._fused_ops(method, n, minscan.masked_argmin_plain, lw_step.lw_merge_plain)
     alive = torch.ones(n, dtype=torch.bool, device="cuda")
     state = engine.run_merge_loop(ops, engine._init_state(D, alive, n_steps), n_steps)
     return state.merges.cpu().numpy()
@@ -434,6 +503,7 @@ def reset_counters() -> None:
 
     minscan.masked_argmin.launches = 0
     lw_step.lw_step.launches = 0
+    lw_step.lw_merge.launches = 0
     lw_update.lw_update.launches = 0
     pairwise.row_sq_euclidean.launches = 0
     pairwise.pairwise_sq_euclidean.launches = 0
@@ -443,7 +513,7 @@ def read_counters() -> dict:
     from repro_torch.kernels import lw_step, lw_update, minscan, pairwise
 
     return {"masked_argmin": minscan.masked_argmin.launches, "lw_step": lw_step.lw_step.launches,
-            "lw_update": lw_update.lw_update.launches,
+            "lw_merge": lw_step.lw_merge.launches, "lw_update": lw_update.lw_update.launches,
             "row_sq_euclidean": pairwise.row_sq_euclidean.launches,
             "pairwise_sq_euclidean": pairwise.pairwise_sq_euclidean.launches}
 
@@ -470,7 +540,9 @@ def timed(torch, call):
 def run_cluster(torch, X):
     """The LW loop on the kernel backend, as phases 3 and 4 drive it:
     :func:`timed`, then the device's busy time over a second run of the
-    same call."""
+    same call, then a third, unprofiled run's wall (``warm_wall_s``: the
+    first call of a size also pays one-time costs, such as the first graph
+    capture of the process)."""
     from repro_torch.core import cluster
 
     def call():
@@ -478,6 +550,10 @@ def run_cluster(torch, X):
 
     res, stats = timed(torch, call)
     stats.update(device_busy(torch, call, stats["wall_s"], stats["launches"])[1])
+    warm = timed(torch, call)[1]
+    check_launches(warm["launches"], stats["launches"], "warm LW run")
+    stats.update(warm_wall_s=warm["wall_s"],
+                 warm_idle_share=1 - stats["device_busy_s"] / warm["wall_s"])
     return res, stats
 
 
@@ -535,40 +611,42 @@ def device_busy(torch, call, wall_s: float, launches: dict):
 
 
 def host_device_split(torch, X) -> dict:
-    """Host and device ms per merge over the first merges of a run.
+    """Host and device ms per merge over SPLIT_REPLAYS graph replays of
+    THRESHOLD_CHECK_TRIPS merges each, after the first replay (which
+    captures the graph).
 
-    A sleep kernel holds the stream while the host enqueues the window, so
+    A sleep kernel holds the stream while the host enqueues the replays, so
     the host time has no waits in it and the device time no gaps.  A loop
-    that synced with the card on any merge would wait out the sleep: the
-    host time staying under the sleep shows that it does not.
+    that synced with the card would wait out the sleep: the host time
+    staying under the sleep shows that it does not.
     """
     from repro_torch.core import engine
     from repro_torch.core.api import build_distance_matrix
 
     D = engine.symmetrize(build_distance_matrix(X, "euclidean"))
     n = D.shape[0]
-    ops = engine.kernel_ops("complete", n)
+    k = engine.THRESHOLD_CHECK_TRIPS
+    ops = engine.kernel_ops("complete", n, device="cuda")
     alive = torch.ones(n, dtype=torch.bool, device="cuda")
-    state = ops.seed(engine._init_state(D, alive, SPLIT_WINDOW))
-    step = engine.make_step(ops)
+    state = ops.replay(ops.seed(engine._init_state(D, alive, (SPLIT_REPLAYS + 1) * k)))
     torch.cuda.synchronize()
     held, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
     held.record()
     torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     t0 = time.perf_counter()
-    for t in range(SPLIT_WINDOW):
-        state = step(state, t)
+    for _ in range(SPLIT_REPLAYS):
+        state = ops.replay(state)
     host_ms = (time.perf_counter() - t0) * 1e3
     end.record()
     end.synchronize()
     sleep_ms = held.elapsed_time(start)
     if host_ms >= sleep_ms:
-        raise AssertionError(f"enqueueing {SPLIT_WINDOW} merges took {host_ms:.1f} ms, "
+        raise AssertionError(f"enqueueing {SPLIT_REPLAYS} replays took {host_ms:.1f} ms, "
                              f"longer than the {sleep_ms:.1f} ms the stream was held")
-    return dict(split_window=SPLIT_WINDOW, host_ms_per_merge=host_ms / SPLIT_WINDOW,
-                device_ms_per_merge=start.elapsed_time(end) / SPLIT_WINDOW,
-                stream_held_ms=sleep_ms)
+    merges = SPLIT_REPLAYS * k
+    return dict(split_merges=merges, host_ms_per_merge=host_ms / merges,
+                device_ms_per_merge=start.elapsed_time(end) / merges, stream_held_ms=sleep_ms)
 
 
 def phase_paper(torch, np) -> dict:
@@ -580,7 +658,7 @@ def phase_paper(torch, np) -> dict:
     n = PAPER_N
     X = gaussian_mixture(seed=0, n=n, dim=DIM, return_labels=False)
     res, stats = run_cluster(torch, X)
-    check_launches(stats["launches"], {"masked_argmin": 1, "lw_step": n - 1}, "paper run")
+    check_launches(stats["launches"], {"masked_argmin": 1, "lw_merge": n - 1}, "paper run")
     validate_merges(res.merges, n=n)
     check_merges(np, res.merges, plain_engine_merges(torch, X, "complete", n - 1),
                  "paper run vs plain engine")
@@ -609,7 +687,7 @@ def phase_full(torch, np) -> dict:
     n = FULL_N
     X = gaussian_mixture(seed=0, n=n, dim=DIM, return_labels=False)
     res, stats = run_cluster(torch, X)
-    check_launches(stats["launches"], {"masked_argmin": 1, "lw_step": n - 1}, "full run")
+    check_launches(stats["launches"], {"masked_argmin": 1, "lw_merge": n - 1}, "full run")
     validate_merges(res.merges, n=n)
     if not is_monotone(res.merges):
         raise AssertionError("complete-linkage heights are not monotone")
@@ -632,7 +710,7 @@ def phase_dense_chain(torch, np, X):
     n = X.shape[0]
     lw, lw_stats = timed(torch, lambda: cluster(X, "complete", algorithm="lw", backend="kernel",
                                                 keep_inputs=False))
-    check_launches(lw_stats["launches"], {"masked_argmin": 1, "lw_step": n - 1}, f"LW run n={n}")
+    check_launches(lw_stats["launches"], {"masked_argmin": 1, "lw_merge": n - 1}, f"LW run n={n}")
     lw_merges = lw.merges
     res, stats = timed(torch, lambda: cluster(X, "complete"))
     check_launches(stats["launches"], {}, "dense chain run")
@@ -728,7 +806,7 @@ def phase_cross(torch, np) -> dict:
     check_launches(chain_stats["launches"], {"row_sq_euclidean": trips}, f"n={n} chain")
     lw, lw_stats = timed(torch, lambda: cluster(X, "ward", algorithm="lw", backend="kernel",
                                                 keep_inputs=False))
-    check_launches(lw_stats["launches"], {"masked_argmin": 1, "lw_step": n - 1}, f"n={n} LW run")
+    check_launches(lw_stats["launches"], {"masked_argmin": 1, "lw_merge": n - 1}, f"n={n} LW run")
     check_equivalent(np, chain.merges, lw.merges, n, f"matrix-free chain vs LW loop n={n}")
     return dict(n=n, chain_wall_s=chain_stats["wall_s"], chain_trips=trips,
                 lw_wall_s=lw_stats["wall_s"])
@@ -755,7 +833,7 @@ def phase_serial(torch, np, X, paper_X, paper_merges) -> dict:
     stats.update(device_busy(torch, call, stats["wall_s"], stats["launches"])[1])
     kernel, kernel_stats = timed(torch, lambda: cluster(X, "centroid", algorithm="lw",
                                                          backend="kernel", keep_inputs=False))
-    check_launches(kernel_stats["launches"], {"masked_argmin": 1, "lw_step": n - 1},
+    check_launches(kernel_stats["launches"], {"masked_argmin": 1, "lw_merge": n - 1},
                    "kernel centroid run")
     check_merges(np, res.merges, kernel.merges, f"serial vs kernel backend, centroid n={n}")
     stats["kernel_wall_s"] = kernel_stats["wall_s"]
@@ -787,7 +865,7 @@ def phase_lazy(torch, np, X, lw_merges, paper_X, paper_merges) -> dict:
     check_merges(np, res.merges, lw_merges, f"kernel lazy vs phase 5's LW run, n={n}")
     stats.update(device_busy(torch, call, stats["wall_s"], stats["launches"])[1])
     stats.update(per_step(stats, n - 1, "merge"))
-    for variant, launches in (("rowmin", {"masked_argmin": 1, "lw_step": PAPER_N - 1}),
+    for variant, launches in (("rowmin", {"masked_argmin": 1, "lw_merge": PAPER_N - 1}),
                               ("lazy", {"lw_update": PAPER_N - 1})):
         r, s = timed(torch, lambda: cluster(paper_X, "complete", algorithm="lw", backend="kernel",
                                             variant=variant, keep_inputs=False))
@@ -811,7 +889,7 @@ def phase_threshold(torch, np, paper_X, paper_merges) -> dict:
     k = int(np.sum(paper_merges[:, 2] <= np.float32(thr)))
     trips = min(n - 1, (k // THRESHOLD_CHECK_TRIPS + 1) * THRESHOLD_CHECK_TRIPS)
     out = dict(threshold=thr, merges_at_or_below=k, trips=trips)
-    for backend, launches in (("serial", {}), ("kernel", {"masked_argmin": 1, "lw_step": trips})):
+    for backend, launches in (("serial", {}), ("kernel", {"masked_argmin": 1, "lw_merge": trips})):
         r, s = timed(torch, lambda: cluster(paper_X, "complete", algorithm="lw", backend=backend,
                                             distance_threshold=thr, keep_inputs=False))
         check_launches(s["launches"], launches, f"{backend} threshold run")
@@ -1062,10 +1140,12 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
         return f"{x:.6g}"
 
     parts = [f"{name} n={n} ms {g(r['ms'])} bound {g(r['bound_ms'])} plain {g(r['plain_ms'])}"
+             + (f" read {g(r['read_bytes_per_s'] / 1e12)} TB/s" if "read_bytes" in r else "")
              for (name, n), r in kernels.items()]
     for label, s in (("paper", paper), ("full", full)):
-        parts.append(f"{label} wall_s {g(s['wall_s'])} busy_s {g(s['device_busy_s'])} "
-                     f"idle {g(s['idle_share'])} host/device ms per merge "
+        parts.append(f"{label} wall_s {g(s['wall_s'])} (warm {g(s['warm_wall_s'])}) busy_s "
+                     f"{g(s['device_busy_s'])} idle {g(s['idle_share'])} (warm "
+                     f"{g(s['warm_idle_share'])}) host/device ms per merge "
                      f"{g(s['host_ms_per_merge'])}/{g(s['device_ms_per_merge'])} "
                      f"peak_gib {g(s['peak_gib'])}")
     for label, s in ((f"dense chain n={MID_N}", dense), ("matrix-free chain", points)):
@@ -1204,20 +1284,23 @@ def main() -> int:
                                 "src/repro/kernels/pairwise.py:148"),
            "pairwise_sq_euclidean": ("src/repro_torch/csrc/pairwise.cu",
                                      "src/repro/kernels/pairwise.py:60")}
+    # B2 launches through its merge entry on the main path: its line gives
+    # that entry's launches and times
     inventory = []
-    for name, key, path in (("masked_argmin", ("masked_argmin", FULL_N), full),
-                            ("lw_step", ("lw_step/complete", FULL_N), full),
-                            ("lw_update", ("lw_update/complete", FULL_N), lazy),
-                            ("row_sq_euclidean", ("row_sq_euclidean", CHAIN_N), points),
-                            ("pairwise_sq_euclidean", ("pairwise_sq_euclidean", QUERY_N),
-                             assigned["centroid"]["kernel"])):
+    for name, entry, key, path in (
+            ("masked_argmin", "masked_argmin", ("masked_argmin", FULL_N), full),
+            ("lw_step", "lw_merge", ("lw_merge/complete", FULL_N), full),
+            ("lw_update", "lw_update", ("lw_update/complete", FULL_N), lazy),
+            ("row_sq_euclidean", "row_sq_euclidean", ("row_sq_euclidean", CHAIN_N), points),
+            ("pairwise_sq_euclidean", "pairwise_sq_euclidean", ("pairwise_sq_euclidean", QUERY_N),
+             assigned["centroid"]["kernel"])):
         row = kernels[key]
         inventory.append(dict(
             name=name, route="cuda", source=src[name][0], replaces=src[name][1],
-            launches=path["launches"][name], max_abs_err=row["max_abs_err"],
+            launches=path["launches"][entry], max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row.get("library_ms"), n=key[1],
-            bound_bytes_per_s=row["bound_bytes_per_s"],
+            bound_bytes_per_s=row["bound_bytes_per_s"], entry=entry,
         ))
     print(summary(kernels, paper, full, dense, points, serial, lazy, assigned, landmark, rmsd))
     print(json.dumps({"kernels": inventory}))

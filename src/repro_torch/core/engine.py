@@ -12,11 +12,12 @@ compositions of them run the loop on one device:
 * **kernel** (:func:`kernel_ops`, :func:`run_kernel`): the *garbage*
   representation.  Dead cells keep inert values and liveness is applied
   at argmin time.  ``baseline`` and ``rowmin`` are the min-scan seed and
-  one launch of the fused step kernel a merge (the fused kernel recomputes
-  every row minimum, so ``rowmin``'s cache would be dead carry: both run
-  cache-free and are identical by construction, as in the JAX engine).
-  ``lazy`` is one launch of the row-update kernel a merge, with the
-  cached row minima kept over the masked view.
+  one launch of the fused merge kernel a merge, on device-resident
+  buffers (the fused kernel recomputes every row minimum, so ``rowmin``'s
+  cache would be dead carry: both run cache-free and are identical by
+  construction, as in the JAX engine).  ``lazy`` is one launch of the
+  row-update kernel a merge, with the cached row minima kept over the
+  masked view.
 
 The argmin ``variant`` picks the candidate search: a full row-min every
 merge (``baseline``), or per-row ``(min, first argmin)`` caches that the
@@ -31,11 +32,13 @@ every backend and variant, with heights equal to float tolerance.
 The JAX loop traces into one compiled program.  Here the loop is a
 Python ``for`` over a fixed trip count, and the candidate, the merged
 slots and the sizes stay on the device.  The baseline steps read nothing
-back, so the host only enqueues launches and the device runs ahead; the
-cached variants read back the rows to rescan, once a merge; a
-``distance_threshold`` run reads back the recorded heights once every
-:data:`THRESHOLD_CHECK_TRIPS` merges.  ``D`` and the merge record are
-updated in place.
+back, so the host only enqueues launches and the device runs ahead; on
+the kernel backend a merge is one launch on fixed device buffers, so on
+a CUDA device :data:`THRESHOLD_CHECK_TRIPS` merges are captured once as
+a CUDA graph and replayed.  The cached variants read back the rows to
+rescan, once a merge; a ``distance_threshold`` run reads back the
+recorded heights once every :data:`THRESHOLD_CHECK_TRIPS` merges.  ``D``
+and the merge record are updated in place.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ VARIANTS: tuple[str, ...] = ("baseline", "rowmin", "lazy")
 
 #: Merges a ``distance_threshold`` run takes between two reads of the
 #: recorded heights: at most this many trips run past the stop and are
-#: trimmed.
+#: trimmed.  Also the merges of the kernel backend's captured CUDA graph.
 THRESHOLD_CHECK_TRIPS = 128
 
 #: Rows gathered at once when row minima are rebuilt, which bounds the
@@ -71,7 +74,7 @@ def check_knobs(method: str, variant: str, compaction) -> None:
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; pick from {VARIANTS}")
     if compaction is True:
-        raise NotImplementedError("compaction is not ported yet: ROADMAP.md A1.3")
+        raise NotImplementedError("compaction is not ported yet: ROADMAP.md A1")
     if compaction is not False and compaction != "auto":
         raise ValueError(f"compaction must be 'auto', False or True, got {compaction!r}")
 
@@ -113,8 +116,10 @@ class LWState(NamedTuple):
     candidate ``(r, c, dmin)`` as 0-d device tensors (int64, int64,
     float32), computed at the tail of each step.  ``n_merges`` is a host
     int: with a fixed trip count it is known without asking the device.
-    ``cache`` is ``()`` for the cache-free ops and the per-row
-    ``(rmin, rarg)`` (float32, int64) for the cached variants.
+    ``cache`` is ``()`` for the serial cache-free ops, the per-row
+    ``(rmin, rarg)`` (float32, int64) for the cached variants, and the
+    fused kernel ops' :class:`~repro_torch.kernels.lw_step.MergeBuffers`
+    (``cand`` then views its candidate).
     """
 
     D: torch.Tensor
@@ -131,9 +136,10 @@ class StepOps(NamedTuple):
 
     seed:    fill ``cand`` (and ``cache``) from the initial state.
     fetch:   ``(state, ij) -> (d_ki, d_kj)``, copies of rows ``i`` and ``j``.
-    commit:  the fused tail, ``(state, ij, dmin, d_ki, d_kj, n_ij) -> (D, cand)``:
-             applies the recurrence, commits the merged row and computes
-             the next candidate in one matrix pass.
+    merge:   ``state -> state``: a whole merge on the device (the fused
+             kernel), which records it at the device's own merge count.
+    replay:  ``state -> state``: :data:`THRESHOLD_CHECK_TRIPS` merges
+             replayed from a captured CUDA graph, or ``None``.
     update:  ``(d_ki, d_kj, d_ij, n_i, n_j, sizes, keep) -> new``: the
              recurrence over a whole row, dropped lanes filled with the
              representation's tombstone (``+inf`` premasked, 0 garbage).
@@ -141,12 +147,14 @@ class StepOps(NamedTuple):
     refresh: ``(state, ij, new, keep) -> state``: the next ``cand`` (and
              ``cache``) after the write.
 
-    A step runs ``commit`` when it is set, else update → write → refresh.
+    A step runs ``merge`` when it is set, else fetch → update → write →
+    refresh.
     """
 
     seed: Callable[[LWState], LWState]
-    fetch: Callable[[LWState, torch.Tensor], tuple[torch.Tensor, torch.Tensor]]
-    commit: Callable[..., tuple] | None = None
+    fetch: Callable[[LWState, torch.Tensor], tuple[torch.Tensor, torch.Tensor]] | None = None
+    merge: Callable[[LWState], LWState] | None = None
+    replay: Callable[[LWState], LWState] | None = None
     update: Callable[..., torch.Tensor] | None = None
     write: Callable[[LWState, torch.Tensor, torch.Tensor], torch.Tensor] | None = None
     refresh: Callable[..., LWState] | None = None
@@ -187,9 +195,13 @@ def make_step(ops: StepOps) -> Callable[..., LWState]:
     """Assemble the paper's merge step from primitives: candidate →
     recurrence → commit → tombstone → record → next candidate.
 
-    ``t`` is the merge-record index (``state.n_merges`` when omitted).  The
-    step writes ``D`` and ``merges`` in place and returns the new state.
+    ``t`` is the merge-record index (``state.n_merges`` when omitted; a
+    ``merge`` keeps its own count on the device, which starts at
+    ``state.n_merges``).  The step writes ``D`` and ``merges`` in place and
+    returns the new state.
     """
+    if ops.merge is not None:
+        return lambda s, t=None: ops.merge(s)
 
     def step(s: LWState, t: int | None = None) -> LWState:
         r, c, dmin = s.cand
@@ -203,9 +215,6 @@ def make_step(ops: StepOps) -> Callable[..., LWState]:
         s.merges[s.n_merges if t is None else t] = torch.cat(
             (ij.to(torch.float32), dmin.reshape(1), new_size.reshape(1))
         )
-        if ops.commit is not None:
-            D, cand = ops.commit(s, ij, dmin, d_ki, d_kj, n_ij)
-            return LWState(D, alive, sizes, s.merges, s.n_merges + 1, cand, s.cache)
         keep = s.alive.index_fill(0, ij, False)      # live spectators of the merge
         new = ops.update(d_ki, d_kj, dmin.reshape(1), n_ij[:1], n_ij[1:], s.sizes, keep)
         D = ops.write(s, ij, new)
@@ -226,22 +235,31 @@ def run_merge_loop(ops: StepOps, state: LWState, n_steps: int,
     :data:`THRESHOLD_CHECK_TRIPS`; after each chunk its recorded heights
     are read back once, and at the first height above the threshold (or
     NaN) the run stops, the merges past it are zeroed and ``n_merges``
-    counts those before it.
+    counts those before it.  Where the ops replay a captured graph, each
+    whole chunk is one replay and the trips left over are launched one by
+    one.
     """
     if n_steps <= 0:   # stop_at_k >= n: nothing to merge
         return state
     step = make_step(ops)
     state = ops.seed(state)
-    if distance_threshold is None:
-        for t in range(n_steps):
+
+    def trips(state: LWState, start: int, stop: int) -> LWState:
+        if ops.replay is not None:
+            while stop - start >= THRESHOLD_CHECK_TRIPS:
+                state = ops.replay(state)
+                start += THRESHOLD_CHECK_TRIPS
+        for t in range(start, stop):
             state = step(state, t)
         return state
+
+    if distance_threshold is None:
+        return trips(state, 0, n_steps)
     # compared in float32, as the reference casts the threshold
     thr = torch.tensor(float(distance_threshold), dtype=torch.float32)
     for start in range(0, n_steps, THRESHOLD_CHECK_TRIPS):
         stop = min(start + THRESHOLD_CHECK_TRIPS, n_steps)
-        for t in range(start, stop):
-            state = step(state, t)
+        state = trips(state, start, stop)
         over = torch.nonzero(~(state.merges[start:stop, 2].cpu() <= thr))
         if over.numel():
             n_merges = start + int(over[0, 0])
@@ -419,25 +437,46 @@ def run_dense(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_steps: int
 # ---------------------------------------------------------------------------
 
 
-def _fused_ops(method: str, n: int, masked_argmin, lw_step) -> StepOps:
+def _fused_ops(method: str, n: int, masked_argmin, lw_merge, graph=None) -> StepOps:
     """The fused ``baseline``/``rowmin`` primitives over a min-scan and a
-    step function with the signatures of :mod:`repro_torch.kernels.minscan`
-    and :mod:`repro_torch.kernels.lw_step`."""
+    merge function with the signatures of :mod:`repro_torch.kernels.minscan`
+    and :func:`repro_torch.kernels.lw_step.lw_merge`.
+
+    The state lives in :class:`~repro_torch.kernels.lw_step.MergeBuffers`
+    allocated once, before the first merge: a merge reads nothing back
+    and allocates nothing.  Each merge's tail picks the next candidate
+    from the per-row minima, the first row that attains the minimum and
+    then its first column: the row-major first minimum the min-scan kernel
+    gives.  ``graph`` (:class:`~repro_torch.kernels.lw_step.MergeGraph`, on
+    a CUDA device) captures :data:`THRESHOLD_CHECK_TRIPS` merges at the
+    first ``replay``; without it the ops have no ``replay``.
+    """
+    from repro_torch.kernels.lw_step import merge_buffers
+
+    def resident(s: LWState) -> LWState:
+        if s.cache:
+            return s
+        b = merge_buffers(s.D, s.alive, s.sizes, s.merges, s.cand, s.n_merges)
+        return s._replace(cand=(b.cand[0], b.cand[1], b.dmin[0]), cache=b)
 
     def seed(s: LWState) -> LWState:
         v, flat = masked_argmin(s.D, s.alive)
-        return s._replace(cand=(torch.div(flat, n, rounding_mode="floor"), flat % n, v))
+        return resident(s._replace(cand=(torch.div(flat, n, rounding_mode="floor"), flat % n, v)))
 
-    def commit(s: LWState, ij, dmin, d_ki, d_kj, n_ij):
-        D, rmin, rarg = lw_step(method, s.D, d_ki, d_kj, dmin, n_ij[0], n_ij[1],
-                                s.sizes, s.alive, ij[0], ij[1])
-        # the global candidate from the per-row minima: the first row that
-        # attains the minimum (torch.min keeps the first), then its first
-        # column — the row-major first minimum the min-scan kernel gives
-        m, r = torch.min(rmin, dim=0)
-        return D, (r, rarg.index_select(0, r.reshape(1)).reshape(()), m)
+    def merge(s: LWState) -> LWState:
+        s = resident(s)
+        lw_merge(method, s.cache)
+        return s._replace(n_merges=s.n_merges + 1)
 
-    return StepOps(seed=seed, fetch=_fetch_rows, commit=commit)
+    captured = []
+
+    def replay(s: LWState) -> LWState:
+        if not captured:
+            captured.append(graph(method, s.cache, THRESHOLD_CHECK_TRIPS))
+        captured[0].replay()
+        return s._replace(n_merges=s.n_merges + captured[0].merges)
+
+    return StepOps(seed=seed, merge=merge, replay=None if graph is None else replay)
 
 
 def _lazy_ops(method: str, n: int, lw_update, device) -> StepOps:
@@ -457,18 +496,20 @@ def _lazy_ops(method: str, n: int, lw_update, device) -> StepOps:
 
 def kernel_ops(method: str, n: int, variant: str = "baseline", device=None) -> StepOps:
     """Primitives on the CUDA kernels (their plain torch versions for CPU
-    tensors): the min-scan seed and the fused step for ``baseline`` and
-    ``rowmin``, the row update for ``lazy``."""
+    tensors): the min-scan seed and the fused merge for ``baseline`` and
+    ``rowmin``, replayed from a captured CUDA graph when ``device`` is a
+    CUDA device; the row update for ``lazy``."""
     if variant == "lazy":
         from repro_torch.kernels.lw_update import lw_update
 
         return _lazy_ops(method, n, lw_update, device)
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; pick from {VARIANTS}")
-    from repro_torch.kernels.lw_step import lw_step
+    from repro_torch.kernels.lw_step import MergeGraph, lw_merge
     from repro_torch.kernels.minscan import masked_argmin
 
-    return _fused_ops(method, n, masked_argmin, lw_step)
+    on_card = device is not None and torch.device(device).type == "cuda"
+    return _fused_ops(method, n, masked_argmin, lw_merge, MergeGraph if on_card else None)
 
 
 def run_kernel(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_steps: int,

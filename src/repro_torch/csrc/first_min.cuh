@@ -16,6 +16,20 @@ __device__ __forceinline__ bool first_min_better(float v, long long c, float bv,
     return v < bv || (v == bv && c < bc);
 }
 
+__device__ __forceinline__ bool first_min_better(float v, int c, float bv, int bc) {
+    return v < bv || (v == bv && c < bc);
+}
+
+// Reduce one (v, c) per lane to the warp's first minimum, 32-bit indices;
+// the result is valid in lane 0.
+__device__ __forceinline__ void warp_first_min(float& v, int& c) {
+    for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_down_sync(0xffffffffu, v, off);
+        const int oc = __shfl_down_sync(0xffffffffu, c, off);
+        if (first_min_better(ov, oc, v, c)) { v = ov; c = oc; }
+    }
+}
+
 // Reduce one (v, c) per thread to the block's first minimum; the result
 // is valid in thread 0.  blockDim.x must be a multiple of 32, at most 1024.
 __device__ __forceinline__ void block_first_min(float& v, long long& c) {

@@ -4,27 +4,43 @@ Replaces the Pallas TPU kernel :func:`repro.kernels.lw_step.lw_step_pallas`
 with the hand-written CUDA kernel ``csrc/lw_step.cu``.  For the merge of
 slots ``i < j`` it evaluates the LW recurrence for the merged row, commits
 it into row ``i`` and column ``i`` of ``D`` (row/column ``j`` stay as
-garbage), and returns each row's ``(min, first-column argmin)`` of the
+garbage), and finds each row's ``(min, first-column argmin)`` of the
 post-merge masked matrix, in which ``j`` is dead.
 
-Unlike the TPU kernel, ``D`` is updated in place: each output cell depends
-only on its own old value and on the two fetched rows, which are copies.
+The kernel has two entries.  :func:`lw_step` is the TPU kernel's contract:
+the merge's scalars in, the per-row minima out.  :func:`lw_merge` is one
+whole merge of the device-resident loop on :class:`MergeBuffers`: it reads
+the candidate the previous merge left on the device and leaves the next
+one there, with the merge record, the liveness and the sizes updated, so
+the host reads nothing back; :class:`MergeGraph` captures a chunk of such
+merges as a CUDA graph and replays it.
+
+``D`` is updated in place, and the kernel reads rows ``i`` and ``j`` from
+``D`` itself: ``D`` stays exactly symmetric, so no row copies are needed.
 Bound: bytes.  The step needs the ``L × L`` live cells read once and row
 and column ``i`` written, about ``4·L²`` bytes for ``L`` slots live after
-the merge, at 3.35 TB/s.  The kernel gives each row its own block, skips
-dead rows and stores only ``2n`` cells; it reads whole live rows, ``4·L·n``
-bytes, so dead columns are its gap to the bound.
+the merge, at 3.35 TB/s.  The kernel reads whole live rows with 16-byte
+loads, ``4·L·n`` bytes, so dead columns are its gap to the bound.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.linkage import METHODS, update_row
 from repro_torch.kernels import _build
+
+#: Largest ``n`` the kernel takes: its liveness bitmask fits in 48 KiB of
+#: shared memory.
+MAX_N = 48 * 1024 * 8
+
+#: The running minimum's packed key between launches, ``(+inf, row 0)``
+#: (the unsigned ``0xFF80000000000000`` as an int64).
+_KEY_INIT = -(1 << 55)
 
 
 def lw_step_plain(method, D, d_ki, d_kj, d_ij, n_i, n_j, sizes, alive, i, j):
@@ -43,47 +59,66 @@ def lw_step_plain(method, D, d_ki, d_kj, d_ij, n_i, n_j, sizes, alive, i, j):
 
 
 @functools.cache
-def _kernel():
-    fn = _build.load("lw_step").lw_step
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 10, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("lw_step")
+    lib.lw_step.argtypes = [ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 8, ctypes.c_longlong,
+                            *[ctypes.c_void_p] * 4]
+    lib.lw_merge.argtypes = [ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 5, ctypes.c_longlong,
+                             *[ctypes.c_void_p] * 6, ctypes.c_longlong, ctypes.c_void_p]
+    lib.lw_merge_load.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+    for fn in (lib.lw_step, lib.lw_merge, lib.lw_merge_load):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_square(name: str, method: str, D: torch.Tensor) -> int:
+    if method not in METHODS:
+        raise ValueError(f"unknown linkage method {method!r}")
+    n = D.shape[0] if D.ndim else 0
+    if D.ndim != 2 or D.shape[1] != n or n < 1:
+        raise ValueError(f"{name} needs a non-empty square matrix, got {tuple(D.shape)}")
+    if D.device.type == "cuda" and n > MAX_N:
+        raise ValueError(f"{name} takes n <= {MAX_N}, got {n}")
+    return n
+
+
+def _check_operands(name: str, specs) -> None:
+    for t, dtype, numel in specs:
+        if t.dtype != dtype or t.numel() != numel:
+            raise ValueError(f"{name} operand: expected {numel} x {dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
 
 
 def lw_step(method, D, d_ki, d_kj, d_ij, n_i, n_j, sizes, alive, i, j):
     """One fused merge step; returns ``(D, rmin, rarg)`` with ``D`` updated
     in place.
 
-    ``D``: ``(n, n)`` float32; ``d_ki``, ``d_kj``: ``(n,)`` copies of rows
-    ``i`` and ``j``; ``sizes``: ``(n,)`` float32 and ``alive``: ``(n,)`` bool,
-    both from before the merge; ``d_ij``, ``n_i``, ``n_j``: one-element
-    float32 tensors; ``i < j``: one-element int64 tensors.  The scalars stay
-    on the device, so the launch never waits for the card.  A CUDA tensor
-    launches the kernel; a CPU tensor takes the plain version.
+    ``D``: ``(n, n)`` float32, exactly symmetric; ``d_ki``, ``d_kj``:
+    ``(n,)`` copies of its rows ``i`` and ``j`` (the plain version reads
+    them; the kernel reads the same values from ``D``); ``sizes``: ``(n,)``
+    float32 and ``alive``: ``(n,)`` bool, both from before the merge;
+    ``d_ij``, ``n_i``, ``n_j``: one-element float32 tensors; ``i < j``:
+    one-element int64 tensors.  The scalars stay on the device, so the
+    launch never waits for the card.  A CUDA tensor launches the kernel (a
+    first small launch packs ``alive`` into a bitmask); a CPU tensor takes
+    the plain version.
     """
-    if method not in METHODS:
-        raise ValueError(f"unknown linkage method {method!r}")
-    n = D.shape[0]
-    if D.ndim != 2 or D.shape[1] != n or n < 1:
-        raise ValueError(f"lw_step needs a non-empty square matrix, got {tuple(D.shape)}")
+    n = _check_square("lw_step", method, D)
     if D.device.type == "cpu":
         return lw_step_plain(method, D, d_ki, d_kj, d_ij, n_i, n_j, sizes, alive, i, j)
-    for t, dtype, numel in ((d_ki, torch.float32, n), (d_kj, torch.float32, n),
-                            (sizes, torch.float32, n), (alive, torch.bool, n),
-                            (d_ij, torch.float32, 1), (n_i, torch.float32, 1),
-                            (n_j, torch.float32, 1), (i, torch.int64, 1), (j, torch.int64, 1)):
-        if t.dtype != dtype or t.numel() != numel:
-            raise ValueError(f"lw_step operand: expected {numel} x {dtype}, "
-                             f"got {tuple(t.shape)} {t.dtype}")
+    _check_operands("lw_step", ((d_ki, torch.float32, n), (d_kj, torch.float32, n),
+                                (sizes, torch.float32, n), (alive, torch.bool, n),
+                                (d_ij, torch.float32, 1), (n_i, torch.float32, 1),
+                                (n_j, torch.float32, 1), (i, torch.int64, 1),
+                                (j, torch.int64, 1)))
     _build.check_cuda(D, torch.float32, d_ki, d_kj, sizes, alive, d_ij, n_i, n_j, i, j)
+    bits = torch.empty(-(-n // 32), dtype=torch.int32, device=D.device)
     rmin = torch.empty(n, dtype=torch.float32, device=D.device)
     rarg = torch.empty(n, dtype=torch.int64, device=D.device)
-    err = _kernel()(
-        D.device.index, METHODS.index(method), D.data_ptr(), d_ki.data_ptr(), d_kj.data_ptr(),
-        sizes.data_ptr(), alive.data_ptr(), d_ij.data_ptr(), n_i.data_ptr(), n_j.data_ptr(),
-        i.data_ptr(), j.data_ptr(), n, rmin.data_ptr(), rarg.data_ptr(),
-        _build.raw_stream(D.device.index),
+    err = _lib().lw_step(
+        D.device.index, METHODS.index(method), D.data_ptr(), sizes.data_ptr(), alive.data_ptr(),
+        d_ij.data_ptr(), n_i.data_ptr(), n_j.data_ptr(), i.data_ptr(), j.data_ptr(), n,
+        bits.data_ptr(), rmin.data_ptr(), rarg.data_ptr(), _build.raw_stream(D.device.index),
     )
     if err:
         raise RuntimeError(f"lw_step kernel launch failed: CUDA error {err}")
@@ -92,3 +127,161 @@ def lw_step(method, D, d_ki, d_kj, d_ij, n_i, n_j, sizes, alive, i, j):
 
 
 lw_step.launches = 0
+
+
+def alive_bits(alive: torch.Tensor) -> torch.Tensor:
+    """``alive`` as ``(⌈n/32⌉,)`` int32 words, bit ``c % 32`` of word
+    ``c // 32`` set when slot ``c`` is alive (the kernel's bitmask)."""
+    n = alive.numel()
+    padded = torch.zeros(-(-n // 32) * 32, dtype=torch.int64, device=alive.device)
+    padded[:n] = alive
+    words = (padded.view(-1, 32) << torch.arange(32, device=alive.device)).sum(1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+class MergeBuffers(NamedTuple):
+    """The device-resident loop's state, updated in place by each merge.
+
+    ``D`` ``(n, n)`` float32 (garbage representation), ``alive`` ``(n,)``
+    bool, ``bits`` the same liveness as ``(⌈n/32⌉,)`` int32 words,
+    ``sizes`` ``(n,)`` float32, ``merges`` ``(cap, 4)`` float32 rows ``(i,
+    j, dist, new_size)``; ``cand`` ``(2,)`` int64 and ``dmin`` ``(1,)``
+    float32, the merge to make next, ``(r, c)`` and ``D(r, c)``; ``count``
+    ``(1,)`` int64, the merges recorded so far (the row the next one is
+    written to); ``rmin``/``rarg`` ``(n,)``, each row's ``(min, first
+    column)`` after the last merge; ``sync`` ``(2,)`` int64, the kernel's
+    running-minimum key and block ticket.
+    """
+
+    D: torch.Tensor
+    alive: torch.Tensor
+    bits: torch.Tensor
+    sizes: torch.Tensor
+    merges: torch.Tensor
+    cand: torch.Tensor
+    dmin: torch.Tensor
+    count: torch.Tensor
+    rmin: torch.Tensor
+    rarg: torch.Tensor
+    sync: torch.Tensor
+
+
+def merge_buffers(D, alive, sizes, merges, cand, n_merges: int) -> MergeBuffers:
+    """Buffers around the loop state ``D``, ``alive``, ``sizes`` and
+    ``merges`` (kept, not copied), with the candidate ``cand = (r, c,
+    dmin)`` and ``n_merges`` merges already recorded."""
+    n, dev = D.shape[0], D.device
+    r, c, dmin = cand
+    return MergeBuffers(
+        D=D, alive=alive, bits=alive_bits(alive), sizes=sizes, merges=merges,
+        cand=torch.stack((r, c)).to(torch.int64).reshape(2),
+        dmin=torch.as_tensor(dmin, dtype=torch.float32, device=dev).reshape(1).clone(),
+        count=torch.full((1,), n_merges, dtype=torch.int64, device=dev),
+        rmin=torch.full((n,), torch.inf, dtype=torch.float32, device=dev),
+        rarg=torch.zeros(n, dtype=torch.int64, device=dev),
+        sync=torch.tensor([_KEY_INIT, 0], dtype=torch.int64, device=dev),
+    )
+
+
+def lw_merge_plain(method: str, b: MergeBuffers) -> MergeBuffers:
+    """The plain torch version of :func:`lw_merge`, on any device, in place:
+    the fused step of :func:`lw_step_plain` on copies of rows ``i`` and
+    ``j``, the next candidate from the per-row minima (the first row that
+    attains the minimum, then its first column), and the bookkeeping."""
+    r, c = b.cand[0], b.cand[1]
+    ij = torch.stack((torch.minimum(r, c), torch.maximum(r, c)))   # i keeps the union
+    n_ij = b.sizes.index_select(0, ij)
+    rows = b.D.index_select(0, ij)
+    _, rmin, rarg = lw_step_plain(method, b.D, rows[0], rows[1], b.dmin[0], n_ij[0], n_ij[1],
+                                  b.sizes, b.alive, ij[0], ij[1])
+    new_size = n_ij.sum()
+    b.merges.index_copy_(0, b.count, torch.cat((ij.to(torch.float32), b.dmin,
+                                                new_size.reshape(1)))[None])
+    b.count.add_(1)
+    b.alive.index_fill_(0, ij[1:], False)
+    b.bits.copy_(alive_bits(b.alive))
+    b.sizes.index_fill_(0, ij[1:], 0.0).index_put_((ij[:1],), new_size.reshape(1))
+    m, r_next = torch.min(rmin, dim=0)
+    b.cand.copy_(torch.stack((r_next, rarg[r_next])))
+    b.dmin.copy_(m.reshape(1))
+    b.rmin.copy_(rmin)
+    b.rarg.copy_(rarg)
+    return b
+
+
+def _check_buffers(method: str, b: MergeBuffers) -> int:
+    n = _check_square("lw_merge", method, b.D)
+    if b.merges.ndim != 2 or b.merges.shape[1] != 4:
+        raise ValueError(f"lw_merge merges must be (cap, 4), got {tuple(b.merges.shape)}")
+    _check_operands("lw_merge", (
+        (b.D, torch.float32, n * n), (b.alive, torch.bool, n),
+        (b.bits, torch.int32, -(-n // 32)), (b.sizes, torch.float32, n),
+        (b.merges, torch.float32, b.merges.numel()), (b.cand, torch.int64, 2),
+        (b.dmin, torch.float32, 1), (b.count, torch.int64, 1), (b.rmin, torch.float32, n),
+        (b.rarg, torch.int64, n), (b.sync, torch.int64, 2)))
+    return n
+
+
+def lw_merge(method: str, b: MergeBuffers) -> MergeBuffers:
+    """One merge of the device-resident loop, in place on ``b``: the merge
+    of the candidate ``b.cand``, its record at row ``b.count`` of
+    ``b.merges``, slot ``j`` tombstoned, and the next candidate.
+
+    One launch that reads nothing back and allocates nothing, so a run of
+    merges can be captured as a CUDA graph (:class:`MergeGraph`).  A CUDA
+    tensor launches the kernel; a CPU tensor takes the plain version.
+    """
+    n = _check_buffers(method, b)
+    if b.D.device.type == "cpu":
+        return lw_merge_plain(method, b)
+    _build.check_cuda(b.D, torch.float32, *b[1:])
+    err = _lib().lw_merge(
+        b.D.device.index, METHODS.index(method), b.D.data_ptr(), b.alive.data_ptr(),
+        b.bits.data_ptr(), b.sizes.data_ptr(), b.merges.data_ptr(), b.merges.shape[0],
+        b.cand.data_ptr(), b.dmin.data_ptr(), b.count.data_ptr(), b.rmin.data_ptr(),
+        b.rarg.data_ptr(), b.sync.data_ptr(), n, _build.raw_stream(b.D.device.index),
+    )
+    if err:
+        raise RuntimeError(f"lw_merge kernel launch failed: CUDA error {err}")
+    lw_merge.launches += 1
+    return b
+
+
+lw_merge.launches = 0
+
+
+class MergeGraph:
+    """``k`` merges of :func:`lw_merge` on the buffers ``b``, captured once
+    as a CUDA graph on a side stream; :meth:`replay` runs them on the
+    current stream.
+
+    The kernel is loaded before the capture (CUDA loads kernels lazily, and
+    a first load must not fall inside one).  A failed capture raises.  The
+    wrapper's Python runs only while the graph is captured, so the capture
+    leaves ``lw_merge.launches`` as it found it and each replay adds the
+    ``k`` launches it makes.
+    """
+
+    def __init__(self, method: str, b: MergeBuffers, k: int):
+        n = _check_buffers(method, b)
+        dev = b.D.device
+        err = _lib().lw_merge_load(dev.index, METHODS.index(method), n)
+        if err:
+            raise RuntimeError(f"lw_merge kernel load failed: CUDA error {err}")
+        self.graph, self.merges = torch.cuda.CUDAGraph(), k
+        launches = lw_merge.launches
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.graph.capture_begin()
+            try:
+                for _ in range(k):
+                    lw_merge(method, b)
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        lw_merge.launches = launches
+
+    def replay(self) -> None:
+        self.graph.replay()
+        lw_merge.launches += self.merges

@@ -33,13 +33,14 @@ def random_distance_matrix(rng, n, squared=False):
 
 
 def step_problem(rng, n, method, dead=0.3):
-    """A mid-run state: symmetric D, dead slots, sizes, and a live i < j."""
+    """A mid-run state: symmetric D, dead slots, sizes, and a live i < j
+    (at n = 1, the one slot merged with itself)."""
     D = random_distance_matrix(rng, n, squared=method in ("centroid", "median", "ward"))
     D = D.astype(np.float32)
     alive = rng.random(n) > dead
     alive[:3] = True
     live = np.flatnonzero(alive)
-    i, j = sorted(rng.choice(live, 2, replace=False))
+    i, j = sorted(rng.choice(live, 2, replace=False)) if n > 1 else (0, 0)
     sizes = np.where(alive, rng.integers(1, 7, n), 0).astype(np.float32)
     return D, alive, sizes, int(i), int(j)
 
@@ -63,13 +64,31 @@ def lw_update_args(D, alive, sizes, i, j, device="cpu"):
             t(keep, torch.bool))
 
 
+def merge_problem(rng, n, method, device="cpu", dead=0.3):
+    """A step problem as the resident loop holds it: its buffers, with the
+    candidate the masked first minimum of D."""
+    D, alive, sizes, _, _ = step_problem(rng, n, method, dead)
+    Dt = torch.tensor(D, device=device)
+    alive_t = torch.tensor(alive, device=device)
+    v, flat = minscan.masked_argmin_plain(Dt, alive_t)
+    cand = (flat // n, flat % n, v)
+    merges = torch.zeros((n, 4), device=device)
+    return lw_step.merge_buffers(Dt, alive_t, torch.tensor(sizes, device=device), merges, cand, 0)
+
+
+def clone_buffers(b):
+    return lw_step.MergeBuffers(*(t.clone() for t in b))
+
+
 def reset_launches():
-    minscan.masked_argmin.launches = lw_step.lw_step.launches = lw_update.lw_update.launches = 0
+    minscan.masked_argmin.launches = lw_step.lw_step.launches = 0
+    lw_step.lw_merge.launches = lw_update.lw_update.launches = 0
 
 
 def launches():
+    """Launch counts of (B1, B2's per-row entry, B2's merge entry, B3)."""
     return (minscan.masked_argmin.launches, lw_step.lw_step.launches,
-            lw_update.lw_update.launches)
+            lw_step.lw_merge.launches, lw_update.lw_update.launches)
 
 
 def assert_same_merges(got, want):
@@ -93,8 +112,11 @@ def test_cuda_masked_argmin_matches_plain(n, cuda, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", METHODS)
-@pytest.mark.parametrize("n", (97, 1968))
+@pytest.mark.parametrize("n", (1, 2, 97, 1967, 1968, 4099))
 def test_cuda_lw_step_matches_plain(method, n, cuda, rng):
+    """B2's per-row entry: rows read whole (n % 4 == 0) and with a
+    misaligned head and a ragged tail, a warp a row (n <= 4096) and a block
+    a row (n = 4099)."""
     D, alive, sizes, i, j = step_problem(rng, n, method)
     args = torch_step_args(D, alive, sizes, i, j, device=cuda)
     plain = [a.clone() for a in args]
@@ -109,6 +131,112 @@ def test_cuda_lw_step_matches_plain(method, n, cuda, rng):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("n", (2, 97, 1967, 4099))
+def test_cuda_lw_merge_matches_plain(method, n, cuda, rng):
+    """B2's merge entry against its plain twin over successive merges from
+    a mid-run state: every buffer bit for bit, and the kernel's running
+    minimum and ticket back at their values between launches."""
+    got = merge_problem(rng, n, method, device=cuda)
+    want = clone_buffers(got)
+    sync = got.sync.clone()
+    before = lw_step.lw_merge.launches
+    for _ in range(min(n - 1, 6)):
+        lw_step.lw_merge(method, got)
+        lw_step.lw_merge_plain(method, want)
+    torch.cuda.synchronize()
+    assert lw_step.lw_merge.launches == before + min(n - 1, 6)
+    for name, a, b in zip(lw_step.MergeBuffers._fields, got, want):
+        if name != "sync":
+            assert torch.equal(a, b), name
+    assert torch.equal(got.sync, sync)
+    assert torch.equal(got.D, got.D.T)          # D stays exactly symmetric
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ("single", "complete", "centroid", "ward"))
+def test_cuda_graph_replays_eager_merges(method, cuda, rng):
+    """A captured chunk of merges, replayed twice, equals the same merges
+    launched one by one; the capture counts no launch, each replay its
+    merges."""
+    got = merge_problem(rng, 300, method, device=cuda)
+    want = clone_buffers(got)
+    reset_launches()
+    graph = lw_step.MergeGraph(method, got, 16)
+    assert launches() == (0, 0, 0, 0)
+    graph.replay()
+    graph.replay()
+    assert launches() == (0, 0, 32, 0)
+    for _ in range(32):
+        lw_step.lw_merge(method, want)
+    torch.cuda.synchronize()
+    for name, a, b in zip(lw_step.MergeBuffers._fields, got, want):
+        assert torch.equal(a, b), name
+    assert int(got.count) == 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("case", ("full", "stop_at_k", "threshold", "dead slots"))
+def test_cuda_graph_run_matches_eager_and_cpu(method, case, cuda, rng):
+    """A graph-replayed run (chunks of THRESHOLD_CHECK_TRIPS) against the
+    same loop launching every merge, against its plain twin on the card
+    (bit for bit) and against the CPU run (merge for merge); the counters
+    read one seed and one merge launch a merge."""
+    from repro_torch.core import engine
+    from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS
+
+    n = 2 * THRESHOLD_CHECK_TRIPS + 45
+    D = torch.tensor(random_distance_matrix(rng, n, squared=method == "ward").astype(np.float32))
+    alive = torch.ones(n, dtype=torch.bool)
+    if case == "dead slots":
+        alive[rng.choice(n, 20, replace=False)] = False
+    live = int(alive.sum())
+    n_steps = live - (9 if case == "stop_at_k" else 1)
+    thr = None
+    if case == "threshold":     # crosses inside the second chunk
+        full = engine.run_kernel(D.clone(), alive.clone(), method=method, n_steps=n_steps)
+        thr = float(full.merges[THRESHOLD_CHECK_TRIPS + 50, 2])
+
+    def run(device, ops=None):
+        Dd, alive_d = D.to(device), alive.to(device)
+        if ops is None:
+            return engine.run_kernel(Dd, alive_d, method=method, n_steps=n_steps,
+                                     distance_threshold=thr)
+        out = engine.run_merge_loop(ops, engine._init_state(Dd, alive_d, n_steps), n_steps, thr)
+        return engine.LWResult(merges=out.merges, n_merges=out.n_merges)
+
+    reset_launches()
+    graphed = run(cuda)
+    counts = launches()
+    eager = run(cuda, engine._fused_ops(method, n, minscan.masked_argmin, lw_step.lw_merge))
+    plain = run(cuda, engine._fused_ops(method, n, minscan.masked_argmin_plain,
+                                        lw_step.lw_merge_plain))
+    cpu = run("cpu")
+    k = cpu.n_merges
+    if case == "threshold":
+        assert 0 < k < n_steps and counts[2] == min(n_steps, 2 * THRESHOLD_CHECK_TRIPS)
+    else:
+        assert k == n_steps and counts == (1, 0, n_steps, 0)
+    assert graphed.n_merges == eager.n_merges == plain.n_merges == k
+    assert torch.equal(graphed.merges, eager.merges) and torch.equal(graphed.merges, plain.merges)
+    assert_same_merges(graphed.merges.cpu().numpy(), cpu.merges.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_lw_merge_rejects_bad_operands(cuda, rng):
+    b = merge_problem(rng, 40, "complete", device=cuda)
+    with pytest.raises(ValueError, match="unknown linkage method"):
+        lw_step.lw_merge("nope", b)
+    with pytest.raises(ValueError, match="operand"):
+        lw_step.lw_merge("complete", b._replace(rarg=b.rarg.to(torch.int32)))
+    with pytest.raises(ValueError, match="contiguous"):
+        lw_step.lw_merge("complete", b._replace(sizes=torch.zeros(80, device=cuda)[::2]))
+    with pytest.raises(ValueError, match="one device"):
+        lw_step.lw_merge("complete", b._replace(count=b.count.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
 def test_cuda_cluster_matches_cpu(method, cuda):
     """The whole loop on the card: index-identical to the CPU run, one seed
     launch and n - 1 step launches."""
@@ -118,7 +246,7 @@ def test_cuda_cluster_matches_cpu(method, cuda):
     X = gaussian_mixture(seed=4, n=97, dim=8, return_labels=False)
     reset_launches()
     got = cluster(X, method, algorithm="lw", backend="kernel")  # the default device is CUDA
-    assert launches() == (1, 96, 0)
+    assert launches() == (1, 0, 96, 0)
     want = cluster(X, method, algorithm="lw", backend="kernel", device="cpu")
     assert_same_merges(got.merges, want.merges)
 
@@ -155,7 +283,8 @@ def test_cuda_kernel_variants_match_baseline(method, cuda):
         reset_launches()
         runs[variant] = cluster(X, method, algorithm="lw", backend="kernel", variant=variant)
         counts[variant] = launches()
-    assert counts == {"baseline": (1, 299, 0), "rowmin": (1, 299, 0), "lazy": (0, 0, 299)}
+    assert counts == {"baseline": (1, 0, 299, 0), "rowmin": (1, 0, 299, 0),
+                      "lazy": (0, 0, 0, 299)}
     for variant in ("rowmin", "lazy"):
         assert_same_merges(runs[variant].merges, runs["baseline"].merges)
 
@@ -171,7 +300,7 @@ def test_cuda_serial_matches_kernel(variant, cuda):
     X = gaussian_mixture(seed=6, n=300, dim=8, return_labels=False)
     reset_launches()
     got = cluster(X, "centroid", variant=variant)
-    assert (got.algorithm, got.backend, launches()) == ("lw", "serial", (0, 0, 0))
+    assert (got.algorithm, got.backend, launches()) == ("lw", "serial", (0, 0, 0, 0))
     want = cluster(X, "centroid", algorithm="lw", backend="kernel")
     assert_same_merges(got.merges, want.merges)
     thr = float(want.merges[150, 2])
