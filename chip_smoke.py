@@ -12,7 +12,11 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    n = 16384 (the step kernel through both its entries, the per-row step
    and the resident merge, with the bytes it reads and the rate it reaches;
    the row update checked for all 7 methods), the row kernel at
-   (m, d) = (1968, 64) and (32768, 128), the pairwise kernel at the landmark
+   (m, d) = (1968, 64) and (32768, 128), its trip entry (a whole chain trip,
+   the matrix-free chain's main path) at (32768, 128), (6155, 128) and
+   (1968, 64) against its plain twin over 64 trips from the first state of
+   a run, timed over 20 trips from the state they reach and over a graph
+   replay of 256 trips, the pairwise kernel at the landmark
    assignment's (n, m, d) = (124917, 6155, 128) and the streaming shape
    (65536, 4096, 128), with the host's time to enqueue one call of the row
    update, the row kernel and the pairwise kernel.  A kernel whose operands
@@ -39,12 +43,13 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    count over a profiled run of the chain engine alone.
 6. The matrix-free chain: ``cluster(X, "ward")`` with default knobs on
    n = 32768 points in 128 dimensions (the matrix would be 4 GiB): no
-   matrix kept, one row-kernel launch a trip, peak memory under
-   0.25 GiB, and the dendrogram of the same chain built with the plain
-   row on the card.  The chain loop runs once with the plain row and once
-   with the kernel, through one entry.  Then
-   at n = 4096 the matrix-free ward run against the LW loop on the kernel
-   backend.
+   matrix kept, one trip-kernel launch a trip, replayed from CUDA graphs
+   of 256 trips (launches = replays x 256, at least the trips and less
+   than one replay more; the profiler sees every launch), peak memory
+   under 0.25 GiB, and the dendrogram of the host-driven chain loop with
+   the plain row on the card (one read-back a trip: the "before" wall).
+   Then at n = 4096 (d = 128) and n = 1968 (d = 64) the matrix-free ward
+   run against the LW loop on the kernel backend.
 7. The serial LW backend: ``cluster(X, "centroid")`` with default knobs on
    phase 5's points resolves to it, reports ``backend="serial"``, launches
    no kernel, and gives the kernel backend's dendrogram; wall, busy time,
@@ -66,7 +71,8 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     n = 131072 points in 128 dimensions (k = 6155; the matrix would be
     64 GiB): the reference's query-budget gates, ARI >= 0.95 against the
     mixture's labels at the 8-cut, the same merges in a profiled second run,
-    peak memory under 32 GiB; ``assign(backend="kernel")`` of the
+    the landmark chain's trips against its trip-kernel launches, peak
+    memory under 32 GiB; ``assign(backend="kernel")`` of the
     non-landmarks against the run's landmarks gives its groups.  At
     n = 8192 the landmark run against the exact chain at the 8-cut.
 12. The paper's protein mode: ``cluster(C, "complete", metric="rmsd")`` on
@@ -77,8 +83,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counters set to 0 just before it
-and read just after.  Phases 10-12 run in a child process of this script
-(``--later-phases``), for the profiler's sake (``run_later_phases``).
+and read just after.  Phase 6's profiled chain run (``--profile-chain``)
+and phases 10-12 (``--later-phases``) run in child processes of this
+script, for the profiler's sake (``run_child``).
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.
 """
@@ -100,13 +107,15 @@ L2_PROBE_MIB, L2_PROBE_REPS = 16, 16   # the L2 probe reads a 16 MiB buffer 16 t
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 PAPER_N, FULL_N, DIM = 1968, 16384, 64
 CHAIN_N, CHAIN_DIM = 32768, 128  # matrix-free run: 16 MiB of summaries, no 4 GiB matrix
-CROSS_N = 4096                 # matrix-free ward held against the LW loop
+CROSS_SHAPES = ((4096, 128), (1968, 64))   # matrix-free ward held against the LW loop
 MID_N = 8192                   # phases 5, 7, 8: n = 16384 until the smoke outgrew 700 s
 ROW_SHAPES = ((PAPER_N, DIM), (CHAIN_N, CHAIN_DIM))
 LANDMARK_N, LANDMARK_K = 131072, 6155   # k = ceil(sqrt(n) log2 n); the matrix would be 64 GiB
 LANDMARK_PEAK_LIMIT_GIB = 32.0          # half of that matrix
 LANDMARK_CROSS_N = 8192                 # the landmark run held against the exact chain
 QUERY_N, CENTROID_K, EXEMPLAR_K = 65536, 4096, 64
+TRIP_SHAPES = ((CHAIN_N, CHAIN_DIM), (LANDMARK_K, CHAIN_DIM), (PAPER_N, DIM))
+TRIP_CHECKS = 64               # trips of the trip kernel held against its plain twin
 PAIRWISE_SHAPES = ((LANDMARK_N - LANDMARK_K, LANDMARK_K, CHAIN_DIM),
                    (QUERY_N, CENTROID_K, CHAIN_DIM))
 PAIRWISE_RTOL, PAIRWISE_ATOL_SCALE = 1e-4, 1e-6   # atol = scale * max(|x|^2 + |y|^2)
@@ -115,6 +124,7 @@ RMSD_N, RMSD_ATOMS, RMSD_ATOL = 1968, 24, 1e-4
 PEAK_LIMIT_GIB = 0.25          # the matrix-free run must stay O(n d)
 PROFILER_MISS_SHARE = 1e-3     # kernel records the profiler may drop in a whole run ...
 PROFILER_MISS_MIN = 50_000     # ... of this many launches or more (fewer: none)
+PROFILER_TRIES = 3             # profiled runs of a call before dropped records fail a phase
 PREFIX = 256                   # merges of the full-size run held against the plain engine
 SPLIT_REPLAYS = 2              # graph replays whose host time is set against their device time
 MERGE_REPS = 20                # merges a timed batch of the step kernel's merge entry makes
@@ -128,6 +138,7 @@ KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once
     "lw_merge": ("lw_merge_kernel",),
     "lw_update": ("lw_update_kernel",),
     "row_sq_euclidean": ("row_sq_kernel",),
+    "chain_trip": ("chain_trip_kernel",),
     "pairwise_sq_euclidean": ("pairwise_sq_kernel",),
 }
 NO_LAUNCHES = dict.fromkeys(KERNEL_SYMBOLS, 0)
@@ -321,10 +332,11 @@ def phase_step(torch, method: str, D, alive, sizes, i: int, j: int, dmin, l2_rat
                 library_ms=None, **step_bound(torch, n, live, l2_rate))
 
 
-def time_merges(torch, merge, b0, b, batches: int = 5) -> float:
-    """Median device ms of one merge: CUDA events around MERGE_REPS merges
-    made from the state ``b0``, restored into the buffers ``b`` before each
-    batch, queued behind a sleep kernel."""
+def time_merges(torch, merge, b0, b, batches: int = 5, reps: int = MERGE_REPS) -> float:
+    """Median device ms of one call of ``merge`` (a merge, a chain trip or a
+    graph replay): CUDA events around ``reps`` calls made from the state
+    ``b0``, restored into the buffers ``b`` before each batch, queued
+    behind a sleep kernel."""
     times = []
     for batch in range(batches + 1):      # the first batch warms up
         for dst, src in zip(b, b0):
@@ -333,12 +345,12 @@ def time_merges(torch, merge, b0, b, batches: int = 5) -> float:
         torch.cuda._sleep(50_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(MERGE_REPS):
+        for _ in range(reps):
             merge(b)
         end.record()
         end.synchronize()
         if batch:
-            times.append(start.elapsed_time(end) / MERGE_REPS)
+            times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -446,6 +458,70 @@ def phase_row(torch, m: int, d: int, l2_rate: float) -> dict:
                 **bound(torch, n_bytes, 3 * m * d, n_bytes, l2_rate))
 
 
+def trip_bytes(m: int, d: int) -> float:
+    """The bytes one chain trip must move at (m, d): the summaries read
+    once, ward's one per-slot scalar (the sizes; u for average and
+    weighted), the liveness bitmask, and O(d) for the tip and a merge's
+    two rows read and one written."""
+    return 4 * m * d + 4 * m + m / 8 + 16 * d
+
+
+def phase_trip(torch, m: int, d: int, l2_rate: float) -> dict:
+    """B5's trip entry, the matrix-free chain's main path, against its
+    plain twin on the card: TRIP_CHECKS trips from the first state of a
+    ward run on one mixture's points, the same decisions (every count,
+    slot, size and liveness equal) and the summaries within the row's
+    float error.  Then timed from the state those trips reach: MERGE_REPS
+    trips launched one by one, and one graph replay of CHAIN_GRAPH_TRIPS
+    trips; with ``cdist``'s row as the library call."""
+    from repro_torch.core.nnchain import CHAIN_GRAPH_TRIPS
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.kernels import pairwise
+
+    X = torch.as_tensor(gaussian_mixture(seed=3, n=m, dim=d, return_labels=False),
+                        dtype=torch.float32, device="cuda")
+
+    def fresh():
+        return pairwise.chain_buffers(X.clone(), torch.zeros(m, device="cuda"),
+                                      torch.ones(m, dtype=torch.bool, device="cuda"),
+                                      torch.ones(m, device="cuda"), m - 1)
+
+    bk, bp = fresh(), fresh()
+    for _ in range(TRIP_CHECKS):
+        pairwise.chain_trip("ward", bk)
+        pairwise.chain_trip_plain("ward", bp)
+    torch.cuda.synchronize()
+    for name in ("alive", "bits", "sizes", "chain", "count"):
+        if not torch.equal(getattr(bk, name), getattr(bp, name)):
+            raise AssertionError(f"chain_trip m={m} d={d}: {name} differs from the plain twin")
+    if not torch.equal(bk.merges[:, [0, 1, 3]], bp.merges[:, [0, 1, 3]]):
+        raise AssertionError(f"chain_trip m={m} d={d}: merge slots differ from the plain twin")
+    if bk.sync[:2].tolist() != [-1, 0]:
+        raise AssertionError(f"chain_trip m={m} d={d}: the kernel left its key/ticket at {bk.sync}")
+    err = 0.0
+    for a, b in ((bk.W, bp.W), (bk.u, bp.u), (bk.merges, bp.merges)):
+        if not torch.allclose(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+            raise AssertionError(f"chain_trip m={m} d={d}: summaries or heights differ "
+                                 "from the plain twin")
+        err = max(err, float((a - b).abs().max()))
+    length, merged, _, _ = bk.count.tolist()
+    b0 = [t.clone() for t in bk[:9]]
+    ms = time_merges(torch, lambda _: pairwise.chain_trip("ward", bk), b0, bk[:9])
+    plain_ms = time_merges(torch, lambda _: pairwise.chain_trip_plain("ward", bk), b0, bk[:9])
+    for dst, src in zip(bk[:9], b0):
+        dst.copy_(src)
+    graph = pairwise.TripGraph("ward", bk, CHAIN_GRAPH_TRIPS)
+    replay_ms = time_merges(torch, lambda _: graph.replay(), b0, bk[:9], reps=1)
+    x = X[m // 3]
+    n_bytes = trip_bytes(m, d)
+    return dict(m=m, d=d, checked_trips=TRIP_CHECKS, merges_in_check=merged, chain_length=length,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                graph_ms_per_trip=replay_ms / CHAIN_GRAPH_TRIPS,
+                library_ms=time_ms(torch, lambda: torch.cdist(x[None], X)),
+                host_us=host_us(torch, lambda: pairwise.chain_trip("ward", bk)),
+                **bound(torch, n_bytes, 3 * m * d + 8 * m, n_bytes, l2_rate))
+
+
 def pairwise_atol(X, Y) -> float:
     """The pairwise kernel's absolute tolerance: PAIRWISE_ATOL_SCALE times
     the largest ``|x|^2 + |y|^2``, the scale of the Gram form's
@@ -506,6 +582,7 @@ def reset_counters() -> None:
     lw_step.lw_merge.launches = 0
     lw_update.lw_update.launches = 0
     pairwise.row_sq_euclidean.launches = 0
+    pairwise.chain_trip.launches = pairwise.TripGraph.replays = 0
     pairwise.pairwise_sq_euclidean.launches = 0
 
 
@@ -515,7 +592,23 @@ def read_counters() -> dict:
     return {"masked_argmin": minscan.masked_argmin.launches, "lw_step": lw_step.lw_step.launches,
             "lw_merge": lw_step.lw_merge.launches, "lw_update": lw_update.lw_update.launches,
             "row_sq_euclidean": pairwise.row_sq_euclidean.launches,
+            "chain_trip": pairwise.chain_trip.launches,
             "pairwise_sq_euclidean": pairwise.pairwise_sq_euclidean.launches}
+
+
+def check_trips(stats: dict, iters: int | None, what: str) -> None:
+    """The resident chain's launches in a run that :func:`timed` read: only
+    trip launches, all from whole graph replays, and (given the trips
+    made) at least the trips and less than one replay more."""
+    from repro_torch.core.nnchain import CHAIN_GRAPH_TRIPS
+
+    launches = stats["launches"]["chain_trip"]
+    check_launches(stats["launches"], {"chain_trip": launches}, what)
+    if not launches or launches != stats["trip_replays"] * CHAIN_GRAPH_TRIPS:
+        raise AssertionError(f"{what}: {launches} trip launches from {stats['trip_replays']} "
+                             f"replays of {CHAIN_GRAPH_TRIPS}")
+    if iters is not None and not iters <= launches < iters + CHAIN_GRAPH_TRIPS:
+        raise AssertionError(f"{what}: {launches} trip launches for {iters} trips")
 
 
 def check_launches(got: dict, want: dict, what: str) -> None:
@@ -525,7 +618,9 @@ def check_launches(got: dict, want: dict, what: str) -> None:
 
 def timed(torch, call):
     """One run of ``call`` with the counters set to 0 just before it: wall
-    seconds, peak memory and launches."""
+    seconds, peak memory, launches and the chain's graph replays."""
+    from repro_torch.kernels.pairwise import TripGraph
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
@@ -534,7 +629,7 @@ def timed(torch, call):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return res, dict(wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                     launches=read_counters())
+                     launches=read_counters(), trip_replays=TripGraph.replays)
 
 
 def run_cluster(torch, X):
@@ -575,36 +670,49 @@ def device_busy(torch, call, wall_s: float, launches: dict):
     that the counters saw: none more, and none fewer but in a run of
     PROFILER_MISS_MIN launches or more, where it may miss
     PROFILER_MISS_SHARE of them (CUPTI dropped a few of ~98k records;
-    misses are reported as ``profiler_missed``).  Returns what ``call``
-    returned, and the numbers."""
+    misses are reported as ``profiler_missed``).  A profiler that saw
+    fewer runs the call again, profiled, up to PROFILER_TRIES times in
+    all (CUPTI drops whole sessions' records at random: ``run_child``),
+    with the counters set to 0 before each run; ``profiler_tries`` says
+    how many it took.  Returns what the last run of ``call`` returned,
+    and the numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = call()
-        torch.cuda.synchronize()
-        profiled_wall = time.perf_counter() - t0
-    busy_ns = 0
-    kernel_ns, kernel_n = dict.fromkeys(KERNEL_SYMBOLS, 0), dict.fromkeys(KERNEL_SYMBOLS, 0)
-    # the raw records: building prof.events() costs ~70 us a record
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA:
-            continue
-        ns, name = e.duration_ns(), e.name()
-        busy_ns += ns
-        for kernel, symbols in KERNEL_SYMBOLS.items():
-            if any(sym in name for sym in symbols):
-                kernel_ns[kernel] += ns
-                kernel_n[kernel] += symbols[0] in name
-    missed = {k: launches[k] - kernel_n[k] for k in kernel_n}
-    allowed = {k: PROFILER_MISS_SHARE * n if n >= PROFILER_MISS_MIN else 0
-               for k, n in launches.items()}
-    if any(m < 0 or m > allowed[k] for k, m in missed.items()):
-        raise AssertionError(f"the profiler saw launches {kernel_n}, the counters {launches}")
+    for tries in range(1, PROFILER_TRIES + 1):
+        reset_counters()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize()
+            profiled_wall = time.perf_counter() - t0
+        busy_ns = 0
+        kernel_ns, kernel_n = dict.fromkeys(KERNEL_SYMBOLS, 0), dict.fromkeys(KERNEL_SYMBOLS, 0)
+        # the raw records: building prof.events() costs ~70 us a record
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != DeviceType.CUDA:
+                continue
+            ns, name = e.duration_ns(), e.name()
+            busy_ns += ns
+            for kernel, symbols in KERNEL_SYMBOLS.items():
+                if any(sym in name for sym in symbols):
+                    kernel_ns[kernel] += ns
+                    kernel_n[kernel] += symbols[0] in name
+        missed = {k: launches[k] - kernel_n[k] for k in kernel_n}
+        allowed = {k: PROFILER_MISS_SHARE * n if n >= PROFILER_MISS_MIN else 0
+                   for k, n in launches.items()}
+        seen = f"the profiler saw launches {kernel_n}, the counters {launches}"
+        if any(m < 0 for m in missed.values()):        # more than launched: never retried
+            raise AssertionError(seen)
+        if all(m <= allowed[k] for k, m in missed.items()):
+            break
+        if tries == PROFILER_TRIES:
+            raise AssertionError(seen)
+        print(f"{seen}: profiling the run again", flush=True)
     busy_s = busy_ns / 1e9
     return res, dict(device_busy_s=busy_s, idle_share=1 - busy_s / wall_s,
                      profiled_wall_s=profiled_wall, profiler_missed=missed,
+                     profiler_tries=tries,
                      kernel_ms_mean={k: kernel_ns[k] / 1e6 / max(kernel_n[k], 1)
                                      for k in kernel_ns},
                      kernel_busy_share={k: kernel_ns[k] / busy_ns for k in kernel_ns})
@@ -743,12 +851,12 @@ def points_chain(torch, X, method: str, row_sq):
 
 
 def phase_points_chain(torch, np) -> dict:
-    """``cluster(X, "ward")`` with default knobs at n = 32768, d = 128."""
+    """``cluster(X, "ward")`` with default knobs at n = 32768, d = 128: the
+    resident chain, then the host-driven loop with the plain row."""
     from repro_torch.core import cluster
     from repro_torch.core.dendrogram import canonical_order, is_monotone, validate_merges
-    from repro_torch.core.nnchain import nn_chain_from_points
     from repro_torch.data.synthetic import gaussian_mixture
-    from repro_torch.kernels.pairwise import row_sq_euclidean, row_sq_euclidean_plain
+    from repro_torch.kernels.pairwise import row_sq_euclidean_plain
 
     n = CHAIN_N
     X = gaussian_mixture(seed=0, n=n, dim=CHAIN_DIM, return_labels=False)
@@ -763,52 +871,44 @@ def phase_points_chain(torch, np) -> dict:
     if not is_monotone(res.merges):
         raise AssertionError("ward heights are not monotone")
 
-    # busy time and trips: the chain alone, profiled (cluster() adds only
-    # the upload of the points to it)
-    reset_counters()
-    chain, busy = device_busy(torch, lambda: nn_chain_from_points(X, "ward"), stats["wall_s"],
-                              stats["launches"])
-    check_launches(read_counters(), {"row_sq_euclidean": chain.iters}, "matrix-free chain")
-    check_launches(stats["launches"], {"row_sq_euclidean": chain.iters}, "matrix-free cluster run")
-    stats.update(busy)
-    stats.update(per_step(stats, chain.iters, "trip"))
+    # busy time and trips: the chain alone, profiled in a process of its
+    # own (cluster() adds the upload of the points and the canonical order
+    # on the host); the profiler must see every launch
+    busy = run_child(torch, PROFILE_CHAIN_FLAG, dict(wall_s=stats["wall_s"],
+                                                    launches=stats["launches"]))
+    check_trips(stats, busy["iters"], "matrix-free cluster run")
+    stats.update({k: busy[k] for k in ("device_busy_s", "idle_share", "profiled_wall_s",
+                                       "profiler_missed", "profiler_tries", "kernel_ms_mean",
+                                       "kernel_busy_share")})
+    stats.update(per_step(stats, busy["iters"], "trip"))
 
-    # the same loop with the plain row and with the kernel, in turn
-    rows = {"plain": row_sq_euclidean_plain, "kernel": row_sq_euclidean}
-    stats["row_ab_wall_s"] = []
-    for name in ("plain", "kernel", "kernel", "plain"):
-        run, s = timed(torch, lambda: points_chain(torch, X, "ward", rows[name]))
-        check_launches(s["launches"], {"row_sq_euclidean": run.iters} if name == "kernel" else {},
-                       f"{name}-row chain loop")
-        if run.iters != chain.iters:
-            raise AssertionError(f"{name}-row chain loop took {run.iters} trips, "
-                                 f"want {chain.iters}")
-        stats["row_ab_wall_s"].append([name, s["wall_s"]])
-        if name == "plain":
-            plain = run
+    # the host-driven loop with the plain row: the dendrogram reference and
+    # the wall before the resident chain
+    plain, s = timed(torch, lambda: points_chain(torch, X, "ward", row_sq_euclidean_plain))
+    check_launches(s["launches"], {}, "plain-row chain loop")
+    stats.update(host_loop_wall_s=s["wall_s"], host_loop_trips=plain.iters)
     check_equivalent(np, res.merges, canonical_order(plain.merges.cpu().numpy(), n=n), n,
                      f"matrix-free chain vs plain-row chain n={n}")
     return res, stats
 
 
-def phase_cross(torch, np) -> dict:
-    """At n = 4096, d = 128: the matrix-free ward chain against the LW loop
-    on the kernel backend (Gram-form matrix) — two engines, one dendrogram."""
+def phase_cross(torch, np, n: int, d: int) -> dict:
+    """At (n, d): the matrix-free ward chain against the LW loop on the
+    kernel backend (Gram-form matrix) — two engines, one dendrogram."""
     from repro_torch.core import cluster
     from repro_torch.data.synthetic import gaussian_mixture
 
-    n = CROSS_N
-    X = gaussian_mixture(seed=0, n=n, dim=CHAIN_DIM, return_labels=False)
-    chain, chain_stats = timed(torch, lambda: cluster(X, "ward"))
-    trips = chain_stats["launches"]["row_sq_euclidean"]
-    if (chain.algorithm, chain.distances) != ("nnchain", None) or not trips:
-        raise AssertionError(f"n={n} ward ran {chain.algorithm}, launches {chain_stats['launches']}")
-    check_launches(chain_stats["launches"], {"row_sq_euclidean": trips}, f"n={n} chain")
+    X = gaussian_mixture(seed=0, n=n, dim=d, return_labels=False)
+    chain, chain_stats = timed(torch, lambda: cluster(X, "ward", matrix_free=True))
+    if (chain.algorithm, chain.distances) != ("nnchain", None):
+        raise AssertionError(f"n={n} ward ran {chain.algorithm}")
+    check_trips(chain_stats, None, f"n={n} chain")
     lw, lw_stats = timed(torch, lambda: cluster(X, "ward", algorithm="lw", backend="kernel",
                                                 keep_inputs=False))
     check_launches(lw_stats["launches"], {"masked_argmin": 1, "lw_merge": n - 1}, f"n={n} LW run")
     check_equivalent(np, chain.merges, lw.merges, n, f"matrix-free chain vs LW loop n={n}")
-    return dict(n=n, chain_wall_s=chain_stats["wall_s"], chain_trips=trips,
+    return dict(n=n, d=d, chain_wall_s=chain_stats["wall_s"],
+                launches=chain_stats["launches"], trip_replays=chain_stats["trip_replays"],
                 lw_wall_s=lw_stats["wall_s"])
 
 
@@ -987,7 +1087,7 @@ def phase_landmark(torch, np) -> dict:
             and tags["landmark_chain"] % k == 0 and tags["landmark_chain"] <= (4 * k + 8) * k):
         raise AssertionError(f"landmark budget fails the reference's gates: {budget}")
     trips = tags["landmark_chain"] // k
-    check_launches(stats["launches"], {"row_sq_euclidean": trips}, "landmark run")
+    check_trips(stats, trips, "landmark run")
     if (res.algorithm, res.backend, res.distances) != ("landmark", "serial", None):
         raise AssertionError(f"landmark run ran {res.algorithm}/{res.backend}")
     if stats["peak_gib"] >= LANDMARK_PEAK_LIMIT_GIB:
@@ -1076,30 +1176,52 @@ def phase_rmsd(torch, np) -> dict:
     return stats
 
 
-LATER_PHASES_FLAG = "--later-phases"
+LATER_PHASES_FLAG, PROFILE_CHAIN_FLAG = "--later-phases", "--profile-chain"
 
 
-def run_later_phases(torch, indexes: dict) -> dict:
-    """Phases 10-12 in a fresh process: ``python3 chip_smoke.py
-    --later-phases``, phase 10's indexes pickled on its standard input.
+def run_child(torch, flag: str, spec: dict) -> dict:
+    """``python3 chip_smoke.py <flag>`` in a fresh process, ``spec``
+    pickled on its standard input: phase 6's profiled chain run
+    (``--profile-chain``, :func:`profile_chain`) and phases 10-12
+    (``--later-phases``).
 
     After a profiling session of some 10^5 records, later sessions of the
     same process lose records at random (on an H100 80GB HBM3 with torch
     2.11: a session of one assign call, five device records, saw none of
-    them in about half the tries, while the first sessions of a process
-    saw every record), and these phases profile short runs.  The child prints its phase lines and, last,
-    one JSON object of their numbers; it is waited for."""
+    them in about half the tries, and the resident chain's profiled run
+    at n = 32768 missed 1.2% of its 98304 trip launches after phases 3-5,
+    while the first sessions of a process saw every record).  The child
+    prints its phase lines and, last, one JSON object of their numbers; it
+    is waited for."""
     torch.cuda.empty_cache()
-    spec = dict(indexes, elapsed=time.perf_counter() - T0)
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), LATER_PHASES_FLAG],
+    spec = dict(spec, elapsed=time.perf_counter() - T0)
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag],
                           input=pickle.dumps(spec), stdout=subprocess.PIPE, timeout=1100)
     lines = proc.stdout.decode().splitlines()
     for line in lines[:-1]:
         print(line, flush=True)
     if proc.returncode != 0 or not lines:
         print("\n".join(lines[-1:]), flush=True)
-        raise AssertionError(f"phases 10-12 failed (exit code {proc.returncode})")
+        raise AssertionError(f"{flag} failed (exit code {proc.returncode})")
     return json.loads(lines[-1])
+
+
+def profile_chain(torch, np, spec: dict) -> dict:
+    """Phase 6's chain alone, profiled, in a process of its own: busy time,
+    trips, and the profiler's count of trip launches against the
+    counters'.  A small run first loads the trip kernel."""
+    from repro_torch.core.nnchain import nn_chain_from_points
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.kernels.pairwise import TripGraph
+
+    nn_chain_from_points(gaussian_mixture(seed=1, n=300, dim=CHAIN_DIM, return_labels=False),
+                         "ward")
+    X = gaussian_mixture(seed=0, n=CHAIN_N, dim=CHAIN_DIM, return_labels=False)
+    chain, busy = device_busy(torch, lambda: nn_chain_from_points(X, "ward"), spec["wall_s"],
+                              spec["launches"])
+    stats = dict(launches=read_counters(), trip_replays=TripGraph.replays)
+    check_trips(stats, chain.iters, "matrix-free chain, profiled")
+    return dict(busy, iters=chain.iters, n_merges=chain.n_merges, **stats)
 
 
 def phases_10_to_12(torch, np, spec: dict) -> dict:
@@ -1119,8 +1241,11 @@ def phases_10_to_12(torch, np, spec: dict) -> dict:
     return dict(assigned=assigned, landmark=landmark, rmsd=rmsd)
 
 
-def later_phases() -> int:
-    """The child of :func:`run_later_phases`."""
+CHILDREN = {LATER_PHASES_FLAG: phases_10_to_12, PROFILE_CHAIN_FLAG: profile_chain}
+
+
+def child(flag: str) -> int:
+    """A child of :func:`run_child`."""
     import numpy as np
     import torch
 
@@ -1128,8 +1253,8 @@ def later_phases() -> int:
     spec = pickle.load(sys.stdin.buffer)
     T0 = time.perf_counter() - spec["elapsed"]
     if not torch.cuda.is_available():
-        raise AssertionError("phases 10-12: no CUDA device")
-    print(json.dumps(phases_10_to_12(torch, np, spec)), flush=True)
+        raise AssertionError(f"{flag}: no CUDA device")
+    print(json.dumps(CHILDREN[flag](torch, np, spec)), flush=True)
     return 0
 
 
@@ -1141,6 +1266,7 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
 
     parts = [f"{name} n={n} ms {g(r['ms'])} bound {g(r['bound_ms'])} plain {g(r['plain_ms'])}"
              + (f" read {g(r['read_bytes_per_s'] / 1e12)} TB/s" if "read_bytes" in r else "")
+             + (f" graph {g(r['graph_ms_per_trip'])}" if "graph_ms_per_trip" in r else "")
              for (name, n), r in kernels.items()]
     for label, s in (("paper", paper), ("full", full)):
         parts.append(f"{label} wall_s {g(s['wall_s'])} (warm {g(s['warm_wall_s'])}) busy_s "
@@ -1153,8 +1279,10 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
                      f"{g(s['device_busy_s'])} idle {g(s['idle_share'])} host/device ms per trip "
                      f"{g(s['host_ms_per_trip'])}/{g(s['device_ms_per_trip'])} "
                      f"peak_gib {g(s['peak_gib'])}")
-    parts.append("matrix-free chain loop wall_s by row " +
-                 " ".join(f"{name} {g(wall)}" for name, wall in points["row_ab_wall_s"]))
+    parts.append(f"matrix-free chain, host-driven plain-row loop wall_s "
+                 f"{g(points['host_loop_wall_s'])} trips {points['host_loop_trips']}; resident "
+                 f"trip launches {points['launches']['chain_trip']} in "
+                 f"{points['trip_replays']} replays")
     parts.append(f"serial centroid n={MID_N} wall_s {g(serial['wall_s'])} busy_s {g(serial['device_busy_s'])} "
                  f"idle {g(serial['idle_share'])} peak_gib {g(serial['peak_gib'])} "
                  f"(kernel backend wall_s {g(serial['kernel_wall_s'])})")
@@ -1226,6 +1354,10 @@ def main() -> int:
         row = phase_row(torch, m, d, l2_rate)
         say(f"phase 2 row_sq_euclidean m={m} d={d}: " + json.dumps(row))
         kernels[("row_sq_euclidean", m)] = row
+    for m, d in TRIP_SHAPES:
+        row = phase_trip(torch, m, d, l2_rate)
+        say(f"phase 2 chain_trip m={m} d={d}: " + json.dumps(row))
+        kernels[("chain_trip", m)] = row
     torch.cuda.empty_cache()
     for n, m, d in PAIRWISE_SHAPES:
         row = phase_pairwise(torch, n, m, d, l2_rate)
@@ -1253,8 +1385,9 @@ def main() -> int:
     # 6. the matrix-free chain, and against the LW loop at n = 4096
     points_res, points = phase_points_chain(torch, np)
     say(f"phase 6 matrix-free chain n={CHAIN_N} d={CHAIN_DIM} ward: " + json.dumps(points))
-    cross = phase_cross(torch, np)
-    say(f"phase 6 matrix-free chain vs LW loop n={CROSS_N} ward: " + json.dumps(cross))
+    for n, d in CROSS_SHAPES:
+        cross = phase_cross(torch, np, n, d)
+        say(f"phase 6 matrix-free chain vs LW loop n={n} d={d} ward: " + json.dumps(cross))
     torch.cuda.empty_cache()
 
     # 7. the serial LW backend
@@ -1272,8 +1405,8 @@ def main() -> int:
     threshold = phase_threshold(torch, np, X_paper, paper_merges)
     say(f"phase 9 distance_threshold n={PAPER_N} complete: " + json.dumps(threshold))
 
-    # 10-12 run in a process of their own (run_later_phases says why)
-    later = run_later_phases(torch, build_indexes(paper_chain, points_res))
+    # 10-12 run in a process of their own (run_child says why)
+    later = run_child(torch, LATER_PHASES_FLAG, build_indexes(paper_chain, points_res))
     assigned, landmark, rmsd = later["assigned"], later["landmark"], later["rmsd"]
 
     # 13. inventory, card, result
@@ -1284,24 +1417,32 @@ def main() -> int:
                                 "src/repro/kernels/pairwise.py:148"),
            "pairwise_sq_euclidean": ("src/repro_torch/csrc/pairwise.cu",
                                      "src/repro/kernels/pairwise.py:60")}
-    # B2 launches through its merge entry on the main path: its line gives
-    # that entry's launches and times
-    inventory = []
-    for name, entry, key, path in (
-            ("masked_argmin", "masked_argmin", ("masked_argmin", FULL_N), full),
-            ("lw_step", "lw_merge", ("lw_merge/complete", FULL_N), full),
-            ("lw_update", "lw_update", ("lw_update/complete", FULL_N), lazy),
-            ("row_sq_euclidean", "row_sq_euclidean", ("row_sq_euclidean", CHAIN_N), points),
-            ("pairwise_sq_euclidean", "pairwise_sq_euclidean", ("pairwise_sq_euclidean", QUERY_N),
-             assigned["centroid"]["kernel"])):
+    # B2 and B5 launch through their second entries on the main path (the
+    # merge, the chain trip): a kernel's line gives that entry's launches and
+    # times, and lists every entry under "entries"
+    def numbers(key, launches):
         row = kernels[key]
-        inventory.append(dict(
-            name=name, route="cuda", source=src[name][0], replaces=src[name][1],
-            launches=path["launches"][entry], max_abs_err=row["max_abs_err"],
-            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row.get("library_ms"), n=key[1],
-            bound_bytes_per_s=row["bound_bytes_per_s"], entry=entry,
-        ))
+        return dict(launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                    library_ms=row.get("library_ms"), n=key[1],
+                    bound_bytes_per_s=row["bound_bytes_per_s"])
+
+    inventory = []
+    for name, entries in (
+            ("masked_argmin", [("masked_argmin", ("masked_argmin", FULL_N), full)]),
+            ("lw_step", [("lw_merge", ("lw_merge/complete", FULL_N), full),
+                         ("lw_step", ("lw_step/complete", FULL_N), full)]),
+            ("lw_update", [("lw_update", ("lw_update/complete", FULL_N), lazy)]),
+            ("row_sq_euclidean", [("chain_trip", ("chain_trip", CHAIN_N), points),
+                                  ("row_sq_euclidean", ("row_sq_euclidean", CHAIN_N), points)]),
+            ("pairwise_sq_euclidean", [("pairwise_sq_euclidean",
+                                        ("pairwise_sq_euclidean", QUERY_N),
+                                        assigned["centroid"]["kernel"])])):
+        listed = [dict(entry=entry, **numbers(key, path["launches"][entry]))
+                  for entry, key, path in entries]
+        inventory.append(dict(name=name, route="cuda", source=src[name][0],
+                              replaces=src[name][1], **listed[0], entries=listed))
+
     print(summary(kernels, paper, full, dense, points, serial, lazy, assigned, landmark, rmsd))
     print(json.dumps({"kernels": inventory}))
     print(gpu_line())
@@ -1312,4 +1453,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(later_phases() if sys.argv[1:] == [LATER_PHASES_FLAG] else main())
+    sys.exit(child(sys.argv[1]) if sys.argv[1:2] and sys.argv[1] in CHILDREN else main())

@@ -151,13 +151,17 @@ def canonical_order(
     merges = np.array(merges, copy=True)         # input dtype preserved
     n = _leaf_count(merges, n)
     heights = merges[:, 2]
-    floor = np.zeros(n, heights.dtype)  # height of the slot's current cluster
-    for t in range(merges.shape[0]):
-        i, j = int(round(merges[t, 0])), int(round(merges[t, 1]))
+    real = heights.dtype.type                    # the budget's arithmetic, in the input's type
+    # Python scalars in the loop (exact: every value is one of the input's
+    # floats); the budget is computed in the input's type, as numpy would
+    hs = heights.tolist()
+    floor = [0.0] * n                    # height of the slot's current cluster
+    for t, (i, j) in enumerate(np.rint(merges[:, :2]).astype(np.int64).tolist()):
         need = max(floor[i], floor[j])
-        if heights[t] < need and heights[t] >= need - (atol + rtol * abs(need)):
-            heights[t] = need    # float noise, not a real inversion
-        floor[i] = heights[t]
+        if hs[t] < need and real(hs[t]) >= real(need) - (atol + rtol * abs(real(need))):
+            hs[t] = need         # float noise, not a real inversion
+        floor[i] = hs[t]
+    heights[:] = hs
     order = np.argsort(heights, kind="stable")
     out = merges[order]
     validate_merges(out, n=n)
@@ -387,16 +391,19 @@ def validate_merges(merges: np.ndarray, n: int | None = None) -> None:
     """
     merges = np.asarray(merges)
     n = _leaf_count(merges, n)
-    alive = np.ones(n, bool)
-    sizes = np.ones(n)
-    for t in range(merges.shape[0]):
-        i, j = int(round(merges[t, 0])), int(round(merges[t, 1]))
+    alive = [True] * n
+    sizes = [1.0] * n
+    # Python scalars in the loop: the slots rounded as round() rounds, the
+    # recorded sizes exact as doubles
+    rows = merges.reshape(-1, 4) if merges.size == 0 else merges
+    slots = np.rint(rows[:, :2]).astype(np.int64).tolist()
+    for t, ((i, j), recorded) in enumerate(zip(slots, rows[:, 3].astype(np.float64).tolist())):
         if not (0 <= i < j < n):
             raise AssertionError(f"step {t}: bad slot pair ({i}, {j})")
         if not (alive[i] and alive[j]):
             raise AssertionError(f"step {t}: merging dead slot ({i}, {j})")
         sizes[i] += sizes[j]
-        if abs(sizes[i] - merges[t, 3]) > 1e-3:
+        if abs(sizes[i] - recorded) > 1e-3:
             raise AssertionError(
                 f"step {t}: recorded size {merges[t, 3]} != {sizes[i]}"
             )

@@ -7,24 +7,32 @@ Exact for the reducible methods (:data:`REDUCIBLE_METHODS`), in O(n²)
 total work.  Merges come out in **chain order**; ``cluster()`` passes
 them through :func:`repro_torch.core.dendrogram.canonical_order`.
 
-Two compositions share the one chain loop:
+Two compositions, one trip logic (ties to the previous element, then the
+first index of the minimum; a NaN row stops the run):
 
 * **dense** (:func:`nn_chain`) — the ``(n, n)`` matrix; a merge rewrites
   row *and* column ``i`` in place (the reference writes only row ``i``
   plus a version vector, because a column update copies the whole matrix
   on XLA:CPU; the values read back are the same).
 * **points / matrix-free** (:func:`nn_chain_from_points`) — an O(n·d)
-  geometric summary ``(w, u, size)`` per slot; each trip builds the tip's
-  row with :func:`repro_torch.kernels.pairwise.row_sq_euclidean`, one
-  launch of the row kernel on the card.  No ``(n, n)`` tensor exists.
+  geometric summary ``(w, u, size)`` per slot.  No ``(n, n)`` tensor
+  exists.
 
-The reference runs the chain as one ``lax.while_loop``.  Here the loop
-is driven from the host: the chain stack is a Python list, each trip
-runs the row and its masked minimum on the device and reads back one
-small tensor: the nearest neighbor of the tip, which is the previous
-chain element when that one attains the minimum (a merge) and otherwise
-the first index of the minimum (a push).  Merge records, sizes, liveness and the
-cluster representation stay on the device.
+The reference runs the chain as one ``lax.while_loop``.  The matrix-free
+chain keeps its whole state on the device: each trip is one call of
+:func:`repro_torch.kernels.pairwise.chain_trip` (one launch of kernel B5
+on the card, its plain twin on the CPU), and on the card chunks of
+:data:`CHAIN_GRAPH_TRIPS` trips replay as a CUDA graph with one read-back
+of the counts a chunk (:func:`_resident_chain`).
+
+The dense chain is driven from the host (:func:`_chain_loop`): the chain
+stack is a Python list, each trip runs the row and its masked minimum on
+the device and reads back one small tensor: the nearest neighbor of the
+tip, which is the previous chain element when that one attains the
+minimum (a merge) and otherwise the first index of the minimum (a push).
+Merge records, sizes, liveness and the cluster representation stay on
+the device.  The same loop over :func:`_points_nnchain_ops` is the
+matrix-free chain's host-driven form, one row build a trip.
 """
 
 from __future__ import annotations
@@ -57,6 +65,10 @@ NNCHAIN_AUTO_MIN_N = 256
 #: Smallest n for which ``matrix_free="auto"`` drops the dense matrix on
 #: capable inputs (the JAX package's threshold).
 MATRIX_FREE_AUTO_MIN_N = 4096
+
+#: Trips of the matrix-free chain a captured CUDA graph replays; the loop
+#: reads the counts back once a replay.
+CHAIN_GRAPH_TRIPS = 256
 
 
 class ChainResult(NamedTuple):
@@ -364,13 +376,52 @@ def _points_nnchain_ops(method: str, row_sq=None) -> NNChainOps:
     return NNChainOps(row=row, merge=merge)
 
 
+def _chain_done(b) -> bool:
+    """The one read-back: whether the run has its merges, hit the trip cap
+    or stopped at a NaN row."""
+    _, n_merges, iters, stopped = b.count.tolist()
+    return n_merges >= b.n_steps or iters >= b.cap or bool(stopped)
+
+
+def _resident_chain(method: str, state: NNState, n_steps: int) -> ChainResult:
+    """The matrix-free chain on :class:`~repro_torch.kernels.pairwise.ChainBuffers`
+    around ``state`` (updated in place), until ``n_steps`` merges.
+
+    On the card the trips replay from a CUDA graph of
+    :data:`CHAIN_GRAPH_TRIPS`; a run needs at least ``n_steps`` trips, so
+    the first ``⌈n_steps / k⌉`` replays go without a read-back, and each
+    later one reads the counts back once.  Trips past the end do nothing.
+    On the CPU the plain twin runs trip by trip.  ``iters`` is the trips
+    made, exactly, as the host-driven loop counts them.
+    """
+    from repro_torch.kernels.pairwise import TripGraph, chain_buffers, chain_trip
+
+    W, u = state.rep
+    if n_steps <= 0:
+        return ChainResult(merges=torch.zeros((0, 4), dtype=torch.float32, device=W.device),
+                           n_merges=0, iters=0)
+    b = chain_buffers(W, u, state.alive, state.sizes, n_steps)
+    if W.device.type == "cuda":
+        graph = TripGraph(method, b, CHAIN_GRAPH_TRIPS)
+        for _ in range(-(-n_steps // CHAIN_GRAPH_TRIPS)):
+            graph.replay()
+        while not _chain_done(b):
+            graph.replay()
+    else:
+        while not _chain_done(b):
+            chain_trip(method, b)
+    _, n_merges, iters, _ = b.count.tolist()
+    return ChainResult(merges=b.merges, n_merges=n_merges, iters=iters)
+
+
 def nn_chain_from_points(X, method: str = "ward", *, device=None) -> ChainResult:
     """Matrix-free full agglomeration of ``(n, d)`` points on ``device``
     (CUDA unless told otherwise): O(n·d + n) memory, no ``(n, n)`` tensor.
 
     Exact (to float tolerance) against the dense engines on the squared
     Euclidean matrix for :data:`POINTS_METHODS`.  Merges are in chain
-    order; ``iters`` equals the row kernel's launches on the card.
+    order; ``iters`` counts the trips made (on the card, each one launch
+    of the trip kernel).
     """
     if method not in POINTS_METHODS:
         raise ValueError(
@@ -385,4 +436,4 @@ def nn_chain_from_points(X, method: str = "ward", *, device=None) -> ChainResult
     n = W.shape[0]
     W = W.contiguous().clone()              # merges rewrite summaries in place
     state = _init_state((W, torch.zeros(n, dtype=torch.float32, device=dev)), n, dev)
-    return _chain_loop(_points_nnchain_ops(method), state, n - 1)
+    return _resident_chain(method, state, n - 1)

@@ -19,6 +19,18 @@ from repro_torch.data.synthetic import gaussian_mixture  # noqa: E402
 from tests.conftest import SRC, random_distance_matrix  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the loops here run many small ops, and
+    parallel test workers that each start a thread pool oversubscribe the
+    cores (on an 8-core CPU, six processes of eight threads each ran the
+    n = 4096 resident chain ~100× slower than six of one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_quickstart_flow():
     X, truth = gaussian_mixture(seed=0, n=200, dim=16, k=5)
     result = cluster(X, method="complete", device="cpu")

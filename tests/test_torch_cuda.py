@@ -358,29 +358,193 @@ def test_cuda_row_sq_rejects_bad_operands(cuda):
         pairwise.row_sq_euclidean(Y[0, :4], Y)
 
 
+def reset_trips():
+    pairwise.chain_trip.launches = pairwise.TripGraph.replays = 0
+    pairwise.row_sq_euclidean.launches = 0
+
+
+def assert_trip_counts(iters):
+    """The resident chain's launches: whole replays of CHAIN_GRAPH_TRIPS
+    trips, the last one past the end by less than a replay; no row
+    launch."""
+    k = nnchain.CHAIN_GRAPH_TRIPS
+    assert pairwise.chain_trip.launches == pairwise.TripGraph.replays * k
+    assert iters <= pairwise.chain_trip.launches < iters + k
+    assert pairwise.row_sq_euclidean.launches == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", nnchain.POINTS_METHODS)
 def test_cuda_points_chain_counts_rows(method, cuda):
-    """The matrix-free chain on the card: one B5 launch a trip, and the
-    merges of the CPU run."""
+    """The matrix-free chain on the card: one trip launch a trip, replayed
+    from graphs, and the merges and trips of the CPU run."""
     from repro_torch.core import cluster
     from repro_torch.data.synthetic import gaussian_mixture
 
     X = gaussian_mixture(seed=6, n=300, dim=16, return_labels=False)
-    pairwise.row_sq_euclidean.launches = 0
+    reset_trips()
     res = nnchain.nn_chain_from_points(X, method)       # the default device is CUDA
     assert res.merges.device.type == "cuda" and res.n_merges == 299
-    assert pairwise.row_sq_euclidean.launches == res.iters
+    assert_trip_counts(res.iters)
     want = nnchain.nn_chain_from_points(X, method, device="cpu")
     assert res.iters == want.iters
     np.testing.assert_array_equal(res.merges.cpu().numpy()[:, [0, 1, 3]],
                                   want.merges.numpy()[:, [0, 1, 3]])
     np.testing.assert_allclose(res.merges.cpu().numpy()[:, 2], want.merges.numpy()[:, 2],
                                rtol=1e-4, atol=1e-5)
-    pairwise.row_sq_euclidean.launches = 0
+    reset_trips()
     got = cluster(X, method, metric="sqeuclidean", matrix_free=True)
     assert (got.algorithm, got.backend, got.distances) == ("nnchain", "serial", None)
-    assert pairwise.row_sq_euclidean.launches == res.iters
+    assert_trip_counts(res.iters)
+
+
+def to_device(b, device):
+    """A copy of trip buffers on ``device``."""
+    return b._replace(**{f: getattr(b, f).to(device, copy=True)
+                         for f in pairwise.ChainBuffers._fields[:9]})
+
+
+def chain_state(X, method, trips, device="cpu"):
+    """Trip buffers of the points X after ``trips`` plain trips on the CPU,
+    moved to ``device``."""
+    n = len(X)
+    b = pairwise.chain_buffers(torch.tensor(np.asarray(X, np.float32)), torch.zeros(n),
+                               torch.ones(n, dtype=torch.bool), torch.ones(n), n - 1)
+    for _ in range(trips):
+        pairwise.chain_trip_plain(method, b)
+    return to_device(b, device)
+
+
+def assert_same_trip(got, want):
+    """Kernel and plain twin after the same trips: the same decisions,
+    slots and counts; the summaries within the row's float error (its sum
+    runs in another order); the kernel's key and ticket reset."""
+    for name in ("alive", "bits", "sizes", "chain", "count"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name).cpu()), name
+    torch.testing.assert_close(got.merges.cpu()[:, [0, 1, 3]], want.merges.cpu()[:, [0, 1, 3]],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got.merges.cpu(), want.merges.cpu(), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got.W.cpu(), want.W.cpu(), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got.u.cpu(), want.u.cpu(), rtol=1e-5, atol=1e-5)
+    assert got.sync[:2].tolist() == [-1, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", nnchain.POINTS_METHODS)
+@pytest.mark.parametrize("d", (16, 64, 128, 7, 200))
+def test_cuda_chain_trip_matches_plain(method, d, cuda, rng):
+    """One trip of the kernel against its plain twin from every state of a
+    run's first trips: push trips, merge trips and the restarts after the
+    chain empties.  d = 16, 64, 128 keep the tip in registers; d = 7 and
+    200 take the scalar path."""
+    X = rng.normal(size=(97, d)).astype(np.float32)
+    kinds = set()
+    b = chain_state(X, method, 0)
+    for _ in range(120):
+        got = to_device(b, cuda)
+        before = b.count.tolist()
+        launches = pairwise.chain_trip.launches
+        pairwise.chain_trip(method, got)
+        pairwise.chain_trip_plain(method, b)
+        torch.cuda.synchronize()
+        assert pairwise.chain_trip.launches == launches + 1
+        assert_same_trip(got, b)
+        after = b.count.tolist()
+        kinds.add("merge" if after[1] > before[1] else "push")
+        if after[1] > before[1] and before[0] == 2:
+            kinds.add("restart")
+    assert kinds == {"push", "merge", "restart"}
+
+
+@pytest.mark.cuda
+def test_cuda_chain_trip_previous_element_wins_ties(cuda):
+    """Equidistant neighbors of the tip: the kernel merges with the previous
+    chain element, as the plain twin does."""
+    X = np.array([[0.0], [2.0], [1.0], [5.0]], np.float32)
+    got, want = chain_state(X, "average", 0, cuda), chain_state(X, "average", 0)
+    for b in (got, want):
+        b.chain[:2] = torch.tensor([1, 2], dtype=torch.int32)
+        b.count[0] = 2
+    pairwise.chain_trip("average", got)
+    pairwise.chain_trip_plain("average", want)
+    torch.cuda.synchronize()
+    assert_same_trip(got, want)
+    assert got.merges[0, :2].tolist() == [1.0, 2.0]
+
+
+@pytest.mark.cuda
+def test_cuda_chain_trip_unaligned_and_past_the_end(cuda, rng):
+    """Summaries that are not 16-byte aligned take the scalar path; a trip
+    past the last merge, and one after a NaN stop, change nothing."""
+    X = rng.normal(size=(60, 32)).astype(np.float32)
+    b = chain_state(X, "ward", 10, cuda)
+    W = torch.zeros(60 * 32 + 1, device=cuda)[1:].view(60, 32)   # 4 bytes past 16-byte alignment
+    W.copy_(b.W)
+    got = b._replace(W=W)
+    want = chain_state(X, "ward", 10)
+    pairwise.chain_trip("ward", got)
+    pairwise.chain_trip_plain("ward", want)
+    torch.cuda.synchronize()
+    assert_same_trip(got, want)
+    done = chain_state(X, "ward", 0, cuda)
+    while not nnchain._chain_done(done):
+        pairwise.chain_trip("ward", done)
+    X[3, 0] = np.nan
+    stopped = chain_state(X, "ward", 0, cuda)
+    while not nnchain._chain_done(stopped):
+        pairwise.chain_trip("ward", stopped)
+    assert stopped.count.tolist()[3] == 1
+    for b in (done, stopped):
+        before = [t.clone() for t in b[:9]]
+        pairwise.chain_trip("ward", b)
+        torch.cuda.synchronize()
+        for a, w in zip(b, before):
+            torch.testing.assert_close(a, w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", nnchain.POINTS_METHODS)
+def test_cuda_trip_graph_replays_eager_trips(method, cuda, rng):
+    """A captured chunk of trips, replayed twice, equals the same trips
+    launched one by one, bit for bit; the capture counts no launch, each
+    replay its trips."""
+    X = rng.normal(size=(300, 128)).astype(np.float32)
+    got, want = chain_state(X, method, 5, cuda), chain_state(X, method, 5, cuda)
+    reset_trips()
+    graph = pairwise.TripGraph(method, got, 40)
+    assert (pairwise.chain_trip.launches, pairwise.TripGraph.replays) == (0, 0)
+    graph.replay()
+    graph.replay()
+    assert (pairwise.chain_trip.launches, pairwise.TripGraph.replays) == (80, 2)
+    for _ in range(80):
+        pairwise.chain_trip(method, want)
+    torch.cuda.synchronize()
+    for name in pairwise.ChainBuffers._fields[:9]:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert int(got.count[2]) == 85
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", nnchain.POINTS_METHODS)
+def test_cuda_resident_chain_matches_host_loop(method, cuda):
+    """At n = 4096 the resident chain's dendrogram is the host-driven
+    loop's (the plain row on the card)."""
+    from repro_torch.core.dendrogram import canonical_order, merges_equivalent
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    n = 4096
+    X = gaussian_mixture(seed=7, n=n, dim=32, return_labels=False)
+    reset_trips()
+    got = nnchain.nn_chain_from_points(X, method)
+    assert got.n_merges == n - 1
+    assert_trip_counts(got.iters)
+    W = torch.tensor(X, device=cuda)
+    state = nnchain._init_state((W, torch.zeros(n, device=cuda)), n, cuda)
+    want = nnchain._chain_loop(nnchain._points_nnchain_ops(method, pairwise.row_sq_euclidean_plain),
+                               state, n - 1)
+    assert merges_equivalent(canonical_order(got.merges.cpu().numpy(), n=n),
+                             canonical_order(want.merges.cpu().numpy(), n=n), n=n,
+                             rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -476,14 +640,16 @@ def test_cuda_assign_kernel_matches_auto(metric, cuda):
 @pytest.mark.cuda
 def test_cuda_landmark_matches_cpu(cuda):
     """The landmark tier on the card: the CPU run's landmarks, groups and
-    merges; its chain launches B5, its assignment takes the Gram builder."""
+    merges; its chain launches B5's trip entry, its assignment takes the
+    Gram builder."""
     from repro_torch.core import landmark
     from repro_torch.data.synthetic import gaussian_mixture
 
     pts, _ = gaussian_mixture(seed=1, n=2000, dim=16, k=6, spread=10.0)
-    pairwise.row_sq_euclidean.launches = pairwise.pairwise_sq_euclidean.launches = 0
+    reset_trips()
+    pairwise.pairwise_sq_euclidean.launches = 0
     got = landmark.landmark_cluster(pts, "ward")
-    assert pairwise.row_sq_euclidean.launches > 0
+    assert pairwise.chain_trip.launches > 0 and pairwise.row_sq_euclidean.launches == 0
     assert pairwise.pairwise_sq_euclidean.launches == 0
     want = landmark.landmark_cluster(pts, "ward", device="cpu")
     np.testing.assert_array_equal(got.landmarks, want.landmarks)

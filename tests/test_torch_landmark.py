@@ -23,6 +23,18 @@ from repro_torch.core import landmark  # noqa: E402
 from repro_torch.core.nnchain import nn_chain_from_points  # noqa: E402
 from repro_torch.data.synthetic import conformations, gaussian_mixture  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the loops here run many small ops, and
+    parallel test workers that each start a thread pool oversubscribe the
+    cores (on an 8-core CPU, six processes of eight threads each ran the
+    n = 4096 resident chain ~100× slower than six of one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 RTOL, ATOL, RMSD_ATOL = 1e-4, 1e-5, 1e-4
 
 

@@ -37,6 +37,18 @@ from tests.conftest import random_distance_matrix  # noqa: E402
 from tests.test_torch_cuda import lw_update_args, step_problem  # noqa: E402
 from tests.test_torch_engine import assert_merges_match  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the loops here run many small ops, and
+    parallel test workers that each start a thread pool oversubscribe the
+    cores (on an 8-core CPU, six processes of eight threads each ran the
+    n = 4096 resident chain ~100× slower than six of one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 GEOMETRIC = ("centroid", "median", "ward")
 PORT = {"serial": lance_williams, "kernel": lance_williams_kernelized}
 

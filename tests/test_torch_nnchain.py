@@ -27,6 +27,18 @@ from repro_torch.kernels.pairwise import row_sq_euclidean, row_sq_euclidean_plai
 from tests.conftest import random_distance_matrix  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread a test: the loops here run many small ops, and
+    parallel test workers that each start a thread pool oversubscribe the
+    cores (on an 8-core CPU, six processes of eight threads each ran the
+    n = 4096 resident chain ~100× slower than six of one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def assert_chain_match(got, want, rtol, atol):
     """Raw chain-order merges: slots and sizes equal, heights close, and
     the same merge and trip counts."""
