@@ -18,8 +18,11 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    a run, timed over 20 trips from the state they reach and over a graph
    replay of 256 trips, the pairwise kernel at the landmark
    assignment's (n, m, d) = (124917, 6155, 128) and the streaming shape
-   (65536, 4096, 128), with the host's time to enqueue one call of the row
-   update, the row kernel and the pairwise kernel.  A kernel whose operands
+   (65536, 4096, 128), the row update's lazy merge entry (two launches a
+   merge) against its plain twin over 64 merges from a mid-run state at
+   n = 1968 and 8192 for all 7 methods, timed over 20 merges and over a
+   graph replay of 128, with the host's time to enqueue one call of the row
+   update, its lazy merge, the row kernel and the pairwise kernel.  A kernel whose operands
    fit in half the L2 is timed on L2-resident data, as its caller finds
    them; its bound then takes the L2 read rate measured here (two torch
    reductions over a 16 MiB buffer), else the HBM rate.
@@ -55,10 +58,12 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    no kernel, and gives the kernel backend's dendrogram; wall, busy time,
    idle share and peak memory.  At n = 1968, complete linkage under the
    ``rowmin`` and ``lazy`` variants gives phase 3's merges.
-8. The kernel backend's ``lazy`` variant on phase 5's points: one
-   row-update launch a merge and no other kernel, phase 5's LW merges; wall, busy time, idle share,
-   and host and device ms per merge.  ``rowmin`` and ``lazy``
-   at n = 1968: the fused path's launches, and phase 3's merges.
+8. The kernel backend's ``lazy`` variant on phase 5's points: the row
+   update's lazy merge entry, two launches a merge (the merge and the
+   rescan) replayed from CUDA graphs of 128 merges, and no other kernel;
+   phase 5's LW merges; wall, busy time, idle share, host and device ms per
+   merge, and the stale rows rescanned a merge.  ``rowmin`` and ``lazy`` at
+   n = 1968: their launches, and phase 3's merges.
 9. ``distance_threshold`` at the median merge height of phase 3's run, on
    both LW backends: exactly the merges at or below it.
 10. Streaming assignment: a centroid index at k = 4096 of phase 6's fit and
@@ -116,6 +121,8 @@ LANDMARK_CROSS_N = 8192                 # the landmark run held against the exac
 QUERY_N, CENTROID_K, EXEMPLAR_K = 65536, 4096, 64
 TRIP_SHAPES = ((CHAIN_N, CHAIN_DIM), (LANDMARK_K, CHAIN_DIM), (PAPER_N, DIM))
 TRIP_CHECKS = 64               # trips of the trip kernel held against its plain twin
+LAZY_CHECKS = 64               # merges of B3's lazy merge held against its plain twin
+LAZY_SHAPES = (PAPER_N, MID_N)
 PAIRWISE_SHAPES = ((LANDMARK_N - LANDMARK_K, LANDMARK_K, CHAIN_DIM),
                    (QUERY_N, CENTROID_K, CHAIN_DIM))
 PAIRWISE_RTOL, PAIRWISE_ATOL_SCALE = 1e-4, 1e-6   # atol = scale * max(|x|^2 + |y|^2)
@@ -137,6 +144,8 @@ KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once
     "lw_step": ("lw_step_kernel", "pack_alive_kernel"),
     "lw_merge": ("lw_merge_kernel",),
     "lw_update": ("lw_update_kernel",),
+    "lazy_merge": ("lazy_merge_kernel",),
+    "lazy_rescan": ("lazy_rescan_kernel",),
     "row_sq_euclidean": ("row_sq_kernel",),
     "chain_trip": ("chain_trip_kernel",),
     "pairwise_sq_euclidean": ("pairwise_sq_kernel",),
@@ -420,6 +429,81 @@ def phase_row_update(torch, n: int, l2_rate: float) -> dict:
                 **bound(torch, n_bytes, 10 * live, n_bytes, l2_rate))
 
 
+def lazy_state(torch, n: int, method: str):
+    """B3's resident lazy merge on a mid-run state: every row's cached
+    minimum and the candidate from them, as the loop's seed gives them."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import lw_update
+
+    D, alive, sizes, _, _, _ = mid_run_state(torch, n, method in ("centroid", "median", "ward"),
+                                             seed=5)
+    ks = torch.arange(n, device="cuda")
+    rmin, rarg = engine._masked_row_mins(D, alive, ks, ks)
+    cand = engine._cached_cand(alive, rmin, rarg, ks)
+    return lw_update.lazy_buffers(D, alive, sizes, torch.zeros((n, 4), device="cuda"), cand,
+                                  (rmin, rarg), 0)
+
+
+def lazy_merge_bytes(n: int, stale: float) -> float:
+    """The bytes one resident lazy merge must move with ``stale`` rows to
+    rescan: rows i and j, alive, sizes and both caches read once (25 n),
+    row and column i and both caches written (20 n); each stale row read
+    (4 n), listed, read from the list and its cache written (20)."""
+    return 45 * n + stale * (4 * n + 20)
+
+
+def phase_lazy_merge(torch, n: int, l2_rate: float) -> dict:
+    """B3's resident lazy merge (two launches: the merge and the rescan)
+    against its plain twin over LAZY_CHECKS successive merges from a
+    mid-run state, every buffer bit for bit, for every method; then
+    ``complete`` timed as the step kernel's merge entry is (MERGE_REPS
+    merges from the state, restored before each batch), and as a graph
+    replay of THRESHOLD_CHECK_TRIPS merges, with the stale rows it
+    rescanned a merge."""
+    from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS
+    from repro_torch.core.linkage import METHODS
+    from repro_torch.kernels import lw_step, lw_update
+
+    err = 0.0
+    for method in METHODS:
+        bk = lazy_state(torch, n, method)
+        bp = lw_update.LazyBuffers(*(t.clone() for t in bk))
+        sync = bk.sync.clone()
+        for _ in range(LAZY_CHECKS):
+            lw_update.lazy_merge(method, bk)
+            lw_update.lazy_merge_plain(method, bp)
+        torch.cuda.synchronize()
+        for name, a, b in zip(lw_update.LazyBuffers._fields, bk, bp):
+            if name != "stale" and not torch.equal(a, b):
+                raise AssertionError(f"lazy_merge {method} n={n}: {name} differs from the plain "
+                                     f"twin after {LAZY_CHECKS} merges")
+        if not torch.equal(bk.sync, sync):
+            raise AssertionError(f"lazy_merge {method} n={n}: keys/tickets left at {bk.sync}")
+        err = max(err, float((bk.rmin - bp.rmin).abs().nan_to_num().max()))
+        del bk, bp
+    b = lazy_state(torch, n, "complete")
+    live = int(b.alive.sum()) - 1
+    b0 = [t.clone() for t in b]
+    ms = time_merges(torch, lambda b: lw_update.lazy_merge("complete", b), b0, b)
+    plain_ms = time_merges(torch, lambda b: lw_update.lazy_merge_plain("complete", b), b0, b)
+    for dst, src in zip(b, b0):
+        dst.copy_(src)
+    for _ in range(MERGE_REPS):
+        lw_update.lazy_merge("complete", b)
+    stale = (int(b.rescanned) - int(lw_update.LazyBuffers(*b0).rescanned)) / MERGE_REPS
+    for dst, src in zip(b, b0):
+        dst.copy_(src)
+    graph = lw_step.MergeGraph("complete", b, THRESHOLD_CHECK_TRIPS, merge=lw_update.lazy_merge)
+    replay_ms = time_merges(torch, lambda _: graph.replay(), b0, b, reps=1)
+    n_bytes = lazy_merge_bytes(n, stale)
+    return dict(n=n, live=live, methods_checked=len(METHODS), checked_merges=LAZY_CHECKS,
+                max_abs_err=err, bit_equal=True, ms=ms, plain_ms=plain_ms,
+                graph_ms_per_merge=replay_ms / THRESHOLD_CHECK_TRIPS,
+                stale_rows_per_merge=stale, library_ms=None,
+                host_us=host_us(torch, lambda: lw_update.lazy_merge("complete", b)),
+                **bound(torch, n_bytes, 12 * live + 2 * stale * n, 4 * n * n, l2_rate))
+
+
 def lw_update_bytes(method: str, n: int, live: int) -> int:
     """The bytes one row update must move for ``method`` with ``live`` kept
     lanes of ``n``: the bool mask read and the row written on every lane;
@@ -579,8 +663,9 @@ def reset_counters() -> None:
 
     minscan.masked_argmin.launches = 0
     lw_step.lw_step.launches = 0
-    lw_step.lw_merge.launches = 0
+    lw_step.lw_merge.launches = lw_step.MergeGraph.replays = 0
     lw_update.lw_update.launches = 0
+    lw_update.lazy_merge.launches = lw_update.lazy_rescan.launches = 0
     pairwise.row_sq_euclidean.launches = 0
     pairwise.chain_trip.launches = pairwise.TripGraph.replays = 0
     pairwise.pairwise_sq_euclidean.launches = 0
@@ -591,6 +676,8 @@ def read_counters() -> dict:
 
     return {"masked_argmin": minscan.masked_argmin.launches, "lw_step": lw_step.lw_step.launches,
             "lw_merge": lw_step.lw_merge.launches, "lw_update": lw_update.lw_update.launches,
+            "lazy_merge": lw_update.lazy_merge.launches,
+            "lazy_rescan": lw_update.lazy_rescan.launches,
             "row_sq_euclidean": pairwise.row_sq_euclidean.launches,
             "chain_trip": pairwise.chain_trip.launches,
             "pairwise_sq_euclidean": pairwise.pairwise_sq_euclidean.launches}
@@ -618,7 +705,9 @@ def check_launches(got: dict, want: dict, what: str) -> None:
 
 def timed(torch, call):
     """One run of ``call`` with the counters set to 0 just before it: wall
-    seconds, peak memory, launches and the chain's graph replays."""
+    seconds, peak memory, launches, and the LW loop's and the chain's graph
+    replays."""
+    from repro_torch.kernels.lw_step import MergeGraph
     from repro_torch.kernels.pairwise import TripGraph
 
     torch.cuda.synchronize()
@@ -629,7 +718,8 @@ def timed(torch, call):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return res, dict(wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                     launches=read_counters(), trip_replays=TripGraph.replays)
+                     launches=read_counters(), trip_replays=TripGraph.replays,
+                     merge_replays=MergeGraph.replays)
 
 
 def run_cluster(torch, X):
@@ -948,11 +1038,25 @@ def phase_serial(torch, np, X, paper_X, paper_merges) -> dict:
     return stats
 
 
+def check_lazy_launches(stats: dict, merges: int, what: str) -> None:
+    """Kernel ``lazy`` on the card: two launches a merge (the merge and the
+    rescan, no other kernel), each count replays x THRESHOLD_CHECK_TRIPS
+    plus the merges launched one by one after the last whole chunk."""
+    from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS
+
+    check_launches(stats["launches"], {"lazy_merge": merges, "lazy_rescan": merges}, what)
+    if stats["merge_replays"] != merges // THRESHOLD_CHECK_TRIPS:
+        raise AssertionError(f"{what}: {stats['merge_replays']} graph replays for {merges} "
+                             f"merges, want {merges // THRESHOLD_CHECK_TRIPS}")
+
+
 def phase_lazy(torch, np, X, lw_merges, paper_X, paper_merges) -> dict:
-    """The kernel backend's ``lazy`` variant (the row-update kernel, once a
-    merge) against phase 5's LW merges on the same points; ``rowmin`` and
-    ``lazy`` at n = 1968 against phase 3."""
-    from repro_torch.core import cluster
+    """The kernel backend's ``lazy`` variant (B3's resident merge, two
+    launches a merge, replayed from graphs) against phase 5's LW merges on
+    the same points, with the mean count of stale rows a merge from the
+    engine's buffers; ``rowmin`` and ``lazy`` at n = 1968 against phase 3."""
+    from repro_torch.core import cluster, engine
+    from repro_torch.core.api import build_distance_matrix
 
     n = X.shape[0]
 
@@ -961,15 +1065,26 @@ def phase_lazy(torch, np, X, lw_merges, paper_X, paper_merges) -> dict:
                        keep_inputs=False)
 
     res, stats = timed(torch, call)
-    check_launches(stats["launches"], {"lw_update": n - 1}, "kernel lazy run")
+    check_lazy_launches(stats, n - 1, "kernel lazy run")
     check_merges(np, res.merges, lw_merges, f"kernel lazy vs phase 5's LW run, n={n}")
     stats.update(device_busy(torch, call, stats["wall_s"], stats["launches"])[1])
     stats.update(per_step(stats, n - 1, "merge"))
+    # the engine alone on the same matrix: its buffers count the stale rows
+    D = engine.symmetrize(build_distance_matrix(X, "euclidean"))
+    alive = torch.ones(n, dtype=torch.bool, device="cuda")
+    state = engine.run_merge_loop(engine.kernel_ops("complete", n, "lazy", device="cuda"),
+                                  engine._init_state(D, alive, n - 1), n - 1)
+    check_merges(np, state.merges.cpu().numpy(), lw_merges, "lazy engine run vs phase 5")
+    stats["stale_rows_per_merge"] = int(state.cache.rescanned) / (n - 1)
+    del D, state
     for variant, launches in (("rowmin", {"masked_argmin": 1, "lw_merge": PAPER_N - 1}),
-                              ("lazy", {"lw_update": PAPER_N - 1})):
+                              ("lazy", None)):
         r, s = timed(torch, lambda: cluster(paper_X, "complete", algorithm="lw", backend="kernel",
                                             variant=variant, keep_inputs=False))
-        check_launches(s["launches"], launches, f"kernel {variant} run n={PAPER_N}")
+        if launches is None:
+            check_lazy_launches(s, PAPER_N - 1, f"kernel lazy run n={PAPER_N}")
+        else:
+            check_launches(s["launches"], launches, f"kernel {variant} run n={PAPER_N}")
         check_merges(np, r.merges, paper_merges, f"kernel {variant} vs phase 3, n={PAPER_N}")
         stats[f"paper_{variant}_wall_s"] = s["wall_s"]
     return stats
@@ -1267,6 +1382,7 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
     parts = [f"{name} n={n} ms {g(r['ms'])} bound {g(r['bound_ms'])} plain {g(r['plain_ms'])}"
              + (f" read {g(r['read_bytes_per_s'] / 1e12)} TB/s" if "read_bytes" in r else "")
              + (f" graph {g(r['graph_ms_per_trip'])}" if "graph_ms_per_trip" in r else "")
+             + (f" graph {g(r['graph_ms_per_merge'])}" if "graph_ms_per_merge" in r else "")
              for (name, n), r in kernels.items()]
     for label, s in (("paper", paper), ("full", full)):
         parts.append(f"{label} wall_s {g(s['wall_s'])} (warm {g(s['warm_wall_s'])}) busy_s "
@@ -1289,6 +1405,7 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
     parts.append(f"kernel lazy n={MID_N} wall_s {g(lazy['wall_s'])} busy_s {g(lazy['device_busy_s'])} "
                  f"idle {g(lazy['idle_share'])} host/device ms per merge "
                  f"{g(lazy['host_ms_per_merge'])}/{g(lazy['device_ms_per_merge'])} "
+                 f"stale rows per merge {g(lazy['stale_rows_per_merge'])} "
                  f"peak_gib {g(lazy['peak_gib'])}")
     for kind in ("centroid", "exemplar"):
         a = assigned[kind]
@@ -1364,6 +1481,11 @@ def main() -> int:
         say(f"phase 2 pairwise_sq_euclidean n={n} m={m} d={d}: " + json.dumps(row))
         kernels[("pairwise_sq_euclidean", n)] = row
         torch.cuda.empty_cache()
+    for n in LAZY_SHAPES:
+        row = phase_lazy_merge(torch, n, l2_rate)
+        say(f"phase 2 lazy_merge n={n}: " + json.dumps(row))
+        kernels[("lazy_merge/complete", n)] = row
+        torch.cuda.empty_cache()
 
     # 3. the paper's configuration
     X_paper, paper_merges, paper_chain, paper = phase_paper(torch, np)
@@ -1417,9 +1539,9 @@ def main() -> int:
                                 "src/repro/kernels/pairwise.py:148"),
            "pairwise_sq_euclidean": ("src/repro_torch/csrc/pairwise.cu",
                                      "src/repro/kernels/pairwise.py:60")}
-    # B2 and B5 launch through their second entries on the main path (the
-    # merge, the chain trip): a kernel's line gives that entry's launches and
-    # times, and lists every entry under "entries"
+    # B2, B3 and B5 launch through their second entries on the main path (the
+    # merge, the lazy merge, the chain trip): a kernel's line gives that
+    # entry's launches and times, and lists every entry under "entries"
     def numbers(key, launches):
         row = kernels[key]
         return dict(launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],
@@ -1432,7 +1554,8 @@ def main() -> int:
             ("masked_argmin", [("masked_argmin", ("masked_argmin", FULL_N), full)]),
             ("lw_step", [("lw_merge", ("lw_merge/complete", FULL_N), full),
                          ("lw_step", ("lw_step/complete", FULL_N), full)]),
-            ("lw_update", [("lw_update", ("lw_update/complete", FULL_N), lazy)]),
+            ("lw_update", [("lazy_merge", ("lazy_merge/complete", MID_N), lazy),
+                           ("lw_update", ("lw_update/complete", FULL_N), lazy)]),
             ("row_sq_euclidean", [("chain_trip", ("chain_trip", CHAIN_N), points),
                                   ("row_sq_euclidean", ("row_sq_euclidean", CHAIN_N), points)]),
             ("pairwise_sq_euclidean", [("pairwise_sq_euclidean",
@@ -1440,6 +1563,8 @@ def main() -> int:
                                         assigned["centroid"]["kernel"])])):
         listed = [dict(entry=entry, **numbers(key, path["launches"][entry]))
                   for entry, key, path in entries]
+        if listed[0]["entry"] == "lazy_merge":    # its second launch, the rescan
+            listed[0]["rescan_launches"] = lazy["launches"]["lazy_rescan"]
         inventory.append(dict(name=name, route="cuda", source=src[name][0],
                               replaces=src[name][1], **listed[0], entries=listed))
 

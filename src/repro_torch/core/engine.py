@@ -15,9 +15,11 @@ compositions of them run the loop on one device:
   one launch of the fused merge kernel a merge, on device-resident
   buffers (the fused kernel recomputes every row minimum, so ``rowmin``'s
   cache would be dead carry: both run cache-free and are identical by
-  construction, as in the JAX engine).  ``lazy`` is one launch of the
-  row-update kernel a merge, with the cached row minima kept over the
-  masked view.
+  construction, as in the JAX engine).  ``lazy`` keeps the cached row
+  minima over the masked view: on a CUDA device two launches of the
+  row-update kernel's merge entry a merge (the update with the caches'
+  invalidation, then the rescan of the stale rows) on device-resident
+  buffers; on the CPU the host-driven loop, one row update a merge.
 
 The argmin ``variant`` picks the candidate search: a full row-min every
 merge (``baseline``), or per-row ``(min, first argmin)`` caches that the
@@ -33,9 +35,10 @@ The JAX loop traces into one compiled program.  Here the loop is a
 Python ``for`` over a fixed trip count, and the candidate, the merged
 slots and the sizes stay on the device.  The baseline steps read nothing
 back, so the host only enqueues launches and the device runs ahead; on
-the kernel backend a merge is one launch on fixed device buffers, so on
-a CUDA device :data:`THRESHOLD_CHECK_TRIPS` merges are captured once as
-a CUDA graph and replayed.  The cached variants read back the rows to
+the kernel backend on a CUDA device a merge is one launch (``lazy``: two)
+on fixed device buffers, so :data:`THRESHOLD_CHECK_TRIPS` merges are
+captured once as a CUDA graph and replayed.  The host-driven cached
+variants (serial, and kernel ``lazy`` on the CPU) read back the rows to
 rescan, once a merge; a ``distance_threshold`` run reads back the
 recorded heights once every :data:`THRESHOLD_CHECK_TRIPS` merges.  ``D``
 and the merge record are updated in place.
@@ -117,9 +120,11 @@ class LWState(NamedTuple):
     float32), computed at the tail of each step.  ``n_merges`` is a host
     int: with a fixed trip count it is known without asking the device.
     ``cache`` is ``()`` for the serial cache-free ops, the per-row
-    ``(rmin, rarg)`` (float32, int64) for the cached variants, and the
-    fused kernel ops' :class:`~repro_torch.kernels.lw_step.MergeBuffers`
-    (``cand`` then views its candidate).
+    ``(rmin, rarg)`` (float32, int64) for the host-driven cached variants,
+    and the resident kernel ops' buffers,
+    :class:`~repro_torch.kernels.lw_step.MergeBuffers` or
+    :class:`~repro_torch.kernels.lw_update.LazyBuffers` (``cand`` then
+    views their candidate).
     """
 
     D: torch.Tensor
@@ -136,8 +141,9 @@ class StepOps(NamedTuple):
 
     seed:    fill ``cand`` (and ``cache``) from the initial state.
     fetch:   ``(state, ij) -> (d_ki, d_kj)``, copies of rows ``i`` and ``j``.
-    merge:   ``state -> state``: a whole merge on the device (the fused
-             kernel), which records it at the device's own merge count.
+    merge:   ``state -> state``: a whole merge on the device (a resident
+             merge entry), which records it at the device's own merge
+             count.
     replay:  ``state -> state``: :data:`THRESHOLD_CHECK_TRIPS` merges
              replayed from a captured CUDA graph, or ``None``.
     update:  ``(d_ki, d_kj, d_ij, n_i, n_j, sizes, keep) -> new``: the
@@ -437,53 +443,86 @@ def run_dense(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_steps: int
 # ---------------------------------------------------------------------------
 
 
+def _resident_ops(method: str, seed, buffers, kind, merge_fn, graph=None) -> StepOps:
+    """``seed``, ``merge`` and ``replay`` over a resident merge entry
+    ``merge_fn(method, b)`` on buffers of type ``kind``, which
+    ``buffers(state)`` allocates once, before the first merge, around the
+    state and its candidate: a merge reads nothing back and allocates
+    nothing.  ``graph`` (:class:`~repro_torch.kernels.lw_step.MergeGraph`'s
+    signature, on a CUDA device) captures :data:`THRESHOLD_CHECK_TRIPS`
+    merges at the first ``replay``; without it the ops have no ``replay``."""
+
+    def resident(s: LWState) -> LWState:
+        if isinstance(s.cache, kind):
+            return s
+        b = buffers(s)
+        return s._replace(cand=(b.cand[0], b.cand[1], b.dmin[0]), cache=b)
+
+    def merge(s: LWState) -> LWState:
+        s = resident(s)
+        merge_fn(method, s.cache)
+        return s._replace(n_merges=s.n_merges + 1)
+
+    captured = []
+
+    def replay(s: LWState) -> LWState:
+        s = resident(s)
+        if not captured:
+            captured.append(graph(method, s.cache, THRESHOLD_CHECK_TRIPS))
+        captured[0].replay()
+        return s._replace(n_merges=s.n_merges + captured[0].merges)
+
+    return StepOps(seed=lambda s: resident(seed(s)), merge=merge,
+                   replay=None if graph is None else replay)
+
+
 def _fused_ops(method: str, n: int, masked_argmin, lw_merge, graph=None) -> StepOps:
     """The fused ``baseline``/``rowmin`` primitives over a min-scan and a
     merge function with the signatures of :mod:`repro_torch.kernels.minscan`
     and :func:`repro_torch.kernels.lw_step.lw_merge`.
 
     The state lives in :class:`~repro_torch.kernels.lw_step.MergeBuffers`
-    allocated once, before the first merge: a merge reads nothing back
-    and allocates nothing.  Each merge's tail picks the next candidate
+    (:func:`_resident_ops`).  Each merge's tail picks the next candidate
     from the per-row minima, the first row that attains the minimum and
     then its first column: the row-major first minimum the min-scan kernel
-    gives.  ``graph`` (:class:`~repro_torch.kernels.lw_step.MergeGraph`, on
-    a CUDA device) captures :data:`THRESHOLD_CHECK_TRIPS` merges at the
-    first ``replay``; without it the ops have no ``replay``.
+    gives.
     """
-    from repro_torch.kernels.lw_step import merge_buffers
-
-    def resident(s: LWState) -> LWState:
-        if s.cache:
-            return s
-        b = merge_buffers(s.D, s.alive, s.sizes, s.merges, s.cand, s.n_merges)
-        return s._replace(cand=(b.cand[0], b.cand[1], b.dmin[0]), cache=b)
+    from repro_torch.kernels.lw_step import MergeBuffers, merge_buffers
 
     def seed(s: LWState) -> LWState:
         v, flat = masked_argmin(s.D, s.alive)
-        return resident(s._replace(cand=(torch.div(flat, n, rounding_mode="floor"), flat % n, v)))
+        return s._replace(cand=(torch.div(flat, n, rounding_mode="floor"), flat % n, v))
 
-    def merge(s: LWState) -> LWState:
-        s = resident(s)
-        lw_merge(method, s.cache)
-        return s._replace(n_merges=s.n_merges + 1)
+    def buffers(s: LWState) -> MergeBuffers:
+        return merge_buffers(s.D, s.alive, s.sizes, s.merges, s.cand, s.n_merges)
 
-    captured = []
+    return _resident_ops(method, seed, buffers, MergeBuffers, lw_merge, graph)
 
-    def replay(s: LWState) -> LWState:
-        if not captured:
-            captured.append(graph(method, s.cache, THRESHOLD_CHECK_TRIPS))
-        captured[0].replay()
-        return s._replace(n_merges=s.n_merges + captured[0].merges)
 
-    return StepOps(seed=seed, merge=merge, replay=None if graph is None else replay)
+def _lazy_resident_ops(method: str, n: int, lazy_merge, graph=None) -> StepOps:
+    """The ``lazy`` primitives over a resident merge function with the
+    signature of :func:`repro_torch.kernels.lw_update.lazy_merge`, on
+    :class:`~repro_torch.kernels.lw_update.LazyBuffers`
+    (:func:`_resident_ops`): the seed is every row's masked minimum and the
+    candidate from them, once a run; each merge keeps the caches exact."""
+    from repro_torch.kernels.lw_update import LazyBuffers, lazy_buffers
+
+    def seed(s: LWState) -> LWState:
+        ks = torch.arange(n, device=s.D.device)
+        rmin, rarg = _masked_row_mins(s.D, s.alive, ks, ks)
+        return s._replace(cache=(rmin, rarg), cand=_cached_cand(s.alive, rmin, rarg, ks))
+
+    def buffers(s: LWState) -> LazyBuffers:
+        return lazy_buffers(s.D, s.alive, s.sizes, s.merges, s.cand, s.cache, s.n_merges)
+
+    return _resident_ops(method, seed, buffers, LazyBuffers, lazy_merge, graph)
 
 
 def _lazy_ops(method: str, n: int, lw_update, device) -> StepOps:
-    """The ``lazy`` primitives over a row-update function with the
-    signature of :mod:`repro_torch.kernels.lw_update`: one update a merge,
-    row and column ``i`` written in place (``j`` stays as garbage), and the
-    cached row minima over the masked view."""
+    """The host-driven ``lazy`` primitives over a row-update function with
+    the signature of :mod:`repro_torch.kernels.lw_update`: one update a
+    merge, row and column ``i`` written in place (``j`` stays as garbage),
+    and the cached row minima over the masked view."""
 
     def write(s: LWState, ij, new):
         i = ij[:1]      # new[i] == 0 keeps the diagonal
@@ -497,18 +536,24 @@ def _lazy_ops(method: str, n: int, lw_update, device) -> StepOps:
 def kernel_ops(method: str, n: int, variant: str = "baseline", device=None) -> StepOps:
     """Primitives on the CUDA kernels (their plain torch versions for CPU
     tensors): the min-scan seed and the fused merge for ``baseline`` and
-    ``rowmin``, replayed from a captured CUDA graph when ``device`` is a
-    CUDA device; the row update for ``lazy``."""
-    if variant == "lazy":
-        from repro_torch.kernels.lw_update import lw_update
-
-        return _lazy_ops(method, n, lw_update, device)
+    ``rowmin``; for ``lazy`` the row update's resident merge entry on a
+    CUDA device, the host-driven row update elsewhere.  On a CUDA device
+    the merges replay from a captured CUDA graph."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; pick from {VARIANTS}")
-    from repro_torch.kernels.lw_step import MergeGraph, lw_merge
-    from repro_torch.kernels.minscan import masked_argmin
+    from repro_torch.kernels.lw_step import MergeGraph
 
     on_card = device is not None and torch.device(device).type == "cuda"
+    if variant == "lazy":
+        from repro_torch.kernels.lw_update import lazy_merge, lw_update
+
+        if on_card:
+            return _lazy_resident_ops(method, n, lazy_merge,
+                                      functools.partial(MergeGraph, merge=lazy_merge))
+        return _lazy_ops(method, n, lw_update, device)
+    from repro_torch.kernels.lw_step import lw_merge
+    from repro_torch.kernels.minscan import masked_argmin
+
     return _fused_ops(method, n, masked_argmin, lw_merge, MergeGraph if on_card else None)
 
 

@@ -11,6 +11,14 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <climits>
+#include <cstdint>
+
+// Columns of a row of n floats at `row` before its first 16-byte boundary
+// (at most n): a row scan reads them one by one, then float4.
+__device__ __forceinline__ int head_columns(const float* row, int n) {
+    const unsigned misalign = (unsigned)reinterpret_cast<uintptr_t>(row) & 15u;
+    return min((int)(((16u - misalign) & 15u) >> 2), n);
+}
 
 __device__ __forceinline__ bool first_min_better(float v, long long c, float bv, long long bc) {
     return v < bv || (v == bv && c < bc);

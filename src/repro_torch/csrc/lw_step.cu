@@ -56,19 +56,20 @@
 //     beside the scan, not before it, and the merged row issues all its
 //     loads of a pass before computing a cell.
 //   - Every block of the main pass reads sizes, alive and the candidate as
-//     they were before the merge; only the epilogue, behind a
-//     __threadfence and a ticket that the last block draws, writes them.
-//     The running minimum is one 64-bit atomicMin a block on a key packed as
-//     (order-preserving bits of the value, row), which keeps the first row
-//     attaining the minimum, as torch.min does.
+//     they were before the merge; only the epilogue, in the last block to
+//     draw the ticket (last_block.cuh), writes them.  The running minimum is
+//     one 64-bit atomicMin a block on a key packed as (order-preserving bits
+//     of the value, row), which keeps the first row attaining the minimum,
+//     as torch.min does.  The next D(r, c) is the value half of the winning
+//     key, the exact float that won; the one cell the last block reads from
+//     another block, rarg[r], its writer fences before the ticket.
 //
 // The recurrence is the shared lance_williams.cuh, rounded operation by
 // operation as linkage.update_row, so the kernel agrees bit for bit with
 // the plain torch step.
-#include <cstdint>
-
 #include "first_min.cuh"
 #include "lance_williams.cuh"
+#include "last_block.cuh"
 
 namespace {
 
@@ -80,8 +81,6 @@ constexpr int kBlocksPerSM = 4;
 // above it the block does.
 constexpr long long kWarpRowMaxN = 1024;
 constexpr long long kPairRowMaxN = 4096;
-// The running minimum's key of (+inf, row 0): what an all-+inf step gives.
-constexpr unsigned long long kKeyInit = 0xFF80000000000000ull;
 
 struct Operands {
     float* D;                  // (n, n), updated in place
@@ -113,20 +112,6 @@ struct Merge {
 
 __device__ __forceinline__ bool is_live(const unsigned* bits, int c) {
     return (bits[c >> 5] >> (c & 31)) & 1u;
-}
-
-// Columns of `row` before its first 16-byte boundary (at most n).
-__device__ __forceinline__ int head_columns(const float* row, int n) {
-    const unsigned misalign = (unsigned)reinterpret_cast<uintptr_t>(row) & 15u;
-    return min((int)(((16u - misalign) & 15u) >> 2), n);
-}
-
-// (value, row) as a key whose unsigned order is (value, row)'s order; -0
-// keys as +0, since torch.min counts them equal.
-__device__ __forceinline__ unsigned long long min_key(float v, int r) {
-    unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
-    u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-    return ((unsigned long long)u << 32) | (unsigned)r;
 }
 
 // The merge's slots and distance; its sizes come later (merge_sizes), off
@@ -255,8 +240,8 @@ __device__ __forceinline__ void row_first_min(float& v, int& c) {
 
 // The last block of a merge to finish: the next candidate and the
 // bookkeeping, once every block has read the state from before the merge.
-// The block's writes are ordered before its ticket by the barrier and
-// thread 0's fence, as a grid-wide barrier orders them.
+// Each row's writer fenced its rmin/rarg before the block barrier, and the
+// ticket is drawn with release and acquire (last_block.cuh).
 __device__ __forceinline__ void finish_merge(const Operands& a, const Merge& m,
                                              const unsigned long long* block_keys, int rows) {
     __shared__ bool last;
@@ -265,13 +250,12 @@ __device__ __forceinline__ void finish_merge(const Operands& a, const Merge& m,
         unsigned long long key = kKeyInit;
         for (int g = 0; g < rows; ++g) key = min(key, block_keys[g]);
         if (key < kKeyInit) atomicMin(a.sync, key);
-        __threadfence();
-        last = atomicAdd(a.sync + 1, 1ull) == gridDim.x - 1;
+        last = draw_ticket(a.sync + 1);
     }
     __syncthreads();
     if (!last || threadIdx.x != 0) return;
-    __threadfence();
-    const int r = (int)(atomicExch(a.sync, kKeyInit) & 0xffffffffull);
+    const unsigned long long key = atomicExch(a.sync, kKeyInit);
+    const int r = (int)(key & 0xffffffffull);
     const long long t = *a.count;
     const float size = __fadd_rn(m.ni, m.nj);
     if (t < a.cap) {
@@ -288,7 +272,7 @@ __device__ __forceinline__ void finish_merge(const Operands& a, const Merge& m,
     a.sizes[m.i] = size;
     a.cand[0] = r;
     a.cand[1] = __ldcg(a.rarg + r);
-    *a.dmin = __ldcg(a.rmin + r);
+    *a.dmin = key_value(key);
     a.sync[1] = 0;
 }
 
@@ -334,8 +318,10 @@ __device__ __forceinline__ void step(const Operands& a) {
             a.rmin[r] = bv;
             a.rarg[r] = bc;
         }
-        if constexpr (kResident)
+        if constexpr (kResident) {
+            __threadfence();     // rarg[r] before the ticket: the last block reads it
             s_key[group] = r < a.n && bv < CUDART_INF_F ? min_key(bv, r) : kKeyInit;
+        }
     }
     if constexpr (kResident) finish_merge(a, m, s_key, R);
 }

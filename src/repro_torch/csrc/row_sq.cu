@@ -51,10 +51,11 @@
 //   - The row is never written: each row's value goes straight into the
 //     block's minimum.
 //   - Every block reads the state as it was before the trip; only the last
-//     block writes it, behind a __threadfence and the ticket that it draws
-//     after every block's rows are done, so no block still reads W when
-//     slot i's summary is rewritten.  It resets the key and the ticket for
-//     the next launch.
+//     block writes it, behind the ticket that it draws after every block's
+//     rows are done (last_block.cuh: release and acquire; the one value it
+//     reads from another block, row[prev], is fenced by its writer), so no
+//     block still reads W when slot i's summary is rewritten.  It resets
+//     the key and the ticket for the next launch.
 //   - The epilogue rounds each operation on its own (__fmul_rn, ...), in
 //     the plain version's order: the merged summaries equal the plain
 //     twin's but for the order of the gap's sum.  The row's sum runs in
@@ -64,6 +65,7 @@
 #include <cstdint>
 
 #include "lance_williams.cuh"
+#include "last_block.cuh"
 
 namespace {
 
@@ -135,7 +137,7 @@ constexpr int kGroups = kTripThreads / kLanes;     // rows a block at a time
 constexpr int kRows = 4;                           // rows a thread has in flight
 constexpr int kTripBlocksPerSM = 2;
 constexpr int kMaxSums = 4;                        // float4 of the tip a lane keeps: d <= 128
-constexpr unsigned long long kKeyInit = ~0ull;     // above every key
+constexpr unsigned long long kTripKeyInit = ~0ull; // above every key
 
 struct Trip {
     float* W;                  // (n, d) summaries
@@ -158,12 +160,6 @@ __device__ __forceinline__ unsigned long long trip_key(float v, int k) {
     unsigned b = __float_as_uint(v == 0.0f ? 0.0f : v);
     b = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
     return ((unsigned long long)b << 32) | (unsigned)k;
-}
-
-__device__ __forceinline__ float key_value(unsigned long long key) {
-    unsigned b = (unsigned)(key >> 32);
-    b = (b & 0x80000000u) ? (b & 0x7fffffffu) : ~b;
-    return __uint_as_float(b);
 }
 
 // The LW distance from the summaries (nnchain.summary_distance, its order).
@@ -213,7 +209,7 @@ __device__ __forceinline__ unsigned long long trip_rows(const Trip& a, int top, 
                                                         float u_top, float n_top) {
     const int lane = threadIdx.x % kLanes, group = threadIdx.x / kLanes;
     const float* side_of = M == kWard ? a.sizes : a.u;   // the one per-slot scalar the method reads
-    unsigned long long best = kKeyInit;
+    unsigned long long best = kTripKeyInit;
     if constexpr (V > 0) {
         const int d4 = a.d >> 2;
         const float4* W4 = reinterpret_cast<const float4*>(a.W);
@@ -306,7 +302,7 @@ __device__ __forceinline__ void finish_trip(const Trip& a, int len, int top, int
     __shared__ int s_op, s_i, s_j, s_first;
     __shared__ float s_m, s_ni, s_nj;
     if (threadIdx.x == 0) {
-        const unsigned long long key = atomicExch(a.sync, kKeyInit);
+        const unsigned long long key = atomicExch(a.sync, kTripKeyInit);
         const long long* pv_bits = reinterpret_cast<const long long*>(a.sync + 2);
         const float pv = __uint_as_float((unsigned)__ldcg(pv_bits));
         a.sync[1] = 0;
@@ -405,13 +401,11 @@ __global__ void __launch_bounds__(kTripThreads, kTripBlocksPerSM) chain_trip_ker
     const unsigned long long key = block_min_key(trip_rows<M, V>(a, top, prev, u_top, n_top));
     __shared__ bool last;
     if (threadIdx.x == 0) {
-        if (key != kKeyInit) atomicMin(a.sync, key);
-        __threadfence();
-        last = atomicAdd(a.sync + 1, 1ull) == gridDim.x - 1;
+        if (key != kTripKeyInit) atomicMin(a.sync, key);
+        last = draw_ticket(a.sync + 1);
     }
     __syncthreads();
     if (!last) return;
-    __threadfence();
     finish_trip<M>(a, len, top, prev, nm, it);
 }
 

@@ -247,41 +247,56 @@ def lw_merge(method: str, b: MergeBuffers) -> MergeBuffers:
     return b
 
 
+def _load_merge(method: str, b: MergeBuffers) -> None:
+    err = _lib().lw_merge_load(b.D.device.index, METHODS.index(method),
+                               _check_buffers(method, b))
+    if err:
+        raise RuntimeError(f"lw_merge kernel load failed: CUDA error {err}")
+
+
 lw_merge.launches = 0
+lw_merge.load = _load_merge
+lw_merge.counters = (lw_merge,)
 
 
 class MergeGraph:
-    """``k`` merges of :func:`lw_merge` on the buffers ``b``, captured once
-    as a CUDA graph on a side stream; :meth:`replay` runs them on the
-    current stream.
+    """``k`` merges of ``merge`` on the buffers ``b``, captured once as a
+    CUDA graph on a side stream; :meth:`replay` runs them on the current
+    stream.  ``merge`` is a resident merge entry, :func:`lw_merge` (the
+    default) or :func:`repro_torch.kernels.lw_update.lazy_merge`: it
+    carries ``load(method, b)``, which loads its kernels, and ``counters``,
+    the wrappers whose ``launches`` a merge adds one to.
 
-    The kernel is loaded before the capture (CUDA loads kernels lazily, and
-    a first load must not fall inside one).  A failed capture raises.  The
-    wrapper's Python runs only while the graph is captured, so the capture
-    leaves ``lw_merge.launches`` as it found it and each replay adds the
-    ``k`` launches it makes.
+    The kernels are loaded before the capture (CUDA loads kernels lazily,
+    and a first load must not fall inside one).  A failed capture raises.
+    The wrappers' Python runs only while the graph is captured, so the
+    capture leaves their counts as it found them and each replay adds the
+    ``k`` launches of each that it makes (and one to ``MergeGraph.replays``).
     """
 
-    def __init__(self, method: str, b: MergeBuffers, k: int):
-        n = _check_buffers(method, b)
+    replays = 0
+
+    def __init__(self, method: str, b, k: int, merge=None):
+        merge = lw_merge if merge is None else merge
+        merge.load(method, b)
         dev = b.D.device
-        err = _lib().lw_merge_load(dev.index, METHODS.index(method), n)
-        if err:
-            raise RuntimeError(f"lw_merge kernel load failed: CUDA error {err}")
-        self.graph, self.merges = torch.cuda.CUDAGraph(), k
-        launches = lw_merge.launches
+        self.graph, self.merges, self.counters = torch.cuda.CUDAGraph(), k, merge.counters
+        launches = [f.launches for f in self.counters]
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self.graph.capture_begin()
             try:
                 for _ in range(k):
-                    lw_merge(method, b)
+                    merge(method, b)
             finally:
                 self.graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(side)
-        lw_merge.launches = launches
+        for f, count in zip(self.counters, launches):
+            f.launches = count
 
     def replay(self) -> None:
         self.graph.replay()
-        lw_merge.launches += self.merges
+        for f in self.counters:
+            f.launches += self.merges
+        MergeGraph.replays += 1

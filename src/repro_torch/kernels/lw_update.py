@@ -15,12 +15,23 @@ for complete; at n = 16384 they stay in L2.  The kernel is one thread a
 lane and masks its own ragged edge (no 128-lane padding); it rounds each
 operation as :func:`repro_torch.core.linkage.update_row`, so it agrees bit
 for bit with the plain version.  A launch of 64 blocks is launch-bound.
+
+The ``lazy`` loop on the card runs the kernel's merge entry instead:
+:func:`lazy_merge` is one whole merge on :class:`LazyBuffers`, in two
+launches that read nothing back.  The first applies this update to row and
+column ``i`` in place and the cached row minima's invalidation lane by
+lane, reduces row ``i``'s own minimum and lists the other stale rows; the
+second (:func:`lazy_rescan`) rescans the listed rows and leaves the next
+candidate on the device.  :class:`~repro_torch.kernels.lw_step.MergeGraph`
+captures a chunk of such merges as a CUDA graph.  Bound: bytes, about
+``(45 + 4·s)·n`` a merge with ``s`` stale rows, and latency in practice.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -34,12 +45,18 @@ def lw_update_plain(method, d_ki, d_kj, d_ij, n_i, n_j, sizes, keep):
 
 
 @functools.cache
-def _kernel():
-    fn = _build.load("lw_update").lw_update
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 7, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("lw_update")
+    lib.lw_update.argtypes = [ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 7,
+                              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    state = [*[ctypes.c_void_p] * 4, ctypes.c_longlong, *[ctypes.c_void_p] * 9,
+             ctypes.c_longlong, ctypes.c_void_p]
+    lib.lazy_merge.argtypes = [ctypes.c_int, ctypes.c_int, *state]
+    lib.lazy_rescan.argtypes = [ctypes.c_int, *state]
+    lib.lazy_merge_load.argtypes = [ctypes.c_int, ctypes.c_int]
+    for fn in (lib.lw_update, lib.lazy_merge, lib.lazy_rescan, lib.lazy_merge_load):
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def lw_update(method, d_ki, d_kj, d_ij, n_i, n_j, sizes, keep):
@@ -66,7 +83,7 @@ def lw_update(method, d_ki, d_kj, d_ij, n_i, n_j, sizes, keep):
                              f"got {tuple(t.shape)} {t.dtype}")
     _build.check_cuda(d_ki, torch.float32, d_kj, sizes, keep, d_ij, n_i, n_j)
     out = torch.empty(n, dtype=torch.float32, device=d_ki.device)
-    err = _kernel()(
+    err = _lib().lw_update(
         d_ki.device.index, METHODS.index(method), d_ki.data_ptr(), d_kj.data_ptr(),
         sizes.data_ptr(), keep.data_ptr(), d_ij.data_ptr(), n_i.data_ptr(), n_j.data_ptr(),
         n, out.data_ptr(), _build.raw_stream(d_ki.device.index),
@@ -78,3 +95,207 @@ def lw_update(method, d_ki, d_kj, d_ij, n_i, n_j, sizes, keep):
 
 
 lw_update.launches = 0
+
+
+#: The sync words between launches: the two running-minimum keys at
+#: ``(+inf, 0)`` (the unsigned ``0xFF80000000000000`` as an int64) and the
+#: two tickets at 0.
+_SYNC_INIT = (-(1 << 55), 0, -(1 << 55), 0)
+
+
+class LazyBuffers(NamedTuple):
+    """The resident ``lazy`` loop's state, updated in place by each merge.
+
+    ``D`` ``(n, n)`` float32 (garbage representation), ``alive`` ``(n,)``
+    bool, ``sizes`` ``(n,)`` float32, ``merges`` ``(cap, 4)`` float32 rows
+    ``(i, j, dist, new_size)``, ``count`` ``(1,)`` int64 (the merges
+    recorded, the row the next one is written to); ``cand`` ``(2,)`` int64
+    and ``dmin`` ``(1,)`` float32, the merge to make next, ``(r, c)`` and
+    ``D(r, c)``; ``rmin``/``rarg`` ``(n,)`` float32/int64, each row's cached
+    ``(min, first column)`` over the masked view; ``stale`` ``(n,)`` int32
+    and ``n_stale`` ``(1,)`` int32, the rows the rescan takes (empty between
+    merges); ``rescanned`` ``(1,)`` int64, the stale rows rescanned so far;
+    ``sync`` ``(4,)`` int64, the kernels' running-minimum keys and tickets.
+    """
+
+    D: torch.Tensor
+    alive: torch.Tensor
+    sizes: torch.Tensor
+    merges: torch.Tensor
+    count: torch.Tensor
+    cand: torch.Tensor
+    dmin: torch.Tensor
+    rmin: torch.Tensor
+    rarg: torch.Tensor
+    stale: torch.Tensor
+    n_stale: torch.Tensor
+    rescanned: torch.Tensor
+    sync: torch.Tensor
+
+
+def lazy_buffers(D, alive, sizes, merges, cand, cache, n_merges: int) -> LazyBuffers:
+    """Buffers around the loop state ``D``, ``alive``, ``sizes``, ``merges``
+    and the caches ``cache = (rmin, rarg)`` (kept, not copied), with the
+    candidate ``cand = (r, c, dmin)`` and ``n_merges`` merges recorded."""
+    n, dev = D.shape[0], D.device
+    r, c, dmin = cand
+    rmin, rarg = cache
+    return LazyBuffers(
+        D=D, alive=alive, sizes=sizes, merges=merges,
+        count=torch.full((1,), n_merges, dtype=torch.int64, device=dev),
+        cand=torch.stack((r, c)).to(torch.int64).reshape(2),
+        dmin=torch.as_tensor(dmin, dtype=torch.float32, device=dev).reshape(1).clone(),
+        rmin=rmin, rarg=rarg,
+        stale=torch.zeros(n, dtype=torch.int32, device=dev),
+        n_stale=torch.zeros(1, dtype=torch.int32, device=dev),
+        rescanned=torch.zeros(1, dtype=torch.int64, device=dev),
+        sync=torch.tensor(_SYNC_INIT, dtype=torch.int64, device=dev),
+    )
+
+
+def _lazy_update_plain(method: str, b: LazyBuffers) -> None:
+    """The merge launch's plain version: the row update written into row
+    and column ``i``, the record and bookkeeping, the caches' invalidation,
+    row ``i``'s own minimum, and the other stale rows listed (ascending,
+    padded with ``n``).  Reads nothing back."""
+    from repro_torch.core.engine import _INF, _cache_invalidate, _first_where
+
+    n = b.D.shape[0]
+    ks = torch.arange(n, device=b.D.device)
+    r, c = b.cand[0], b.cand[1]
+    ij = torch.stack((torch.minimum(r, c), torch.maximum(r, c)))   # i keeps the union
+    n_ij = b.sizes.index_select(0, ij)
+    rows = b.D.index_select(0, ij)
+    keep = b.alive & (ks != ij[0]) & (ks != ij[1])
+    new = lw_update_plain(method, rows[0], rows[1], b.dmin, n_ij[:1], n_ij[1:], b.sizes, keep)
+    b.D.index_copy_(0, ij[:1], new[None, :]).index_copy_(1, ij[:1], new[:, None])
+    new_size = n_ij.sum()
+    b.merges.index_copy_(0, b.count, torch.cat((ij.to(torch.float32), b.dmin,
+                                                new_size.reshape(1)))[None])
+    b.count.add_(1)
+    b.alive.index_fill_(0, ij[1:], False)
+    b.sizes.index_fill_(0, ij[1:], 0.0).index_put_((ij[:1],), new_size.reshape(1))
+    col = torch.where(keep, new, _INF)
+    rmin, rarg, stale = _cache_invalidate((b.rmin, b.rarg), ij, col, ks, b.alive)
+    # row i is stale whenever it is alive: its masked row is column i's kept lanes
+    m_i = col.amin()
+    row_i = stale & (ks == ij[0])
+    rmin = torch.where(row_i, m_i, rmin)
+    rarg = torch.where(row_i, _first_where(col == m_i, ks), rarg)
+    listed = stale & ~row_i
+    b.stale.copy_(torch.sort(torch.where(listed, ks, n)).values)
+    b.n_stale.copy_(listed.sum().reshape(1))
+    b.rmin.copy_(rmin)
+    b.rarg.copy_(rarg)
+
+
+def lazy_rescan_plain(b: LazyBuffers) -> LazyBuffers:
+    """The plain version of :func:`lazy_rescan`, on any device, in place:
+    every row rescanned over the masked view and the listed ones kept, then
+    the next candidate from the caches (the first live row attaining the
+    minimum, then its cached column).  Reads nothing back."""
+    from repro_torch.core.engine import _cached_cand, _masked_row_mins
+
+    n = b.D.shape[0]
+    ks = torch.arange(n, device=b.D.device)
+    listed = torch.where(ks < b.n_stale, b.stale.to(torch.int64), n)
+    mask = torch.zeros(n + 1, dtype=torch.bool, device=b.D.device).index_fill_(0, listed, True)[:n]
+    rm, ra = _masked_row_mins(b.D, b.alive, ks, ks)
+    rmin, rarg = torch.where(mask, rm, b.rmin), torch.where(mask, ra, b.rarg)
+    r, c, m = _cached_cand(b.alive, rmin, rarg, ks)
+    b.rmin.copy_(rmin)
+    b.rarg.copy_(rarg)
+    b.cand.copy_(torch.stack((r, c)))
+    b.dmin.copy_(m.reshape(1))
+    b.rescanned.add_(b.n_stale)
+    b.n_stale.zero_()
+    return b
+
+
+def lazy_merge_plain(method: str, b: LazyBuffers) -> LazyBuffers:
+    """The plain torch version of :func:`lazy_merge`, on any device, in
+    place: the merge launch's work, then the rescan's.  Torch ops only,
+    one-element index tensors, nothing read back."""
+    _lazy_update_plain(method, b)
+    return lazy_rescan_plain(b)
+
+
+def _check_lazy(b: LazyBuffers) -> int:
+    n = b.D.shape[0] if b.D.ndim else 0
+    if b.D.ndim != 2 or b.D.shape[1] != n or not 1 <= n < 2**31:
+        raise ValueError(f"lazy_merge needs a non-empty square matrix, got {tuple(b.D.shape)}")
+    if b.merges.ndim != 2 or b.merges.shape[1] != 4:
+        raise ValueError(f"lazy_merge merges must be (cap, 4), got {tuple(b.merges.shape)}")
+    for t, dtype, numel in ((b.alive, torch.bool, n), (b.sizes, torch.float32, n),
+                            (b.merges, torch.float32, b.merges.numel()),
+                            (b.count, torch.int64, 1), (b.cand, torch.int64, 2),
+                            (b.dmin, torch.float32, 1), (b.rmin, torch.float32, n),
+                            (b.rarg, torch.int64, n), (b.stale, torch.int32, n),
+                            (b.n_stale, torch.int32, 1), (b.rescanned, torch.int64, 1),
+                            (b.sync, torch.int64, 4)):
+        if t.dtype != dtype or t.numel() != numel:
+            raise ValueError(f"lazy_merge operand: expected {numel} x {dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    return n
+
+
+def _state_args(b: LazyBuffers, n: int) -> list:
+    return [b.D.data_ptr(), b.alive.data_ptr(), b.sizes.data_ptr(), b.merges.data_ptr(),
+            b.merges.shape[0], *(t.data_ptr() for t in b[4:]), n,
+            _build.raw_stream(b.D.device.index)]
+
+
+def lazy_rescan(b: LazyBuffers) -> LazyBuffers:
+    """The second launch of a resident ``lazy`` merge, in place on ``b``:
+    each listed stale row's ``(min, first column)`` over the masked view,
+    then the next candidate, and the list emptied.  A CUDA tensor launches
+    the kernel (a fixed grid of 132 blocks, a block a stale row); a CPU
+    tensor takes the plain version."""
+    n = _check_lazy(b)
+    if b.D.device.type == "cpu":
+        return lazy_rescan_plain(b)
+    _build.check_cuda(b.D, torch.float32, *b[1:])
+    err = _lib().lazy_rescan(b.D.device.index, *_state_args(b, n))
+    if err:
+        raise RuntimeError(f"lazy_rescan kernel launch failed: CUDA error {err}")
+    lazy_rescan.launches += 1
+    return b
+
+
+lazy_rescan.launches = 0
+
+
+def lazy_merge(method: str, b: LazyBuffers) -> LazyBuffers:
+    """One merge of the resident ``lazy`` loop, in place on ``b``: the merge
+    of the candidate ``b.cand``, its record at row ``b.count`` of
+    ``b.merges``, slot ``j`` tombstoned, the caches brought up to date and
+    the next candidate.
+
+    On a CUDA tensor two launches that read nothing back and allocate
+    nothing: the merge kernel (counted here), then :func:`lazy_rescan`
+    (counted there); a run of merges can be captured as a CUDA graph
+    (:class:`~repro_torch.kernels.lw_step.MergeGraph`).  A CPU tensor takes
+    the plain version.
+    """
+    if method not in METHODS:
+        raise ValueError(f"unknown linkage method {method!r}")
+    n = _check_lazy(b)
+    if b.D.device.type == "cpu":
+        return lazy_merge_plain(method, b)
+    _build.check_cuda(b.D, torch.float32, *b[1:])
+    err = _lib().lazy_merge(b.D.device.index, METHODS.index(method), *_state_args(b, n))
+    if err:
+        raise RuntimeError(f"lazy_merge kernel launch failed: CUDA error {err}")
+    lazy_merge.launches += 1
+    return lazy_rescan(b)
+
+
+def _load_lazy_merge(method: str, b: LazyBuffers) -> None:
+    err = _lib().lazy_merge_load(b.D.device.index, METHODS.index(method))
+    if err:
+        raise RuntimeError(f"lazy_merge kernel load failed: CUDA error {err}")
+
+
+lazy_merge.launches = 0
+lazy_merge.load = _load_lazy_merge
+lazy_merge.counters = (lazy_merge, lazy_rescan)

@@ -83,12 +83,15 @@ def clone_buffers(b):
 def reset_launches():
     minscan.masked_argmin.launches = lw_step.lw_step.launches = 0
     lw_step.lw_merge.launches = lw_update.lw_update.launches = 0
+    lw_update.lazy_merge.launches = lw_update.lazy_rescan.launches = 0
 
 
 def launches():
-    """Launch counts of (B1, B2's per-row entry, B2's merge entry, B3)."""
+    """Launch counts of (B1, B2's per-row entry, B2's merge entry, B3's
+    per-row entry, B3's lazy merge, B3's rescan)."""
     return (minscan.masked_argmin.launches, lw_step.lw_step.launches,
-            lw_step.lw_merge.launches, lw_update.lw_update.launches)
+            lw_step.lw_merge.launches, lw_update.lw_update.launches,
+            lw_update.lazy_merge.launches, lw_update.lazy_rescan.launches)
 
 
 def assert_same_merges(got, want):
@@ -162,10 +165,10 @@ def test_cuda_graph_replays_eager_merges(method, cuda, rng):
     want = clone_buffers(got)
     reset_launches()
     graph = lw_step.MergeGraph(method, got, 16)
-    assert launches() == (0, 0, 0, 0)
+    assert launches() == (0, 0, 0, 0, 0, 0)
     graph.replay()
     graph.replay()
-    assert launches() == (0, 0, 32, 0)
+    assert launches() == (0, 0, 32, 0, 0, 0)
     for _ in range(32):
         lw_step.lw_merge(method, want)
     torch.cuda.synchronize()
@@ -216,7 +219,7 @@ def test_cuda_graph_run_matches_eager_and_cpu(method, case, cuda, rng):
     if case == "threshold":
         assert 0 < k < n_steps and counts[2] == min(n_steps, 2 * THRESHOLD_CHECK_TRIPS)
     else:
-        assert k == n_steps and counts == (1, 0, n_steps, 0)
+        assert k == n_steps and counts == (1, 0, n_steps, 0, 0, 0)
     assert graphed.n_merges == eager.n_merges == plain.n_merges == k
     assert torch.equal(graphed.merges, eager.merges) and torch.equal(graphed.merges, plain.merges)
     assert_same_merges(graphed.merges.cpu().numpy(), cpu.merges.numpy())
@@ -246,7 +249,7 @@ def test_cuda_cluster_matches_cpu(method, cuda):
     X = gaussian_mixture(seed=4, n=97, dim=8, return_labels=False)
     reset_launches()
     got = cluster(X, method, algorithm="lw", backend="kernel")  # the default device is CUDA
-    assert launches() == (1, 0, 96, 0)
+    assert launches() == (1, 0, 96, 0, 0, 0)
     want = cluster(X, method, algorithm="lw", backend="kernel", device="cpu")
     assert_same_merges(got.merges, want.merges)
 
@@ -272,8 +275,9 @@ def test_cuda_lw_update_matches_plain(method, n, cuda, rng):
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ("complete", "centroid", "ward"))
 def test_cuda_kernel_variants_match_baseline(method, cuda):
-    """Kernel ``lazy`` is one B3 launch a merge and no B1/B2; ``rowmin`` is
-    the fused path.  Both give the baseline's merges."""
+    """Kernel ``lazy`` is B3's resident merge, two launches a merge (the
+    merge and the rescan), and no B1/B2; ``rowmin`` is the fused path.
+    Both give the baseline's merges."""
     from repro_torch.core import cluster
     from repro_torch.data.synthetic import gaussian_mixture
 
@@ -283,10 +287,189 @@ def test_cuda_kernel_variants_match_baseline(method, cuda):
         reset_launches()
         runs[variant] = cluster(X, method, algorithm="lw", backend="kernel", variant=variant)
         counts[variant] = launches()
-    assert counts == {"baseline": (1, 0, 299, 0), "rowmin": (1, 0, 299, 0),
-                      "lazy": (0, 0, 0, 299)}
+    assert counts == {"baseline": (1, 0, 299, 0, 0, 0), "rowmin": (1, 0, 299, 0, 0, 0),
+                      "lazy": (0, 0, 0, 0, 299, 299)}
     for variant in ("rowmin", "lazy"):
         assert_same_merges(runs[variant].merges, runs["baseline"].merges)
+
+
+def lazy_problem(rng, n, method, device, dead=0.3):
+    """A step problem as the resident lazy loop holds it: its buffers, with
+    every row's cached minimum and the candidate from them."""
+    from repro_torch.core import engine
+
+    D, alive, sizes, _, _ = step_problem(rng, n, method, dead)
+    Dt = torch.tensor(D, device=device)
+    alive_t = torch.tensor(alive, device=device)
+    ks = torch.arange(n, device=device)
+    rmin, rarg = engine._masked_row_mins(Dt, alive_t, ks, ks)
+    cand = engine._cached_cand(alive_t, rmin, rarg, ks)
+    return lw_update.lazy_buffers(Dt, alive_t, torch.tensor(sizes, device=device),
+                                  torch.zeros((n, 4), device=device), cand, (rmin, rarg), 0)
+
+
+def assert_same_lazy(got, want):
+    """Every buffer bit for bit but the stale list (the kernel fills it in
+    no order; it is empty between merges)."""
+    for name, a, b in zip(lw_update.LazyBuffers._fields, got, want):
+        if name != "stale":
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("n", (2, 97, 1967, 1968))
+def test_cuda_lazy_merge_matches_plain(method, n, cuda, rng):
+    """B3's resident lazy merge against its plain twin over 64 successive
+    merges from a mid-run state (rows misaligned at n = 97 and 1967):
+    every buffer bit for bit, the keys and tickets back at their values
+    between launches, the list empty."""
+    got = lazy_problem(rng, n, method, cuda)
+    want = lw_update.LazyBuffers(*(t.clone() for t in got))
+    sync = got.sync.clone()
+    merges = min(int(got.alive.sum()) - 1, 64)
+    reset_launches()
+    for _ in range(merges):
+        lw_update.lazy_merge(method, got)
+        lw_update.lazy_merge_plain(method, want)
+    torch.cuda.synchronize()
+    assert launches() == (0, 0, 0, 0, merges, merges)
+    assert_same_lazy(got, want)
+    assert torch.equal(got.sync, sync) and int(got.n_stale) == 0
+    assert torch.equal(got.D, got.D.T)          # D stays exactly symmetric
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ("single", "complete", "centroid", "ward"))
+def test_cuda_lazy_graph_replays_eager_merges(method, cuda, rng):
+    """A captured chunk of lazy merges, replayed twice, equals the same
+    merges launched one by one; the capture counts no launch, each replay
+    its merges' two launches each."""
+    got = lazy_problem(rng, 300, method, cuda)
+    want = lw_update.LazyBuffers(*(t.clone() for t in got))
+    reset_launches()
+    replays = lw_step.MergeGraph.replays
+    graph = lw_step.MergeGraph(method, got, 16, merge=lw_update.lazy_merge)
+    assert launches() == (0,) * 6
+    graph.replay()
+    graph.replay()
+    assert launches() == (0, 0, 0, 0, 32, 32) and lw_step.MergeGraph.replays == replays + 2
+    for _ in range(32):
+        lw_update.lazy_merge(method, want)
+    torch.cuda.synchronize()
+    assert_same_lazy(got, want)
+    assert int(got.count) == 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("case", ("full", "stop_at_k", "threshold", "dead slots"))
+def test_cuda_lazy_run_matches_eager_and_cpu(method, case, cuda, rng):
+    """Kernel ``lazy`` on the card (graph replays of THRESHOLD_CHECK_TRIPS
+    merges, two launches a merge) against the same loop launching every
+    merge and its plain twin on the card (bit for bit) and against the
+    CPU's host-driven loop (merge for merge)."""
+    from repro_torch.core import engine
+    from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS
+
+    n = 2 * THRESHOLD_CHECK_TRIPS + 45
+    D = torch.tensor(random_distance_matrix(rng, n, squared=method == "ward").astype(np.float32))
+    alive = torch.ones(n, dtype=torch.bool)
+    if case == "dead slots":
+        alive[rng.choice(n, 20, replace=False)] = False
+    live = int(alive.sum())
+    n_steps = live - (9 if case == "stop_at_k" else 1)
+    thr = None
+    if case == "threshold":     # crosses inside the second chunk
+        full = engine.run_kernel(D.clone(), alive.clone(), method=method, n_steps=n_steps,
+                                 variant="lazy")
+        thr = float(full.merges[THRESHOLD_CHECK_TRIPS + 50, 2])
+
+    def run(device, ops=None):
+        Dd, alive_d = D.to(device), alive.to(device)
+        if ops is None:
+            return engine.run_kernel(Dd, alive_d, method=method, n_steps=n_steps, variant="lazy",
+                                     distance_threshold=thr)
+        out = engine.run_merge_loop(ops, engine._init_state(Dd, alive_d, n_steps), n_steps, thr)
+        return engine.LWResult(merges=out.merges, n_merges=out.n_merges)
+
+    reset_launches()
+    graphed = run(cuda)
+    counts = launches()
+    eager = run(cuda, engine._lazy_resident_ops(method, n, lw_update.lazy_merge))
+    plain = run(cuda, engine._lazy_resident_ops(method, n, lw_update.lazy_merge_plain))
+    cpu = run("cpu")
+    k = cpu.n_merges
+    if case == "threshold":
+        trips = min(n_steps, 2 * THRESHOLD_CHECK_TRIPS)
+        assert 0 < k < n_steps and counts == (0, 0, 0, 0, trips, trips)
+    else:
+        assert k == n_steps and counts == (0, 0, 0, 0, n_steps, n_steps)
+    assert graphed.n_merges == eager.n_merges == plain.n_merges == k
+    assert torch.equal(graphed.merges, eager.merges) and torch.equal(graphed.merges, plain.merges)
+    assert_same_merges(graphed.merges.cpu().numpy(), cpu.merges.numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_lazy_merge_rejects_bad_operands(cuda, rng):
+    b = lazy_problem(rng, 40, "complete", cuda)
+    with pytest.raises(ValueError, match="unknown linkage method"):
+        lw_update.lazy_merge("nope", b)
+    with pytest.raises(ValueError, match="operand"):
+        lw_update.lazy_merge("complete", b._replace(rarg=b.rarg.to(torch.int32)))
+    with pytest.raises(ValueError, match="contiguous"):
+        lw_update.lazy_merge("complete", b._replace(sizes=torch.zeros(80, device=cuda)[::2]))
+    with pytest.raises(ValueError, match="one device"):
+        lw_update.lazy_rescan(b._replace(count=b.count.cpu()))
+
+
+STRESS_RUNS = 150       # n = 97 runs a method, each merge launched on its own
+STRESS_GRAPH_RUNS = 20  # n = 300 runs a method and variant, replayed from graphs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+def test_cuda_resident_merges_stable_under_load(method, cuda):
+    """The resident merges' last-block protocol under load: a matrix
+    product loop runs on a second stream while the kernel backend's LW
+    loop (B2's merge entry, launched merge by merge at n = 97 and replayed
+    from graphs at n = 300) and kernel ``lazy`` (B3's merge entry) run
+    again and again.  Every run equals the first bit for bit, slots and
+    heights, and the CPU's run on the same matrix merge for merge; a
+    differing run prints its rows."""
+    from repro_torch.core import cluster
+
+    a = torch.randn(4096, 4096, device=cuda)
+    c = torch.empty_like(a)
+    load = torch.cuda.Stream(device=cuda)
+
+    def more_load():
+        with torch.cuda.stream(load):
+            for _ in range(8):
+                torch.matmul(a, a, out=c)
+
+    cases = [(97, "baseline", STRESS_RUNS), (300, "baseline", STRESS_GRAPH_RUNS),
+             (300, "lazy", STRESS_GRAPH_RUNS)]
+    for n, variant, runs in cases:
+        # one matrix for both devices: built on each, they differ in the last bits
+        D = random_distance_matrix(np.random.default_rng(n), n,
+                                   squared=method in ("centroid", "median", "ward"))
+        D = D.astype(np.float32)
+        want = cluster(D, method, algorithm="lw", backend="kernel", variant=variant,
+                       device="cpu").merges
+        first = None
+        for run in range(runs):
+            if run % 4 == 0:
+                more_load()
+            got = cluster(D, method, algorithm="lw", backend="kernel", variant=variant).merges
+            if first is None:
+                first = got
+                assert_same_merges(got, want)
+            bad = np.flatnonzero((got != first).any(axis=1))
+            assert not bad.size, (f"n={n} {variant} run {run}: merges {bad[:8].tolist()} differ "
+                                  f"from the first run: {got[bad[:4]].tolist()} vs "
+                                  f"{first[bad[:4]].tolist()}")
+    load.synchronize()
 
 
 @pytest.mark.cuda
@@ -300,7 +483,7 @@ def test_cuda_serial_matches_kernel(variant, cuda):
     X = gaussian_mixture(seed=6, n=300, dim=8, return_labels=False)
     reset_launches()
     got = cluster(X, "centroid", variant=variant)
-    assert (got.algorithm, got.backend, launches()) == ("lw", "serial", (0, 0, 0, 0))
+    assert (got.algorithm, got.backend, launches()) == ("lw", "serial", (0,) * 6)
     want = cluster(X, "centroid", algorithm="lw", backend="kernel")
     assert_same_merges(got.merges, want.merges)
     thr = float(want.merges[150, 2])
@@ -569,10 +752,13 @@ def pairwise_tolerance(X, Y):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,d", [(70, 130, 7), (300, 300, 50), (1, 1, 1), (257, 65, 1),
-                                   (129, 200, 128), (0, 5, 3), (4, 0, 3), (3, 2, 0)])
+                                   (129, 200, 128), (0, 5, 3), (4, 0, 3), (3, 2, 0),
+                                   (129, 130, 3), (1000, 6155, 129), (257, 300, 13),
+                                   (300, 129, 132)])
 def test_cuda_pairwise_matches_plain(n, m, d, cuda, rng):
-    """B4 on ragged n, m and d (none a multiple of the 64-row tile or the
-    16-column chunk), d = 1, and empty operands."""
+    """B4 on ragged n, m and d (none a multiple of the 128-row tile or the
+    8-column chunk; d % 4 != 0 takes scalar loads), d = 1, an odd m with
+    unaligned output rows, and empty operands."""
     X = torch.tensor((rng.normal(size=(n, d)) * 5).astype(np.float32), device=cuda)
     Y = torch.tensor((rng.normal(size=(m, d)) * 5).astype(np.float32), device=cuda)
     before = pairwise.pairwise_sq_euclidean.launches
