@@ -28,18 +28,23 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    reductions over a 16 MiB buffer), else the HBM rate.
 3. The paper's configuration: n = 1968 points in 64 dimensions, complete
    linkage, through ``cluster(..., algorithm="lw", backend="kernel")``,
-   whose merges replay from a captured CUDA graph of 128 merges;
-   merges equal the engine run with the plain step functions, heights
-   match scipy's, and the launch counters read 1 and n - 1.  Then
-   ``cluster(X, "complete")`` with default knobs resolves to the NN chain,
-   whose dendrogram equals the LW loop's.
-4. Full size: n = 16384 (a 1 GiB float32 matrix) through the same call;
-   wall time and peak memory; the first 256 merges equal the plain
-   engine's.  Phases 3 and 4 also read the device's busy time over a
-   second, profiled run of the whole call (the profiler sees every merge
-   launched from a graph replay), and set the host's time per merge
-   against the device's over two graph replays (showing that the loop
-   never waits for the card).
+   which stages the run by default (compaction: 1968, 984 and 492
+   slots), each stage's merges replayed from its own captured CUDA graph
+   of 128 merges; merges equal the same call with ``compaction=False``
+   bit for bit and the engine run with the plain step functions, heights
+   match scipy's, and the launch counters read one seed a stage and n - 1
+   merges.  Then ``cluster(X, "complete")`` with default knobs resolves
+   to the NN chain, whose dendrogram equals the LW loop's.
+4. Full size: n = 16384 (a 1 GiB float32 matrix) through the same calls,
+   staged (7 stages) and unstaged; wall time and peak memory; the first
+   256 merges equal the plain engine's.  Phases 3 and 4 also read the
+   device's busy time over a second, profiled run of each call (the
+   profiler sees every merge launched from a graph replay), and set the
+   host's time per merge against the device's over two graph replays of
+   the unstaged loop (showing that the loop never waits for the card).
+   Phases 3, 4, 7 and 8 print for each run, staged and unstaged, the
+   wall, the busy time, the idle share, the stages and their sizes, the
+   launches and the graph replays.
 5. The dense NN chain on the first 8192 of phase 4's points
    (``cluster(X, "complete")``, default knobs): its dendrogram equals the
    LW loop's on the same points; wall, trips, busy time and idle share.  Phases 5 and 6 read the busy time and the trip
@@ -54,18 +59,22 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    Then at n = 4096 (d = 128) and n = 1968 (d = 64) the matrix-free ward
    run against the LW loop on the kernel backend.
 7. The serial LW backend: ``cluster(X, "centroid")`` with default knobs on
-   phase 5's points resolves to it, reports ``backend="serial"``, launches
-   no kernel, and gives the kernel backend's dendrogram; wall, busy time,
-   idle share and peak memory.  At n = 1968, complete linkage under the
-   ``rowmin`` and ``lazy`` variants gives phase 3's merges.
-8. The kernel backend's ``lazy`` variant on phase 5's points: the row
-   update's lazy merge entry, two launches a merge (the merge and the
-   rescan) replayed from CUDA graphs of 128 merges, and no other kernel;
-   phase 5's LW merges; wall, busy time, idle share, host and device ms per
-   merge, and the stale rows rescanned a merge.  ``rowmin`` and ``lazy`` at
-   n = 1968: their launches, and phase 3's merges.
-9. ``distance_threshold`` at the median merge height of phase 3's run, on
-   both LW backends: exactly the merges at or below it.
+   phase 5's points resolves to it (staged), reports ``backend="serial"``,
+   launches no kernel, equals the unstaged call bit for bit, and gives the
+   kernel backend's dendrogram; wall, busy time, idle share and peak
+   memory.  At n = 1968, complete linkage under the ``rowmin`` and
+   ``lazy`` variants gives phase 3's merges.
+8. The kernel backend's ``lazy`` variant on phase 5's points, staged and
+   unstaged (bit for bit): the row update's lazy merge entry, two launches
+   a merge (the merge and the rescan) replayed from CUDA graphs of 128
+   merges, and no other kernel; phase 5's LW merges; wall, busy time, idle
+   share, host and device ms per merge, and the stale rows rescanned a
+   merge.  ``rowmin`` and ``lazy`` at n = 1968: their launches, and phase
+   3's merges.
+9. ``distance_threshold`` on both LW backends, staged and unstaged (bit
+   for bit): at the median merge height of phase 3's run (the stop is the
+   first merge of the kernel plan's second stage) and at the height of
+   merge 1600 (inside its third): exactly the merges at or below it.
 10. Streaming assignment: a centroid index at k = 4096 of phase 6's fit and
     an exemplar index at k = 64 of phase 3's chain fit label 65536 fresh
     queries of the same mixtures with ``assign(backend="kernel")`` (one
@@ -133,6 +142,9 @@ PROFILER_MISS_SHARE = 1e-3     # kernel records the profiler may drop in a whole
 PROFILER_MISS_MIN = 50_000     # ... of this many launches or more (fewer: none)
 PROFILER_TRIES = 3             # profiled runs of a call before dropped records fail a phase
 PREFIX = 256                   # merges of the full-size run held against the plain engine
+STAGE_FLOORS = (None, 512, 256, 128)   # phase 3's kernel plan floors (None: unstaged) ...
+FLOOR_REPS = 20                        # ... each timed this many times, in turns
+THRESHOLD_STAGE2_MERGE = 1600  # phase 9: a stop in the kernel plan's third stage (merges 1476-1966)
 SPLIT_REPLAYS = 2              # graph replays whose host time is set against their device time
 MERGE_REPS = 20                # merges a timed batch of the step kernel's merge entry makes
 SLEEP_CYCLES = 400_000_000     # ~0.2 s of GPU clock: holds the stream while the host enqueues
@@ -703,6 +715,75 @@ def check_launches(got: dict, want: dict, what: str) -> None:
         raise AssertionError(f"{what}: launches {got}, want {want} and no others")
 
 
+def lw_plan(backend: str, n: int, n_steps: int, compaction=True) -> tuple:
+    """The compaction stages ``((size, steps), ...)`` that a ``cluster()``
+    LW run on ``backend`` follows (one stage when it runs unstaged)."""
+    from repro_torch.core import engine
+
+    floor = engine.KERNEL_MIN_STAGE if backend == "kernel" else engine.MIN_STAGE_N
+    if engine.resolve_compaction(compaction, n, n_steps, min_stage=floor):
+        return engine.plan_stages(n, n_steps, min_stage=floor)
+    return ((n, n_steps),)
+
+
+def stage_trips(plan: tuple, stop: int | None = None) -> list:
+    """The merges each stage launches: all its steps, but in the stage that
+    holds merge ``stop`` (the first above a threshold) up to the end of
+    its chunk of THRESHOLD_CHECK_TRIPS; later stages run none."""
+    from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS as k
+
+    trips, start = [], 0
+    for _, steps in plan:
+        if stop is not None and stop < start + steps:
+            return trips + [min(((stop - start) // k + 1) * k, steps)]
+        trips.append(steps)
+        start += steps
+    return trips
+
+
+def check_lw_run(stats: dict, backend: str, variant: str, n: int, what: str,
+                 compaction=True, stop: int | None = None) -> None:
+    """A ``cluster()`` LW run's launches and graph replays against its
+    stage plan: the serial backend launches no kernel; on the kernel
+    backend each stage run seeds once (B1; ``lazy``: the masked row minima
+    in torch) and each merge is one B2 merge launch (``lazy``: one B3 lazy
+    merge and one rescan), each stage replaying whole chunks of
+    THRESHOLD_CHECK_TRIPS from its own graph.  Adds the plan to ``stats``."""
+    from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS
+
+    plan = lw_plan(backend, n, n - 1, compaction)
+    trips = stage_trips(plan, stop)
+    merges, replays = sum(trips), sum(t // THRESHOLD_CHECK_TRIPS for t in trips)
+    if backend == "serial":
+        want, replays = {}, 0
+    elif variant == "lazy":
+        want = {"lazy_merge": merges, "lazy_rescan": merges}
+    else:
+        want = {"masked_argmin": len(trips), "lw_merge": merges}
+    check_launches(stats["launches"], want, what)
+    if stats["merge_replays"] != replays:
+        raise AssertionError(f"{what}: {stats['merge_replays']} graph replays, want {replays} "
+                             f"(stage trips {trips})")
+    stats.update(stages=len(plan), stage_sizes=[size for size, _ in plan], stage_trips=trips)
+
+
+def check_bit_equal(np, got, want, what: str) -> None:
+    """A staged run against the same run unstaged: every merge, bit for bit."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = np.flatnonzero((got != want).any(axis=1)) if got.shape == want.shape else []
+        raise AssertionError(f"{what}: merges differ, first at step {bad[:1]}")
+
+
+#: What a phase line reports of each of its LW runs, staged and unstaged.
+LW_RUN_KEYS = ("wall_s", "warm_wall_s", "device_busy_s", "idle_share", "warm_idle_share",
+               "peak_gib", "stages", "stage_sizes", "stage_trips", "launches", "merge_replays")
+
+
+def lw_run_numbers(stats: dict) -> dict:
+    return {k: stats[k] for k in LW_RUN_KEYS if k in stats}
+
+
 def timed(torch, call):
     """One run of ``call`` with the counters set to 0 just before it: wall
     seconds, peak memory, launches, and the LW loop's and the chain's graph
@@ -722,7 +803,7 @@ def timed(torch, call):
                      merge_replays=MergeGraph.replays)
 
 
-def run_cluster(torch, X):
+def run_cluster(torch, X, **knobs):
     """The LW loop on the kernel backend, as phases 3 and 4 drive it:
     :func:`timed`, then the device's busy time over a second run of the
     same call, then a third, unprofiled run's wall (``warm_wall_s``: the
@@ -731,7 +812,8 @@ def run_cluster(torch, X):
     from repro_torch.core import cluster
 
     def call():
-        return cluster(X, "complete", algorithm="lw", backend="kernel", keep_inputs=False)
+        return cluster(X, "complete", algorithm="lw", backend="kernel", keep_inputs=False,
+                       **knobs)
 
     res, stats = timed(torch, call)
     stats.update(device_busy(torch, call, stats["wall_s"], stats["launches"])[1])
@@ -847,6 +929,38 @@ def host_device_split(torch, X) -> dict:
                 device_ms_per_merge=start.elapsed_time(end) / merges, stream_held_ms=sleep_ms)
 
 
+def stage_floor_walls(torch, X) -> dict:
+    """Phase 3's stage floor: the walls of the kernel backend's LW loop
+    alone (``engine.run_kernel``, complete) on phase 3's matrix, unstaged
+    and with the kernel plan's floor (``KERNEL_MIN_STAGE``) at each of
+    STAGE_FLOORS, FLOOR_REPS runs each in turns after a round that warms
+    up; the median and the range of each, with its stages.  Every run
+    captures its stages' graphs anew, as every ``cluster()`` call does."""
+    from repro_torch.core import engine
+    from repro_torch.core.api import build_distance_matrix
+
+    D0 = engine.symmetrize(build_distance_matrix(X, "euclidean"))
+    n = D0.shape[0]
+    floor0, walls = engine.KERNEL_MIN_STAGE, {f: [] for f in STAGE_FLOORS}
+    try:
+        for _ in range(FLOOR_REPS + 1):
+            for floor in STAGE_FLOORS:
+                engine.KERNEL_MIN_STAGE = floor or floor0
+                D, alive = D0.clone(), torch.ones(n, dtype=torch.bool, device="cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.run_kernel(D, alive, method="complete", n_steps=n - 1,
+                                  compaction=floor is not None)
+                torch.cuda.synchronize()
+                walls[floor].append(time.perf_counter() - t0)
+    finally:
+        engine.KERNEL_MIN_STAGE = floor0
+    return {str(floor or "unstaged"): dict(
+                stages=len(engine.plan_stages(n, n - 1, min_stage=floor)) if floor else 1,
+                wall_s=statistics.median(w[1:]), wall_range_s=[min(w[1:]), max(w[1:])])
+            for floor, w in walls.items()}
+
+
 def phase_paper(torch, np) -> dict:
     import scipy.cluster.hierarchy as sch
 
@@ -856,7 +970,12 @@ def phase_paper(torch, np) -> dict:
     n = PAPER_N
     X = gaussian_mixture(seed=0, n=n, dim=DIM, return_labels=False)
     res, stats = run_cluster(torch, X)
-    check_launches(stats["launches"], {"masked_argmin": 1, "lw_merge": n - 1}, "paper run")
+    check_lw_run(stats, "kernel", "baseline", n, "paper run")
+    off_res, off = run_cluster(torch, X, compaction=False)
+    check_lw_run(off, "kernel", "baseline", n, "paper run, unstaged", compaction=False)
+    check_bit_equal(np, res.merges, off_res.merges, "paper run, staged vs unstaged")
+    stats["unstaged"] = lw_run_numbers(off)
+    stats["stage_floor"] = stage_floor_walls(torch, X)
     validate_merges(res.merges, n=n)
     check_merges(np, res.merges, plain_engine_merges(torch, X, "complete", n - 1),
                  "paper run vs plain engine")
@@ -885,7 +1004,12 @@ def phase_full(torch, np) -> dict:
     n = FULL_N
     X = gaussian_mixture(seed=0, n=n, dim=DIM, return_labels=False)
     res, stats = run_cluster(torch, X)
-    check_launches(stats["launches"], {"masked_argmin": 1, "lw_merge": n - 1}, "full run")
+    check_lw_run(stats, "kernel", "baseline", n, "full run")
+    off_res, off = run_cluster(torch, X, compaction=False)
+    check_lw_run(off, "kernel", "baseline", n, "full run, unstaged", compaction=False)
+    check_bit_equal(np, res.merges, off_res.merges, "full run, staged vs unstaged")
+    stats["unstaged"] = lw_run_numbers(off)
+    del off_res
     validate_merges(res.merges, n=n)
     if not is_monotone(res.merges):
         raise AssertionError("complete-linkage heights are not monotone")
@@ -908,7 +1032,7 @@ def phase_dense_chain(torch, np, X):
     n = X.shape[0]
     lw, lw_stats = timed(torch, lambda: cluster(X, "complete", algorithm="lw", backend="kernel",
                                                 keep_inputs=False))
-    check_launches(lw_stats["launches"], {"masked_argmin": 1, "lw_merge": n - 1}, f"LW run n={n}")
+    check_lw_run(lw_stats, "kernel", "baseline", n, f"LW run n={n}")
     lw_merges = lw.merges
     res, stats = timed(torch, lambda: cluster(X, "complete"))
     check_launches(stats["launches"], {}, "dense chain run")
@@ -995,42 +1119,55 @@ def phase_cross(torch, np, n: int, d: int) -> dict:
     check_trips(chain_stats, None, f"n={n} chain")
     lw, lw_stats = timed(torch, lambda: cluster(X, "ward", algorithm="lw", backend="kernel",
                                                 keep_inputs=False))
-    check_launches(lw_stats["launches"], {"masked_argmin": 1, "lw_merge": n - 1}, f"n={n} LW run")
+    check_lw_run(lw_stats, "kernel", "baseline", n, f"n={n} LW run")
     check_equivalent(np, chain.merges, lw.merges, n, f"matrix-free chain vs LW loop n={n}")
     return dict(n=n, d=d, chain_wall_s=chain_stats["wall_s"],
                 launches=chain_stats["launches"], trip_replays=chain_stats["trip_replays"],
                 lw_wall_s=lw_stats["wall_s"])
 
 
+def timed_busy(torch, call, what: str, check) -> tuple:
+    """:func:`timed`, ``check(stats)`` on its launches, then the device's
+    busy time over a second, profiled run of the same call."""
+    res, stats = timed(torch, call)
+    check(stats)
+    stats.update(device_busy(torch, call, stats["wall_s"], stats["launches"])[1])
+    return res, stats
+
+
 def phase_serial(torch, np, X, paper_X, paper_merges) -> dict:
     """``cluster(X, "centroid")`` with default knobs: the serial LW
-    backend, held against the kernel backend; then the serial
-    ``rowmin`` and ``lazy`` variants at n = 1968 against phase 3."""
+    backend, staged, against the same call unstaged (bit for bit) and
+    against the kernel backend; then the serial ``rowmin`` and ``lazy``
+    variants at n = 1968 against phase 3."""
     from repro_torch.core import cluster
     from repro_torch.core.dendrogram import validate_merges
 
     n = X.shape[0]
+    runs = {}
+    for compaction in (True, False):
+        def call(compaction=compaction):
+            return cluster(X, "centroid", compaction=compaction, keep_inputs=False)
 
-    def call():
-        return cluster(X, "centroid", keep_inputs=False)
-
-    res, stats = timed(torch, call)
-    check_launches(stats["launches"], {}, "serial centroid run")
+        what = f"serial centroid run, compaction={compaction}"
+        runs[compaction] = timed_busy(torch, call, what, lambda st, what=what, c=compaction:
+                                      check_lw_run(st, "serial", "baseline", n, what, c))
+    (res, stats), (off_res, off) = runs[True], runs[False]
     if (res.algorithm, res.backend) != ("lw", "serial"):
         raise AssertionError(f"centroid default knobs ran {res.algorithm}/{res.backend}, "
                              "want the serial LW loop")
+    check_bit_equal(np, res.merges, off_res.merges, f"serial centroid n={n}, staged vs unstaged")
+    stats["unstaged"] = lw_run_numbers(off)
     validate_merges(res.merges, n=n)
-    stats.update(device_busy(torch, call, stats["wall_s"], stats["launches"])[1])
     kernel, kernel_stats = timed(torch, lambda: cluster(X, "centroid", algorithm="lw",
                                                          backend="kernel", keep_inputs=False))
-    check_launches(kernel_stats["launches"], {"masked_argmin": 1, "lw_merge": n - 1},
-                   "kernel centroid run")
+    check_lw_run(kernel_stats, "kernel", "baseline", n, "kernel centroid run")
     check_merges(np, res.merges, kernel.merges, f"serial vs kernel backend, centroid n={n}")
     stats["kernel_wall_s"] = kernel_stats["wall_s"]
     for variant in ("rowmin", "lazy"):
         r, s = timed(torch, lambda: cluster(paper_X, "complete", algorithm="lw", variant=variant,
                                             keep_inputs=False))
-        check_launches(s["launches"], {}, f"serial {variant} run")
+        check_lw_run(s, "serial", variant, PAPER_N, f"serial {variant} run")
         if r.backend != "serial":
             raise AssertionError(f"serial {variant} run reported {r.backend}")
         check_merges(np, r.merges, paper_merges, f"serial {variant} vs phase 3, n={PAPER_N}")
@@ -1038,38 +1175,32 @@ def phase_serial(torch, np, X, paper_X, paper_merges) -> dict:
     return stats
 
 
-def check_lazy_launches(stats: dict, merges: int, what: str) -> None:
-    """Kernel ``lazy`` on the card: two launches a merge (the merge and the
-    rescan, no other kernel), each count replays x THRESHOLD_CHECK_TRIPS
-    plus the merges launched one by one after the last whole chunk."""
-    from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS
-
-    check_launches(stats["launches"], {"lazy_merge": merges, "lazy_rescan": merges}, what)
-    if stats["merge_replays"] != merges // THRESHOLD_CHECK_TRIPS:
-        raise AssertionError(f"{what}: {stats['merge_replays']} graph replays for {merges} "
-                             f"merges, want {merges // THRESHOLD_CHECK_TRIPS}")
-
-
 def phase_lazy(torch, np, X, lw_merges, paper_X, paper_merges) -> dict:
     """The kernel backend's ``lazy`` variant (B3's resident merge, two
-    launches a merge, replayed from graphs) against phase 5's LW merges on
-    the same points, with the mean count of stale rows a merge from the
-    engine's buffers; ``rowmin`` and ``lazy`` at n = 1968 against phase 3."""
+    launches a merge, replayed from graphs), staged and unstaged (bit for
+    bit), against phase 5's LW merges on the same points, with the mean
+    count of stale rows a merge from the engine's buffers; ``rowmin`` and
+    ``lazy`` at n = 1968 against phase 3."""
     from repro_torch.core import cluster, engine
     from repro_torch.core.api import build_distance_matrix
 
     n = X.shape[0]
+    runs = {}
+    for compaction in (True, False):
+        def call(compaction=compaction):
+            return cluster(X, "complete", algorithm="lw", backend="kernel", variant="lazy",
+                           compaction=compaction, keep_inputs=False)
 
-    def call():
-        return cluster(X, "complete", algorithm="lw", backend="kernel", variant="lazy",
-                       keep_inputs=False)
-
-    res, stats = timed(torch, call)
-    check_lazy_launches(stats, n - 1, "kernel lazy run")
+        what = f"kernel lazy run, compaction={compaction}"
+        res, stats = runs[compaction] = timed_busy(
+            torch, call, what,
+            lambda st, what=what, c=compaction: check_lw_run(st, "kernel", "lazy", n, what, c))
+        stats.update(per_step(stats, n - 1, "merge"))
+    (res, stats), (off_res, off) = runs[True], runs[False]
+    check_bit_equal(np, res.merges, off_res.merges, f"kernel lazy n={n}, staged vs unstaged")
     check_merges(np, res.merges, lw_merges, f"kernel lazy vs phase 5's LW run, n={n}")
-    stats.update(device_busy(torch, call, stats["wall_s"], stats["launches"])[1])
-    stats.update(per_step(stats, n - 1, "merge"))
-    # the engine alone on the same matrix: its buffers count the stale rows
+    stats["unstaged"] = dict(lw_run_numbers(off), **per_step(off, n - 1, "merge"))
+    # the engine alone on the same matrix, unstaged: its buffers count the stale rows
     D = engine.symmetrize(build_distance_matrix(X, "euclidean"))
     alive = torch.ones(n, dtype=torch.bool, device="cuda")
     state = engine.run_merge_loop(engine.kernel_ops("complete", n, "lazy", device="cuda"),
@@ -1077,41 +1208,48 @@ def phase_lazy(torch, np, X, lw_merges, paper_X, paper_merges) -> dict:
     check_merges(np, state.merges.cpu().numpy(), lw_merges, "lazy engine run vs phase 5")
     stats["stale_rows_per_merge"] = int(state.cache.rescanned) / (n - 1)
     del D, state
-    for variant, launches in (("rowmin", {"masked_argmin": 1, "lw_merge": PAPER_N - 1}),
-                              ("lazy", None)):
+    for variant in ("rowmin", "lazy"):
         r, s = timed(torch, lambda: cluster(paper_X, "complete", algorithm="lw", backend="kernel",
                                             variant=variant, keep_inputs=False))
-        if launches is None:
-            check_lazy_launches(s, PAPER_N - 1, f"kernel lazy run n={PAPER_N}")
-        else:
-            check_launches(s["launches"], launches, f"kernel {variant} run n={PAPER_N}")
+        check_lw_run(s, "kernel", variant, PAPER_N, f"kernel {variant} run n={PAPER_N}")
         check_merges(np, r.merges, paper_merges, f"kernel {variant} vs phase 3, n={PAPER_N}")
         stats[f"paper_{variant}_wall_s"] = s["wall_s"]
     return stats
 
 
 def phase_threshold(torch, np, paper_X, paper_merges) -> dict:
-    """``distance_threshold`` at the median merge height of phase 3's run
-    (complete linkage: monotone heights, so the merges at or below it are
-    a prefix), on both LW backends.  The loop checks the heights once
-    every ``THRESHOLD_CHECK_TRIPS`` merges, so the kernel run launches the
-    step kernel up to the end of the chunk that holds the stop."""
+    """``distance_threshold`` on both LW backends, staged and unstaged (bit
+    for bit): at the median merge height of phase 3's run, where the stop
+    falls on the first merge of the kernel plan's second stage (complete
+    linkage: monotone heights, so the merges at or below it are a prefix),
+    and at the height of merge THRESHOLD_STAGE2_MERGE, inside its third.
+    The loop checks the heights once every ``THRESHOLD_CHECK_TRIPS``
+    merges of a stage, so a kernel run launches the step kernel up to the
+    end of the chunk that holds the stop, and seeds the stages it ran."""
     from repro_torch.core import cluster
-    from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS
 
     n = paper_X.shape[0]
-    thr = float(np.median(paper_merges[:, 2]))
-    k = int(np.sum(paper_merges[:, 2] <= np.float32(thr)))
-    trips = min(n - 1, (k // THRESHOLD_CHECK_TRIPS + 1) * THRESHOLD_CHECK_TRIPS)
-    out = dict(threshold=thr, merges_at_or_below=k, trips=trips)
-    for backend, launches in (("serial", {}), ("kernel", {"masked_argmin": 1, "lw_merge": trips})):
-        r, s = timed(torch, lambda: cluster(paper_X, "complete", algorithm="lw", backend=backend,
-                                            distance_threshold=thr, keep_inputs=False))
-        check_launches(s["launches"], launches, f"{backend} threshold run")
-        if r.n_merges != k:
-            raise AssertionError(f"{backend} threshold run kept {r.n_merges} merges, want {k}")
-        check_merges(np, r.merges, paper_merges[:k], f"{backend} threshold run vs phase 3 prefix")
-        out[f"{backend}_wall_s"] = s["wall_s"]
+    out = {}
+    for label, thr in (("median", float(np.median(paper_merges[:, 2]))),
+                       ("stage2", float(paper_merges[THRESHOLD_STAGE2_MERGE, 2]))):
+        k = int(np.sum(paper_merges[:, 2] <= np.float32(thr)))
+        row = out[label] = dict(threshold=thr, merges_at_or_below=k)
+        for backend in ("serial", "kernel"):
+            merges = {}
+            for compaction in (True, False):
+                what = f"{backend} threshold run at the {label}, compaction={compaction}"
+                r, s = timed(torch, lambda: cluster(paper_X, "complete", algorithm="lw",
+                                                    backend=backend, distance_threshold=thr,
+                                                    compaction=compaction, keep_inputs=False))
+                check_lw_run(s, backend, "baseline", n, what, compaction, stop=k)
+                if r.n_merges != k:
+                    raise AssertionError(f"{what}: kept {r.n_merges} merges, want {k}")
+                check_merges(np, r.merges, paper_merges[:k], f"{what} vs phase 3 prefix")
+                merges[compaction] = r.merges
+                tag = "" if compaction else "_unstaged"
+                row[f"{backend}{tag}_wall_s"] = s["wall_s"]
+                row[f"{backend}{tag}_stage_trips"] = s["stage_trips"]
+            check_bit_equal(np, merges[True], merges[False], f"{backend} threshold at the {label}")
     return out
 
 
@@ -1385,11 +1523,16 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
              + (f" graph {g(r['graph_ms_per_merge'])}" if "graph_ms_per_merge" in r else "")
              for (name, n), r in kernels.items()]
     for label, s in (("paper", paper), ("full", full)):
+        u = s["unstaged"]
         parts.append(f"{label} wall_s {g(s['wall_s'])} (warm {g(s['warm_wall_s'])}) busy_s "
                      f"{g(s['device_busy_s'])} idle {g(s['idle_share'])} (warm "
-                     f"{g(s['warm_idle_share'])}) host/device ms per merge "
-                     f"{g(s['host_ms_per_merge'])}/{g(s['device_ms_per_merge'])} "
-                     f"peak_gib {g(s['peak_gib'])}")
+                     f"{g(s['warm_idle_share'])}) stages {s['stage_sizes']} "
+                     f"peak_gib {g(s['peak_gib'])}; unstaged wall_s {g(u['wall_s'])} (warm "
+                     f"{g(u['warm_wall_s'])}) busy_s {g(u['device_busy_s'])} idle "
+                     f"{g(u['idle_share'])} peak_gib {g(u['peak_gib'])}; unstaged host/device ms "
+                     f"per merge {g(s['host_ms_per_merge'])}/{g(s['device_ms_per_merge'])}")
+    parts.append("paper stage floor walls (median s): " + ", ".join(
+        f"{floor} ({r['stages']} stages) {g(r['wall_s'])}" for floor, r in paper["stage_floor"].items()))
     for label, s in ((f"dense chain n={MID_N}", dense), ("matrix-free chain", points)):
         parts.append(f"{label} wall_s {g(s['wall_s'])} trips {s['trips']} busy_s "
                      f"{g(s['device_busy_s'])} idle {g(s['idle_share'])} host/device ms per trip "
@@ -1399,14 +1542,16 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
                  f"{g(points['host_loop_wall_s'])} trips {points['host_loop_trips']}; resident "
                  f"trip launches {points['launches']['chain_trip']} in "
                  f"{points['trip_replays']} replays")
-    parts.append(f"serial centroid n={MID_N} wall_s {g(serial['wall_s'])} busy_s {g(serial['device_busy_s'])} "
-                 f"idle {g(serial['idle_share'])} peak_gib {g(serial['peak_gib'])} "
-                 f"(kernel backend wall_s {g(serial['kernel_wall_s'])})")
-    parts.append(f"kernel lazy n={MID_N} wall_s {g(lazy['wall_s'])} busy_s {g(lazy['device_busy_s'])} "
-                 f"idle {g(lazy['idle_share'])} host/device ms per merge "
-                 f"{g(lazy['host_ms_per_merge'])}/{g(lazy['device_ms_per_merge'])} "
-                 f"stale rows per merge {g(lazy['stale_rows_per_merge'])} "
-                 f"peak_gib {g(lazy['peak_gib'])}")
+    for label, s in ((f"serial centroid n={MID_N}", serial), (f"kernel lazy n={MID_N}", lazy)):
+        u = s["unstaged"]
+        parts.append(f"{label} wall_s {g(s['wall_s'])} busy_s {g(s['device_busy_s'])} idle "
+                     f"{g(s['idle_share'])} stages {s['stage_sizes']} peak_gib {g(s['peak_gib'])}; "
+                     f"unstaged wall_s {g(u['wall_s'])} busy_s {g(u['device_busy_s'])} idle "
+                     f"{g(u['idle_share'])} peak_gib {g(u['peak_gib'])}")
+    parts.append(f"serial centroid: kernel backend wall_s {g(serial['kernel_wall_s'])}; "
+                 f"kernel lazy: host/device ms per merge {g(lazy['host_ms_per_merge'])}/"
+                 f"{g(lazy['device_ms_per_merge'])} stale rows per merge "
+                 f"{g(lazy['stale_rows_per_merge'])}")
     for kind in ("centroid", "exemplar"):
         a = assigned[kind]
         parts.append(f"assign {kind} k={a['k']} kernel wall_s {g(a['kernel']['wall_s'])} busy_s "
@@ -1542,12 +1687,14 @@ def main() -> int:
     # B2, B3 and B5 launch through their second entries on the main path (the
     # merge, the lazy merge, the chain trip): a kernel's line gives that
     # entry's launches and times, and lists every entry under "entries"
-    def numbers(key, launches):
+    # "stages": the compaction stages of the LW run the launches were
+    # counted in (null for the chains and the labeler, which do not stage)
+    def numbers(key, path, entry):
         row = kernels[key]
-        return dict(launches=launches, max_abs_err=row["max_abs_err"], ms=row["ms"],
-                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                    library_ms=row.get("library_ms"), n=key[1],
-                    bound_bytes_per_s=row["bound_bytes_per_s"])
+        return dict(launches=path["launches"][entry], max_abs_err=row["max_abs_err"],
+                    ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"], library_ms=row.get("library_ms"), n=key[1],
+                    bound_bytes_per_s=row["bound_bytes_per_s"], stages=path.get("stages"))
 
     inventory = []
     for name, entries in (
@@ -1561,8 +1708,7 @@ def main() -> int:
             ("pairwise_sq_euclidean", [("pairwise_sq_euclidean",
                                         ("pairwise_sq_euclidean", QUERY_N),
                                         assigned["centroid"]["kernel"])])):
-        listed = [dict(entry=entry, **numbers(key, path["launches"][entry]))
-                  for entry, key, path in entries]
+        listed = [dict(entry=entry, **numbers(key, path, entry)) for entry, key, path in entries]
         if listed[0]["entry"] == "lazy_merge":    # its second launch, the rescan
             listed[0]["rescan_launches"] = lazy["launches"]["lazy_rescan"]
         inventory.append(dict(name=name, route="cuda", source=src[name][0],

@@ -214,17 +214,25 @@ def cluster(
     and ``distance_threshold`` cut its canonical merge list afterwards.
     Otherwise the LW merge loop runs: in plain torch on the serial
     backend, on the CUDA kernels on ``backend="kernel"``, each with every
-    ``variant``, ``stop_at_k`` and ``distance_threshold``.
+    ``variant``, ``stop_at_k``, ``distance_threshold`` and ``compaction``.
+    ``compaction`` (LW only) is the JAX package's stage schedule: pack the
+    live rows into a half-size matrix each time the live count halves,
+    merges unchanged bit for bit.  ``"auto"`` (the default), ``True`` and
+    ``"on"`` stage whenever the plan has more than one stage (the serial
+    backend halves down to 32 slots, the kernel backend down to 256);
+    ``False``, ``None`` and ``"off"`` run unstaged; anything else raises
+    ``ValueError``.  The chain ignores the knob, and a value other than
+    ``"auto"`` or ``None`` steers ``algorithm="auto"`` to the LW loop, as
+    in the JAX package.
     ``algorithm="landmark"`` runs the landmark tier
     (:func:`repro_torch.core.landmark.landmark_cluster`) on points or
     conformations, with ``n_landmarks``, ``seed`` and ``refine``; an
     explicit ``n_landmarks`` or ``refine`` makes ``"auto"`` mean it and
-    contradicts any other explicit engine.  Engines and knobs not ported
-    yet (``compaction=True``, the distributed backend, the two-phase
-    engine) raise ``NotImplementedError`` naming the ROADMAP.md item that
-    ports them.  ``device`` defaults to
-    CUDA and raises without it; ``device="cpu"`` runs the plain torch
-    versions of the kernels.
+    contradicts any other explicit engine.  Engines not ported yet (the
+    distributed backend, the two-phase engine) raise
+    ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+    ``device`` defaults to CUDA and raises without it; ``device="cpu"``
+    runs the plain torch versions of the kernels.
     ``keep_inputs`` stores the input on the result (for
     ``exemplars``/``centroids``).
     """

@@ -42,6 +42,23 @@ variants (serial, and kernel ``lazy`` on the CPU) read back the rows to
 rescan, once a merge; a ``distance_threshold`` run reads back the
 recorded heights once every :data:`THRESHOLD_CHECK_TRIPS` merges.  ``D``
 and the merge record are updated in place.
+
+**Compaction.**  Every composition above (both backends, all three
+variants, on the CPU and on a CUDA device) runs the JAX engine's stage
+schedule when asked to (:func:`plan_stages`, :func:`resolve_compaction`;
+the kernel backend's plan floor is :data:`KERNEL_MIN_STAGE`).  Once the
+live count has provably halved, one gather packs the live rows and
+columns into the half-size matrix, ascending, so first-minimum
+tie-breaking and the merges are unchanged bit for bit; the next stage
+seeds again and runs at the smaller size, and its merges are rewritten
+to original slot ids (:func:`compact_dense`, :func:`staged_merge_loop`,
+:func:`remap_merges`).  A boundary stays on the device: the permutation
+is a sort of the liveness, the gather two ``index_select`` s, the remap a
+gather over the stage's rows of the record; the host reads nothing back
+and decides from host ints alone (the plan, and ``n_merges`` after a
+threshold check).  On the kernel backend each stage builds its own
+resident buffers and, with at least :data:`THRESHOLD_CHECK_TRIPS` merges,
+captures its own CUDA graph.
 """
 
 from __future__ import annotations
@@ -65,21 +82,72 @@ THRESHOLD_CHECK_TRIPS = 128
 #: rescan's temporaries to this many rows.
 RESCAN_ROWS = 1024
 
+#: Smallest matrix a serial compaction stage may shrink to (the JAX
+#: engine's ``MIN_STAGE_N``): the plan keeps the tail of the run at this
+#: size instead of halving further.
+MIN_STAGE_N = 32
+
+#: Smallest matrix a kernel-backend compaction stage may shrink to.  The
+#: JAX kernel plan's floor is 128 lanes, aligned; the CUDA kernels take any
+#: ``n``, so this plan has no alignment, and its floor is twice that: on an
+#: H100 (chip_smoke.py's stage floor sweep at n = 1968) a floor of 128 adds
+#: a stage of 246 slots whose merges after its one graph replay are
+#: launched one by one while the card idles (+5-6 ms on a 20 ms loop),
+#: and floors of 256 and 512 cost nothing measurable.  Below ~2048 slots a
+#: merge is latency-bound, so a smaller stage saves the card nothing.
+KERNEL_MIN_STAGE = 256
+
 _INF = float("inf")
 
 
-def check_knobs(method: str, variant: str, compaction) -> None:
-    """Validate the engine knobs of both LW backends; compaction, which the
-    port does not run yet, raises ``NotImplementedError`` naming the
-    ROADMAP.md item."""
+def check_knobs(method: str, variant: str) -> None:
+    """Validate the linkage method and argmin variant of both LW backends
+    (the compaction flag is checked by :func:`resolve_compaction`)."""
     if method not in METHODS:
         raise ValueError(f"unknown linkage method {method!r}")
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; pick from {VARIANTS}")
-    if compaction is True:
-        raise NotImplementedError("compaction is not ported yet: ROADMAP.md A1")
-    if compaction is not False and compaction != "auto":
-        raise ValueError(f"compaction must be 'auto', False or True, got {compaction!r}")
+
+
+def plan_stages(n: int, n_steps: int, *, min_stage: int = MIN_STAGE_N,
+                align: int = 1) -> tuple[tuple[int, int], ...]:
+    """Static compaction schedule ``((size, steps), ...)``, as the JAX
+    engine plans it.
+
+    Stage 0 runs at full size ``n``; each later stage runs on the
+    ``size // 2`` matrix that one gather produces.  A boundary is legal
+    once the live count provably fits the half-size matrix: after ``size -
+    size // 2`` merges, since every trip tombstones one slot.  Halving
+    stops when the remaining merges fit the current size, when the half
+    would drop below ``min_stage``, or when it would break ``align``.
+    """
+    if align < 1:
+        raise ValueError(f"align must be >= 1, got {align}")
+    stages: list[tuple[int, int]] = []
+    size, remaining = n, max(n_steps, 0)
+    while True:
+        boundary = size - size // 2        # merges that guarantee live <= half
+        half = size // 2
+        if remaining <= boundary or half < max(min_stage, 2) or half % align:
+            stages.append((size, remaining))
+            return tuple(stages)
+        stages.append((size, boundary))
+        remaining -= boundary
+        size = half
+
+
+def resolve_compaction(flag, n: int, n_steps: int, *, min_stage: int = MIN_STAGE_N,
+                       align: int = 1) -> bool:
+    """The compaction switch of a run, as the JAX engine resolves it:
+    ``False``, ``None`` and ``"off"`` are off; ``True``, ``"auto"`` and
+    ``"on"`` stage whenever :func:`plan_stages` gives more than one stage
+    (so a degenerate plan, at a small ``n`` or an aggressive ``stop_at_k``,
+    runs the unstaged loop); anything else raises ``ValueError``."""
+    if flag in (False, None, "off"):
+        return False
+    if flag not in (True, "auto", "on"):
+        raise ValueError(f"compaction must be a bool or 'auto', got {flag!r}")
+    return len(plan_stages(n, n_steps, min_stage=min_stage, align=align)) > 1
 
 
 def resolve_device(device=None) -> torch.device:
@@ -113,18 +181,21 @@ class LWResult(NamedTuple):
 class LWState(NamedTuple):
     """Carry of the merge loop.
 
-    ``D`` is the ``(n, n)`` matrix in the backend's representation
-    (premasked or garbage), ``alive`` the ``(n,)`` bool liveness, ``sizes``
-    the ``(n,)`` float32 cluster sizes.  ``cand`` is the next merge
-    candidate ``(r, c, dmin)`` as 0-d device tensors (int64, int64,
-    float32), computed at the tail of each step.  ``n_merges`` is a host
-    int: with a fixed trip count it is known without asking the device.
-    ``cache`` is ``()`` for the serial cache-free ops, the per-row
-    ``(rmin, rarg)`` (float32, int64) for the host-driven cached variants,
-    and the resident kernel ops' buffers,
+    ``D`` is the ``(S, S)`` matrix of the current compaction stage (``S =
+    n`` unstaged) in the backend's representation (premasked or garbage),
+    ``alive`` the ``(S,)`` bool liveness, ``sizes`` the ``(S,)`` float32
+    cluster sizes; a stage boundary replaces all three with the gathered
+    ones.  ``cand`` is the next merge candidate ``(r, c, dmin)`` as 0-d
+    device tensors (int64, int64, float32), computed at the tail of each
+    step.  ``merges`` is the one record of the whole run and ``n_merges``
+    its host-int count, which a stage continues from: with a fixed trip
+    count it is known without asking the device.  ``cache`` is ``()`` for
+    the serial cache-free ops (and at a stage's start, before its seed),
+    the per-row ``(rmin, rarg)`` (float32, int64) for the host-driven
+    cached variants, and the resident kernel ops' buffers,
     :class:`~repro_torch.kernels.lw_step.MergeBuffers` or
     :class:`~repro_torch.kernels.lw_update.LazyBuffers` (``cand`` then
-    views their candidate).
+    views their candidate), built anew each stage.
     """
 
     D: torch.Tensor
@@ -154,7 +225,8 @@ class StepOps(NamedTuple):
              ``cache``) after the write.
 
     A step runs ``merge`` when it is set, else fetch → update → write →
-    refresh.
+    refresh.  The ops are built for one matrix size; a staged run builds
+    them for each stage's size and seeds once a stage.
     """
 
     seed: Callable[[LWState], LWState]
@@ -231,21 +303,24 @@ def make_step(ops: StepOps) -> Callable[..., LWState]:
 
 
 def run_merge_loop(ops: StepOps, state: LWState, n_steps: int,
-                   distance_threshold: float | None = None) -> LWState:
-    """Seed the candidate, then run ``n_steps`` merge trips.
+                   distance_threshold: float | None = None, *, start: int = 0) -> LWState:
+    """Seed the candidate, then run merge trips ``[start, n_steps)``.
 
     Without a threshold the trip count is fixed: ``stop_at_k`` shrinks it
     on the host, and no trip waits for the device.  With one the run ends
     before the first merge whose height exceeds ``float32(threshold)``, as
     the JAX engine's ``while_loop`` does.  Here the trips run in chunks of
-    :data:`THRESHOLD_CHECK_TRIPS`; after each chunk its recorded heights
-    are read back once, and at the first height above the threshold (or
-    NaN) the run stops, the merges past it are zeroed and ``n_merges``
-    counts those before it.  Where the ops replay a captured graph, each
-    whole chunk is one replay and the trips left over are launched one by
-    one.
+    :data:`THRESHOLD_CHECK_TRIPS` from ``start``; after each chunk its
+    recorded heights are read back once, and at the first height above the
+    threshold (or NaN) the run stops, the merges past it are zeroed and
+    ``n_merges`` counts those before it.  Where the ops replay a captured
+    graph, each whole chunk is one replay and the trips left over are
+    launched one by one.
+
+    ``start`` is the merge this call resumes at (a compaction stage
+    boundary); ``state.n_merges`` equals it.
     """
-    if n_steps <= 0:   # stop_at_k >= n: nothing to merge
+    if n_steps <= start:   # stop_at_k >= n: nothing to merge
         return state
     step = make_step(ops)
     state = ops.seed(state)
@@ -260,17 +335,100 @@ def run_merge_loop(ops: StepOps, state: LWState, n_steps: int,
         return state
 
     if distance_threshold is None:
-        return trips(state, 0, n_steps)
+        return trips(state, start, n_steps)
     # compared in float32, as the reference casts the threshold
     thr = torch.tensor(float(distance_threshold), dtype=torch.float32)
-    for start in range(0, n_steps, THRESHOLD_CHECK_TRIPS):
-        stop = min(start + THRESHOLD_CHECK_TRIPS, n_steps)
-        state = trips(state, start, stop)
-        over = torch.nonzero(~(state.merges[start:stop, 2].cpu() <= thr))
+    for a in range(start, n_steps, THRESHOLD_CHECK_TRIPS):
+        b = min(a + THRESHOLD_CHECK_TRIPS, n_steps)
+        state = trips(state, a, b)
+        over = torch.nonzero(~(state.merges[a:b, 2].cpu() <= thr))
         if over.numel():
-            n_merges = start + int(over[0, 0])
+            n_merges = a + int(over[0, 0])
             state.merges[n_merges:] = 0.0
             return state._replace(n_merges=n_merges)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# compaction: the live-slot gather between stages, and the staged loop
+# ---------------------------------------------------------------------------
+
+
+def _live_perm(alive: torch.Tensor, half: int):
+    """The compaction permutation: the live slots packed ascending, which
+    keeps their relative order (the order first-minimum tie-breaking keys
+    on, so the merges are unchanged).  Returns ``(live, p)``: the new
+    liveness and the gather index (dead tail slots point at slot ``n -
+    1``; their cells are masked)."""
+    n = alive.shape[0]
+    ks = torch.arange(n, device=alive.device)
+    perm = torch.sort(torch.where(alive, ks, n)).values[:half]
+    return perm < n, perm.clamp_max(n - 1)
+
+
+def compact_dense(D: torch.Tensor, alive: torch.Tensor, sizes: torch.Tensor,
+                  remap: torch.Tensor, half: int, *, premasked: bool = True):
+    """One gather pass: the live rows and columns of ``D`` packed into a new
+    ``(half, half)`` matrix, :data:`RESCAN_ROWS` rows at a time (so the
+    pass holds ``D``, the new matrix and one block of rows).
+
+    Returns ``(D', alive', sizes', remap')``, ``remap'[s]`` the original
+    slot of compacted slot ``s`` (ascending over the live slots, so ``i <
+    j`` keeps its meaning).  Live cells are copied untouched.  With
+    ``premasked`` (the serial backend) the dead tail and the diagonal are
+    set to ``+inf``; without (the kernel backend's garbage representation)
+    the dead tail holds copies of cells of ``D``, inert as every dead cell
+    is to the kernels, which mask by ``alive``.
+    """
+    live, p = _live_perm(alive, half)
+    Dn = torch.empty((half, half), dtype=D.dtype, device=D.device)
+    for a in range(0, half, RESCAN_ROWS):
+        rows = p[a:a + RESCAN_ROWS]
+        torch.index_select(D.index_select(0, rows), 1, p, out=Dn[a:a + rows.numel()])
+    if premasked:
+        premask(Dn, live)
+    return (Dn, live, torch.where(live, sizes.index_select(0, p), 0.0),
+            remap.index_select(0, p))
+
+
+def remap_merges(merges: torch.Tensor, n_merges: int, remap: torch.Tensor,
+                 start: int, steps: int) -> torch.Tensor:
+    """Rewrite one stage's recorded merges from compacted slots to original
+    ids, in place.  Only rows below ``n_merges`` are rewritten: rows past a
+    threshold stop keep their zeros."""
+    stop = min(start + steps, n_merges)
+    if stop > start:
+        ij = merges[start:stop, :2]
+        ij.copy_(remap.index_select(0, ij.reshape(-1).to(torch.int64)).reshape(ij.shape))
+    return merges
+
+
+def staged_merge_loop(stages, state: LWState, remap: torch.Tensor,
+                      distance_threshold: float | None, *,
+                      ops_for: Callable[[int], StepOps], compact: Callable) -> LWState:
+    """The staged loop of every composition: per stage, after the first,
+    ``compact(state, remap, size)`` packs the live slots; then
+    :func:`run_merge_loop` seeds and runs the stage's trips with
+    ``ops_for(size)``, and the stage's merges are rewritten to original
+    slot ids.  A threshold stop inside a stage ends the run.  A
+    single-stage plan is the unstaged loop: no gather, no remap.
+
+    The old stage's ops (its captured graph) and buffers are dropped only
+    after its last trip is enqueued, and its matrix after the gather; the
+    stream orders the frees after the work that reads them.
+    """
+    start = 0
+    for si, (size, steps) in enumerate(stages):
+        if si > 0:
+            if state.n_merges < start:    # stopped by the threshold
+                break
+            D, alive, sizes, remap = compact(state, remap, size)
+            state = LWState(D, alive, sizes, state.merges, state.n_merges, state.cand, ())
+        state = run_merge_loop(ops_for(size), state, start + steps, distance_threshold,
+                               start=start)
+        if si > 0:
+            remap_merges(state.merges, state.n_merges, remap, start, steps)
+        start += steps
     return state
 
 
@@ -427,14 +585,22 @@ def dense_ops(method: str, n: int, variant: str, device) -> StepOps:
 
 
 def run_dense(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_steps: int,
-              variant: str = "baseline", distance_threshold: float | None = None) -> LWResult:
+              variant: str = "baseline", distance_threshold: float | None = None,
+              compaction: bool = False) -> LWResult:
     """The merge loop over the serial primitives.  ``D`` is premasked and
     then updated in place; slots with ``alive=False`` are dead from the
-    start."""
+    start.  With ``compaction`` the run follows :func:`plan_stages`, each
+    later stage on a premasked gather of the live slots; the merges are
+    those of the unstaged run, bit for bit."""
     n = D.shape[-1]
-    out = run_merge_loop(dense_ops(method, n, variant, D.device),
-                         _init_state(premask(D, alive), alive, n_steps), n_steps,
-                         distance_threshold)
+    dev = D.device
+    out = staged_merge_loop(
+        plan_stages(n, n_steps) if compaction else ((n, n_steps),),
+        _init_state(premask(D, alive), alive, n_steps),
+        torch.arange(n, device=dev), distance_threshold,
+        ops_for=lambda size: dense_ops(method, size, variant, dev),
+        compact=lambda s, remap, size: compact_dense(s.D, s.alive, s.sizes, remap, size),
+    )
     return LWResult(merges=out.merges, n_merges=out.n_merges)
 
 
@@ -558,10 +724,24 @@ def kernel_ops(method: str, n: int, variant: str = "baseline", device=None) -> S
 
 
 def run_kernel(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_steps: int,
-               variant: str = "baseline", distance_threshold: float | None = None) -> LWResult:
+               variant: str = "baseline", distance_threshold: float | None = None,
+               compaction: bool = False) -> LWResult:
     """The merge loop over the kernel primitives.  ``D`` is updated in place;
-    slots with ``alive=False`` are dead from the start."""
+    slots with ``alive=False`` are dead from the start.  With
+    ``compaction`` the run follows :func:`plan_stages` down to
+    :data:`KERNEL_MIN_STAGE`, each later stage on a gather of the live
+    slots that keeps the garbage representation; each stage seeds again
+    (one min-scan launch for ``baseline``/``rowmin``, the masked row
+    minima for ``lazy``) and builds its own buffers and graph.  The merges
+    are those of the unstaged run, bit for bit."""
     n = D.shape[-1]
-    out = run_merge_loop(kernel_ops(method, n, variant, D.device),
-                         _init_state(D, alive, n_steps), n_steps, distance_threshold)
+    dev = D.device
+    out = staged_merge_loop(
+        plan_stages(n, n_steps, min_stage=KERNEL_MIN_STAGE) if compaction else ((n, n_steps),),
+        _init_state(D, alive, n_steps),
+        torch.arange(n, device=dev), distance_threshold,
+        ops_for=lambda size: kernel_ops(method, size, variant, dev),
+        compact=lambda s, remap, size: compact_dense(s.D, s.alive, s.sizes, remap, size,
+                                                     premasked=False),
+    )
     return LWResult(merges=out.merges, n_merges=out.n_merges)

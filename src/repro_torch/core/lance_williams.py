@@ -15,6 +15,7 @@ import torch
 from repro_torch.core.engine import (
     LWResult,
     check_knobs,
+    resolve_compaction,
     resolve_device,
     resolve_n_steps,
     run_dense,
@@ -41,21 +42,25 @@ def lance_williams(
 
     ``method``, ``variant``, ``stop_at_k`` and ``distance_threshold`` are
     the JAX package's knobs (documented once, in
-    :func:`repro.core.api.cluster`).  ``compaction="auto"`` runs without
-    compaction (the merges are the same either way); ``True`` raises
-    ``NotImplementedError``.
+    :func:`repro.core.api.cluster`).  ``compaction`` resolves as there
+    (:func:`repro_torch.core.engine.resolve_compaction`): ``"auto"``, the
+    default, stages the run whenever :func:`~repro_torch.core.engine.plan_stages`
+    gives more than one stage; the merges are those of the unstaged run,
+    bit for bit.
     """
-    check_knobs(method, variant, compaction)
+    check_knobs(method, variant)
     dev = resolve_device(device)
     D = symmetrize(torch.as_tensor(D, dtype=torch.float32, device=dev))
     n = D.shape[0]
+    n_steps = resolve_n_steps(n, stop_at_k)
     return run_dense(
         D,
         torch.ones(n, dtype=torch.bool, device=dev),
         method=method,
-        n_steps=resolve_n_steps(n, stop_at_k),
+        n_steps=n_steps,
         variant=variant,
         distance_threshold=distance_threshold,
+        compaction=resolve_compaction(compaction, n, n_steps),
     )
 
 

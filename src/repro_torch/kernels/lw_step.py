@@ -139,6 +139,17 @@ def alive_bits(alive: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+def device_words(words, device) -> torch.Tensor:
+    """The int64 ``words`` as a tensor on ``device``, written by fill
+    launches: a copy from the host would wait for the card, and buffers
+    built between two stages of a run must not."""
+    out = torch.zeros(len(words), dtype=torch.int64, device=device)
+    for k, w in enumerate(words):
+        if w:
+            out[k:k + 1].fill_(w)
+    return out
+
+
 class MergeBuffers(NamedTuple):
     """The device-resident loop's state, updated in place by each merge.
 
@@ -179,7 +190,7 @@ def merge_buffers(D, alive, sizes, merges, cand, n_merges: int) -> MergeBuffers:
         count=torch.full((1,), n_merges, dtype=torch.int64, device=dev),
         rmin=torch.full((n,), torch.inf, dtype=torch.float32, device=dev),
         rarg=torch.zeros(n, dtype=torch.int64, device=dev),
-        sync=torch.tensor([_KEY_INIT, 0], dtype=torch.int64, device=dev),
+        sync=device_words((_KEY_INIT, 0), dev),
     )
 
 

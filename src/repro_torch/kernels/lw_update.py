@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core.linkage import METHODS, update_row
 from repro_torch.kernels import _build
+from repro_torch.kernels.lw_step import device_words
 
 
 def lw_update_plain(method, d_ki, d_kj, d_ij, n_i, n_j, sizes, keep):
@@ -149,7 +150,7 @@ def lazy_buffers(D, alive, sizes, merges, cand, cache, n_merges: int) -> LazyBuf
         stale=torch.zeros(n, dtype=torch.int32, device=dev),
         n_stale=torch.zeros(1, dtype=torch.int32, device=dev),
         rescanned=torch.zeros(1, dtype=torch.int64, device=dev),
-        sync=torch.tensor(_SYNC_INIT, dtype=torch.int64, device=dev),
+        sync=device_words(_SYNC_INIT, dev),
     )
 
 

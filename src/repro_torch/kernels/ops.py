@@ -13,14 +13,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.engine import (
+    KERNEL_MIN_STAGE,
     LWResult,
     check_knobs,
+    resolve_compaction,
     resolve_device,
     resolve_n_steps,
     run_kernel,
     symmetrize,
 )
 from repro_torch.kernels.pairwise import pairwise_sq_euclidean
+
+
+def resolve_kernel_compaction(flag, n: int, n_steps: int) -> bool:
+    """The kernel backend's compaction switch: :func:`resolve_compaction`
+    over the plan that halves down to :data:`KERNEL_MIN_STAGE`.  The JAX
+    package pads the plan to 128-lane multiples; the CUDA kernels take any
+    ``n``, so this plan has no alignment."""
+    return resolve_compaction(flag, n, n_steps, min_stage=KERNEL_MIN_STAGE)
 
 
 def lance_williams_kernelized(
@@ -41,20 +51,24 @@ def lance_williams_kernelized(
     to ``device`` (CUDA unless told otherwise) and symmetrized; the
     caller's array is not modified.  Merge indices equal those of the JAX
     package's kernel and serial backends; heights agree to float
-    tolerance.  ``compaction="auto"`` runs without compaction: the merges
-    are the same either way.
+    tolerance.  ``compaction`` (``True``/``"auto"``/``"on"``, or
+    ``False``/``None``/``"off"``) runs the stage schedule whenever the
+    kernel plan (:func:`resolve_kernel_compaction`) has more than one
+    stage; the merges are those of the unstaged run, bit for bit.
     """
-    check_knobs(method, variant, compaction)
+    check_knobs(method, variant)
     dev = resolve_device(device)
     D = symmetrize(torch.as_tensor(D, dtype=torch.float32, device=dev))
     n = D.shape[0]
+    n_steps = resolve_n_steps(n, stop_at_k)
     return run_kernel(
         D,
         torch.ones(n, dtype=torch.bool, device=dev),
         method=method,
-        n_steps=resolve_n_steps(n, stop_at_k),
+        n_steps=n_steps,
         variant=variant,
         distance_threshold=distance_threshold,
+        compaction=resolve_kernel_compaction(compaction, n, n_steps),
     )
 
 

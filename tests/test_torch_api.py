@@ -114,9 +114,7 @@ def test_lw_knobs_match_reference(n, method, knobs):
     np.testing.assert_allclose(got.merges[:, 2], want.merges[:, 2], rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("knobs", [
-    dict(compaction=True), dict(algorithm="twophase"), dict(backend="distributed"),
-])
+@pytest.mark.parametrize("knobs", [dict(algorithm="twophase"), dict(backend="distributed")])
 def test_knobs_not_ported_raise(knobs):
     X = np.zeros((6, 3), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -126,8 +124,7 @@ def test_knobs_not_ported_raise(knobs):
 @pytest.mark.parametrize("knobs", [dict(method="nope"), dict(variant="nope"),
                                    dict(algorithm="nope"), dict(backend="nope"),
                                    dict(algorithm="nnchain", backend="kernel"),
-                                   dict(compaction="sometimes"), dict(compaction="on"),
-                                   dict(compaction=None), dict(metric="nope")])
+                                   dict(compaction="sometimes"), dict(metric="nope")])
 def test_bad_knobs_raise_value_error(knobs):
     X = np.zeros((6, 3), np.float32)
     with pytest.raises(ValueError):

@@ -277,7 +277,7 @@ def test_cuda_lw_update_matches_plain(method, n, cuda, rng):
 def test_cuda_kernel_variants_match_baseline(method, cuda):
     """Kernel ``lazy`` is B3's resident merge, two launches a merge (the
     merge and the rescan), and no B1/B2; ``rowmin`` is the fused path.
-    Both give the baseline's merges."""
+    Both give the baseline's merges; the fused path seeds once a stage."""
     from repro_torch.core import cluster
     from repro_torch.data.synthetic import gaussian_mixture
 
@@ -287,7 +287,8 @@ def test_cuda_kernel_variants_match_baseline(method, cuda):
         reset_launches()
         runs[variant] = cluster(X, method, algorithm="lw", backend="kernel", variant=variant)
         counts[variant] = launches()
-    assert counts == {"baseline": (1, 0, 299, 0, 0, 0), "rowmin": (1, 0, 299, 0, 0, 0),
+    seeds = len(kernel_plan(300, 299))
+    assert counts == {"baseline": (seeds, 0, 299, 0, 0, 0), "rowmin": (seeds, 0, 299, 0, 0, 0),
                       "lazy": (0, 0, 0, 0, 299, 299)}
     for variant in ("rowmin", "lazy"):
         assert_same_merges(runs[variant].merges, runs["baseline"].merges)
@@ -857,3 +858,105 @@ def test_cuda_rmsd_matches_cpu(cuda):
     A, B = torch.tensor(C[:75], device=cuda), torch.tensor(C[75:], device=cuda)
     torch.testing.assert_close(kabsch_rmsd(A, B).cpu(), kabsch_rmsd(A.cpu(), B.cpu()),
                                rtol=1e-4, atol=1e-4)
+
+
+STAGED_N = 2000     # the kernel plan: (2000, 1000), (1000, 500), (500, 499)
+
+
+def staged_problem(method, n=STAGED_N):
+    D = random_distance_matrix(np.random.default_rng([n, METHODS.index(method)]), n,
+                               squared=method in ("centroid", "median", "ward"))
+    return D.astype(np.float32)
+
+
+def kernel_plan(n, n_steps):
+    from repro_torch.core import engine
+
+    return engine.plan_stages(n, n_steps, min_stage=engine.KERNEL_MIN_STAGE)
+
+
+def expected_launches(variant, n_stages, merges):
+    """(B1, B2's per-row entry, B2's merge entry, B3's per-row entry, B3's
+    lazy merge, B3's rescan) of a staged kernel run: one seed a stage for
+    the fused path, one merge launch a merge (two for ``lazy``)."""
+    if variant == "lazy":
+        return (0, 0, 0, 0, merges, merges)
+    return (n_stages, 0, merges, 0, 0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_cuda_staged_equals_unstaged(variant, method, cuda):
+    """The kernel backend staged (the default knobs: three stages at
+    n = 2000) against the same run unstaged, bit for bit; each stage seeds
+    once and captures its own graph of 128 merges."""
+    from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS
+    from repro_torch.kernels.ops import lance_williams_kernelized
+
+    n, D = STAGED_N, staged_problem(method)
+    plan = kernel_plan(n, n - 1)
+    assert [s for s, _ in plan] == [2000, 1000, 500]
+    runs = {}
+    for compaction in (True, False):
+        reset_launches()
+        replays = lw_step.MergeGraph.replays
+        runs[compaction] = lance_williams_kernelized(D, method, variant=variant,
+                                                     compaction=compaction)
+        torch.cuda.synchronize()
+        stages = plan if compaction else ((n, n - 1),)
+        assert launches() == expected_launches(variant, len(stages), n - 1)
+        assert lw_step.MergeGraph.replays - replays == sum(
+            steps // THRESHOLD_CHECK_TRIPS for _, steps in stages)
+    assert runs[True].n_merges == runs[False].n_merges == n - 1
+    assert torch.equal(runs[True].merges, runs[False].merges)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ("complete", "ward"))
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_cuda_staged_threshold_stops_in_stage_2(variant, method, cuda):
+    """A threshold between the heights of merges 1700 and 1701, inside the
+    third stage (merges 1500-1998): the unstaged run's merges, bit for bit;
+    stages 0-2 seed, and the stage of the stop launches up to the end of
+    the chunk that holds it."""
+    from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS
+    from repro_torch.kernels.ops import lance_williams_kernelized
+
+    n, D = STAGED_N, staged_problem(method)
+    full = lance_williams_kernelized(D, method, variant=variant, compaction=False)
+    h = full.merges[:, 2].cpu().numpy()
+    thr = float((h[1700] + h[1701]) / 2)
+    reset_launches()
+    got = lance_williams_kernelized(D, method, variant=variant, distance_threshold=thr)
+    # merges 0-1499 in stages 0 and 1, then two chunks of stage 2 (1500-1755)
+    assert launches() == expected_launches(variant, 3, 1500 + 2 * THRESHOLD_CHECK_TRIPS)
+    want = lance_williams_kernelized(D, method, variant=variant, distance_threshold=thr,
+                                     compaction=False)
+    assert got.n_merges == want.n_merges == 1701
+    assert torch.equal(got.merges, want.merges)
+    assert torch.equal(got.merges[:1701], full.merges[:1701]) and not got.merges[1701:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ("baseline", "lazy"))
+def test_cuda_staged_loop_reads_nothing_back(variant, cuda):
+    """The staged kernel loop, no threshold, under the sync debug mode
+    "error": no stage boundary (the sort, the gathers, the remap, the new
+    buffers, the seed, the graph capture) and no merge waits for the card."""
+    from repro_torch.core import engine
+    from repro_torch.kernels.ops import lance_williams_kernelized
+
+    n, method = STAGED_N, "complete"
+    D = torch.tensor(staged_problem(method), device=cuda)
+    want = lance_williams_kernelized(D, method, variant=variant, compaction=False)
+    D = engine.symmetrize(D)
+    alive = torch.ones(n, dtype=torch.bool, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = engine.run_kernel(D, alive, method=method, n_steps=n - 1, variant=variant,
+                                compaction=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got.merges, want.merges)

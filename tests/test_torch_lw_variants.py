@@ -254,8 +254,8 @@ def test_engine_knobs_checked(fn, rng):
     D = random_distance_matrix(rng, 6)
     with pytest.raises(ValueError, match="unknown variant"):
         fn(D, variant="nope", device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A1$"):
-        fn(D, compaction=True, device="cpu")
+    staged = fn(D, compaction=True, device="cpu")
+    assert torch.equal(staged.merges, fn(D, compaction=False, device="cpu").merges)
     copy = D.copy()
     assert fn(D, stop_at_k=6, device="cpu").n_merges == 0
     fn(D, variant="lazy", device="cpu")
