@@ -22,7 +22,12 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    merge) against its plain twin over 64 merges from a mid-run state at
    n = 1968 and 8192 for all 7 methods, timed over 20 merges and over a
    graph replay of 128, with the host's time to enqueue one call of the row
-   update, its lazy merge, the row kernel and the pairwise kernel.  A kernel whose operands
+   update, its lazy merge, the row kernel and the pairwise kernel.  Then the
+   batch-grid forms of B1, B2's merge entry and B3's lazy merge on a mid-run
+   bucket of (B, n) = (256, 1024) and (4096, 16) lanes: each against its
+   plain twin and against one single-problem launch a lane (20 and 8
+   lockstep merges against each lane's own), bit for bit, and timed with
+   its bound summed over the lanes.  A kernel whose operands
    fit in half the L2 is timed on L2-resident data, as its caller finds
    them; its bound then takes the L2 read rate measured here (two torch
    reductions over a 16 MiB buffer), else the HBM rate.
@@ -93,13 +98,27 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     1968 conformations of 24 atoms builds its matrix on the card, which
     agrees with the plain rmsd's on the CPU, and equals the serial LW
     backend's run on that matrix.
-13. One line ``{"kernels": [...]}`` with each kernel's numbers, the card's
-    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+13. Batching through ``cluster_batch``: the reference's bench setting
+    (64 matrices of n = 128, complete, ``algorithm="lw"``) on both
+    backends against a loop of single-problem calls (equal merges); full
+    width, 256 problems of n = 1024 points in 64-D in one bucket of 1 GiB
+    of matrices, kernel staged (1024, 512, 256) and unstaged (bit for
+    bit), serial staged (the kernel's slots), kernel ``lazy`` on the first
+    64; 4096 ragged problems of 16 to 512 points (buckets 16 … 512) on the
+    kernel backend, 64 of them against single-problem runs; 256 ward point
+    sets of n = 256 with default knobs, which go to the batched chain and
+    give the LW batch's dendrograms.  Each run's wall, busy time, idle
+    share, problems per second and launches (one B1 batch seed a stage,
+    one B2 batch launch a lockstep merge, graph replays of 128), checked
+    against the kernel plan of each bucket.
+14. One line ``{"kernels": [...]}`` with each kernel's numbers (the batch
+    entries beside the others), the card's ``nvidia-smi`` line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counters set to 0 just before it
-and read just after.  Phase 6's profiled chain run (``--profile-chain``)
-and phases 10-12 (``--later-phases``) run in child processes of this
-script, for the profiler's sake (``run_child``).
+and read just after.  Phase 6's profiled chain run (``--profile-chain``),
+phases 10-12 (``--later-phases``) and phase 13 (``--batch``) run in child
+processes of this script, for the profiler's sake (``run_child``).
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.
 """
@@ -149,10 +168,21 @@ SPLIT_REPLAYS = 2              # graph replays whose host time is set against th
 MERGE_REPS = 20                # merges a timed batch of the step kernel's merge entry makes
 SLEEP_CYCLES = 400_000_000     # ~0.2 s of GPU clock: holds the stream while the host enqueues
 HOST_CALLS = 32                # calls timed on the host: ~400 launches of a plain version
+BATCH_BENCH = (64, 128, 8)     # (B, n, d) of the reference's benchmarks/bench_batch.py
+BATCH_FULL = (256, 1024, DIM)  # one bucket of 1 GiB of matrices, phase 4's n = 16384 matrix
+BATCH_LAZY_B = 64              # the full bucket's first problems through kernel lazy
+BATCH_RAGGED = (4096, 16, 512, 16)   # problems, n from 16 to 512 uniform, d (batch_dedup's traffic)
+BATCH_SAMPLE = 64              # ragged lanes held against single-problem runs
+BATCH_POINTS = (256, 256, DIM)  # (B, n, d) ward points: default knobs send them to the chain
+BATCH_KERNEL_SHAPES = ((256, 1024, MERGE_REPS), (4096, 16, 8))   # (B, n, timed merges)
 RTOL, ATOL = 1e-4, 1e-5        # height tolerance of the JAX package's kernel tests
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once a launch
     "masked_argmin": ("masked_row_min", "first_min_over_rows"),
+    "masked_argmin_batch": ("batch_row_min", "batch_first_min"),
+    "lw_merge_batch": ("lw_merge_batch_kernel",),
+    "lazy_merge_batch": ("lazy_merge_batch_kernel",),
+    "lazy_rescan_batch": ("lazy_rescan_batch_kernel",),
     "lw_step": ("lw_step_kernel", "pack_alive_kernel"),
     "lw_merge": ("lw_merge_kernel",),
     "lw_update": ("lw_update_kernel",),
@@ -237,18 +267,25 @@ def bound(torch, n_bytes: float, n_ops: float, resident_bytes: float,
                 bound_bytes_per_s=rate, hbm_bound_ms=max(n_bytes / HBM_BYTES_PER_S, t_ops) * 1e3)
 
 
-def check_equivalent(np, got, want, n: int, what: str) -> None:
+def check_equivalent(np, got, want, n: int, what: str, near_ties: bool = False) -> bool:
     """The two merge lists describe the same dendrogram (clusters equal,
-    heights within RTOL/ATOL); on failure, print the clusters that differ
-    with their heights in both lists before raising."""
+    heights within RTOL/ATOL): True.  With ``near_ties``, two lists that
+    part at a near-tie give False: the lowest cluster of each list that the
+    other lacks have heights within RTOL/ATOL of each other, so two merges
+    that float32 rounding orders either way came out in other orders (on
+    continuous data, two exact engines differ only so).  Otherwise print
+    the clusters that differ with their heights in both lists and raise."""
     from repro_torch.core.dendrogram import merge_leafsets, merges_equivalent
 
     if merges_equivalent(got, want, n=n, rtol=RTOL, atol=ATOL):
-        return
+        return True
     hg = dict(zip(merge_leafsets(got, n), np.asarray(got)[:, 2]))
     hw = dict(zip(merge_leafsets(want, n), np.asarray(want)[:, 2]))
     only_g = sorted((float(hg[c]), len(c), min(c)) for c in set(hg) - set(hw))
     only_w = sorted((float(hw[c]), len(c), min(c)) for c in set(hw) - set(hg))
+    if (near_ties and only_g and only_w
+            and abs(only_g[0][0] - only_w[0][0]) <= ATOL + RTOL * abs(only_w[0][0])):
+        return False
     worst = max((abs(float(hg[c]) - float(hw[c])), float(hg[c]), float(hw[c]))
                 for c in set(hg) & set(hw))
     print(f"{what}: {len(only_g)} clusters only in the first list, {len(only_w)} only in the "
@@ -516,6 +553,145 @@ def phase_lazy_merge(torch, n: int, l2_rate: float) -> dict:
                 **bound(torch, n_bytes, 12 * live + 2 * stale * n, 4 * n * n, l2_rate))
 
 
+def batch_mid_state(torch, B: int, n: int, reps: int, seed: int):
+    """A bucket of B lanes as the batched loop holds them mid-run: each
+    lane a symmetric matrix of random points, ~60% of its slots live (at
+    least reps + 2), sizes that are not 1, its merge limit (live - 1), and
+    its masked first minimum."""
+    from repro_torch.core.engine import symmetrize
+    from repro_torch.kernels.minscan import masked_argmin_batch_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(B, n, 8, generator=gen, device="cuda")
+    D = symmetrize(torch.cdist(X, X))
+    alive = torch.rand(B, n, generator=gen, device="cuda") > 0.4
+    alive[:, :reps + 2] = True
+    sizes = torch.where(alive, torch.randint(1, 9, (B, n), generator=gen, device="cuda"), 0)
+    v, flat = masked_argmin_batch_plain(D, alive)
+    cand = (torch.div(flat, n, rounding_mode="floor"), flat % n, v)
+    return D, alive, sizes.to(torch.float32), alive.sum(1) - 1, cand
+
+
+def check_batch_buffers(torch, got, want, what: str, skip=("stale",)) -> None:
+    for name, a, b in zip(type(got)._fields, got, want):
+        if name not in skip and not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def check_against_single(torch, bk, single_buffers, single_merge, method, reps: int,
+                         fields, what: str) -> None:
+    """Each lane of the batch buffers ``bk`` after ``reps`` lockstep merges
+    against the single-problem entry launched on that lane alone as many
+    times as its limit allows, field by field, bit for bit."""
+    for b in range(bk.D.shape[0]):
+        one = single_buffers(b)
+        for _ in range(min(reps, int(bk.limit[b]))):
+            single_merge(method, one)
+        for name in fields:
+            if not torch.equal(getattr(one, name).reshape(-1), getattr(bk, name)[b].reshape(-1)):
+                raise AssertionError(f"{what}: lane {b}'s {name} differs from its single launches")
+
+
+def phase_batch_kernels(torch, B: int, n: int, reps: int, l2_rate: float) -> dict:
+    """The batch-grid forms of B1, B2's merge entry and B3's lazy merge on a
+    mid-run bucket of B lanes: each against its plain twin and against one
+    single-problem launch a lane (per merge entry: ``reps`` lockstep merges
+    against each lane's own merges), bit for bit; then timed as phase 2
+    times the single-problem entries, with their bounds summed over the
+    lanes."""
+    from repro_torch.core.batch_engine import cached_cand_batch, masked_row_mins_batch
+    from repro_torch.kernels import lw_step, lw_update, minscan
+
+    out, method = {}, "complete"
+    D, alive, sizes, limit, cand = batch_mid_state(torch, B, n, reps, seed=11)
+    live = alive.sum(1).to(torch.float64)
+    resident = 4 * B * n * n
+    v, flat = minscan.masked_argmin_batch(D, alive)
+    vp, flatp = minscan.masked_argmin_batch_plain(D, alive)
+    if not (torch.equal(v, vp) and torch.equal(flat, flatp)):
+        raise AssertionError(f"masked_argmin_batch B={B} n={n}: kernel differs from plain")
+    single = [minscan.masked_argmin(D[b], alive[b]) for b in range(B)]
+    if not (torch.equal(torch.stack([s[0] for s in single]), v)
+            and torch.equal(torch.stack([s[1] for s in single]), flat)):
+        raise AssertionError(f"masked_argmin_batch B={B} n={n}: differs from single launches")
+    out["masked_argmin_batch"] = dict(
+        B=B, n=n, live_mean=float(live.mean()), max_abs_err=float((v - vp).abs().nan_to_num().max()),
+        bit_equal=True, single_checked=B,
+        ms=time_ms(torch, lambda: minscan.masked_argmin_batch(D, alive)),
+        plain_ms=time_ms(torch, lambda: minscan.masked_argmin_batch_plain(D, alive)),
+        library_ms=None,
+        **bound(torch, float((4 * live * live + n + 12).sum()), float((live * live).sum()),
+                resident, l2_rate))
+
+    # B2's batch merge
+    b0 = lw_step.merge_batch_buffers(D, alive, sizes, torch.zeros((B, n, 4), device="cuda"),
+                                     cand, 0, limit)
+    bk, bp = (lw_step.MergeBatchBuffers(*(t.clone() for t in b0)) for _ in range(2))
+    for _ in range(reps):
+        lw_step.lw_merge_batch(method, bk)
+        lw_step.lw_merge_batch_plain(method, bp)
+    torch.cuda.synchronize()
+    check_batch_buffers(torch, bk, bp, f"lw_merge_batch B={B} n={n}", skip=("sync",))
+    if not torch.equal(bk.sync, b0.sync):
+        raise AssertionError(f"lw_merge_batch B={B} n={n}: keys/tickets left at {bk.sync}")
+    check_against_single(
+        torch, bk, lambda b: lw_step.merge_buffers(
+            b0.D[b].clone(), b0.alive[b].clone(), b0.sizes[b].clone(),
+            torch.zeros((n, 4), device="cuda"), (cand[0][b], cand[1][b], cand[2][b]), 0),
+        lw_step.lw_merge, method, reps,
+        ("D", "alive", "bits", "sizes", "merges", "cand", "dmin", "rmin", "rarg"),
+        f"lw_merge_batch B={B} n={n}")
+    err = float((bk.D - bp.D).abs().max())
+    del bp
+    ms = time_merges(torch, lambda b: lw_step.lw_merge_batch(method, b), b0, bk, reps=reps)
+    plain_ms = time_merges(torch, lambda b: lw_step.lw_merge_batch_plain(method, b), b0, bk,
+                           reps=reps)
+    live_mean = live - 1 - (reps - 1) / 2          # a timed merge kills one slot a lane
+    read = float((4 * live_mean * n).sum())        # each lane's live rows, read whole
+    out["lw_merge_batch/complete"] = dict(
+        B=B, n=n, live_mean=float(live_mean.mean()), max_abs_err=err, bit_equal=True,
+        single_checked=B, merges_checked=reps, ms=ms, plain_ms=plain_ms, library_ms=None,
+        read_bytes=read, read_bytes_per_s=read / (ms * 1e-3),
+        **bound(torch, float((4 * live_mean ** 2 + 8 * live_mean + 17 * n).sum()),
+                float((2 * live_mean ** 2 + 12 * n).sum()), resident, l2_rate))
+    del bk, b0
+
+    # B3's batch lazy merge and rescan
+    rmin, rarg = masked_row_mins_batch(D, alive)
+    lcand = cached_cand_batch(alive, rmin, rarg)
+    b0 = lw_update.lazy_batch_buffers(D, alive, sizes, torch.zeros((B, n, 4), device="cuda"),
+                                      lcand, (rmin, rarg), 0, limit)
+    bk, bp = (lw_update.LazyBatchBuffers(*(t.clone() for t in b0)) for _ in range(2))
+    for _ in range(reps):
+        lw_update.lazy_merge_batch(method, bk)
+        lw_update.lazy_merge_batch_plain(method, bp)
+    torch.cuda.synchronize()
+    check_batch_buffers(torch, bk, bp, f"lazy_merge_batch B={B} n={n}", skip=("stale", "sync"))
+    if not torch.equal(bk.sync, b0.sync):
+        raise AssertionError(f"lazy_merge_batch B={B} n={n}: keys/tickets left at {bk.sync}")
+    check_against_single(
+        torch, bk, lambda b: lw_update.lazy_buffers(
+            b0.D[b].clone(), b0.alive[b].clone(), b0.sizes[b].clone(),
+            torch.zeros((n, 4), device="cuda"), (lcand[0][b], lcand[1][b], lcand[2][b]),
+            (b0.rmin[b].clone(), b0.rarg[b].clone()), 0),
+        lw_update.lazy_merge, method, reps,
+        ("D", "alive", "sizes", "merges", "cand", "dmin", "rmin", "rarg", "rescanned"),
+        f"lazy_merge_batch B={B} n={n}")
+    err = float((bk.rmin - bp.rmin).abs().nan_to_num().max())
+    stale = (bk.rescanned - b0.rescanned).to(torch.float64) / reps     # a lane's rows a merge
+    del bp
+    ms = time_merges(torch, lambda b: lw_update.lazy_merge_batch(method, b), b0, bk, reps=reps)
+    plain_ms = time_merges(torch, lambda b: lw_update.lazy_merge_batch_plain(method, b), b0, bk,
+                           reps=reps)
+    out["lazy_merge_batch/complete"] = dict(
+        B=B, n=n, live_mean=float(live_mean.mean()), max_abs_err=err, bit_equal=True,
+        single_checked=B, merges_checked=reps, stale_rows_per_merge=float(stale.mean()), ms=ms,
+        plain_ms=plain_ms, library_ms=None,
+        **bound(torch, float((45 * n + stale * (4 * n + 20)).sum()),
+                float((12 * live_mean + 2 * stale * n).sum()), resident, l2_rate))
+    return out
+
+
 def lw_update_bytes(method: str, n: int, live: int) -> int:
     """The bytes one row update must move for ``method`` with ``live`` kept
     lanes of ``n``: the bool mask read and the row written on every lane;
@@ -673,11 +849,13 @@ def plain_engine_merges(torch, X, method: str, n_steps: int):
 def reset_counters() -> None:
     from repro_torch.kernels import lw_step, lw_update, minscan, pairwise
 
-    minscan.masked_argmin.launches = 0
+    minscan.masked_argmin.launches = minscan.masked_argmin_batch.launches = 0
     lw_step.lw_step.launches = 0
     lw_step.lw_merge.launches = lw_step.MergeGraph.replays = 0
+    lw_step.lw_merge_batch.launches = 0
     lw_update.lw_update.launches = 0
     lw_update.lazy_merge.launches = lw_update.lazy_rescan.launches = 0
+    lw_update.lazy_merge_batch.launches = lw_update.lazy_rescan_batch.launches = 0
     pairwise.row_sq_euclidean.launches = 0
     pairwise.chain_trip.launches = pairwise.TripGraph.replays = 0
     pairwise.pairwise_sq_euclidean.launches = 0
@@ -690,6 +868,10 @@ def read_counters() -> dict:
             "lw_merge": lw_step.lw_merge.launches, "lw_update": lw_update.lw_update.launches,
             "lazy_merge": lw_update.lazy_merge.launches,
             "lazy_rescan": lw_update.lazy_rescan.launches,
+            "masked_argmin_batch": minscan.masked_argmin_batch.launches,
+            "lw_merge_batch": lw_step.lw_merge_batch.launches,
+            "lazy_merge_batch": lw_update.lazy_merge_batch.launches,
+            "lazy_rescan_batch": lw_update.lazy_rescan_batch.launches,
             "row_sq_euclidean": pairwise.row_sq_euclidean.launches,
             "chain_trip": pairwise.chain_trip.launches,
             "pairwise_sq_euclidean": pairwise.pairwise_sq_euclidean.launches}
@@ -1429,7 +1611,224 @@ def phase_rmsd(torch, np) -> dict:
     return stats
 
 
+def batch_launches(backend: str, variant: str, buckets, compaction=True) -> dict:
+    """The launches and graph replays a ``cluster_batch`` LW run makes on
+    ``backend``: for each bucket of ``bucket_n`` slots, its kernel plan's
+    stages (``stop_at_k`` = 1), each seeding once (B1's batch form;
+    ``lazy``: the masked row minima in torch) and making its steps as
+    lockstep merges (one B2 batch launch each; ``lazy``: one B3 batch merge
+    and one rescan), whole chunks of THRESHOLD_CHECK_TRIPS from its graph.
+    The serial backend launches no kernel."""
+    from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS
+
+    seeds = merges = replays = 0
+    for bucket in buckets:
+        trips = stage_trips(lw_plan(backend, bucket, bucket - 1, compaction))
+        seeds, merges = seeds + len(trips), merges + sum(trips)
+        replays += sum(t // THRESHOLD_CHECK_TRIPS for t in trips)
+    if backend == "serial":
+        return dict(launches={}, replays=0)
+    if variant == "lazy":
+        return dict(launches={"lazy_merge_batch": merges, "lazy_rescan_batch": merges},
+                    replays=replays)
+    return dict(launches={"masked_argmin_batch": seeds, "lw_merge_batch": merges}, replays=replays)
+
+
+def check_batch_run(stats: dict, backend: str, variant: str, buckets, what: str,
+                    compaction=True) -> None:
+    want = batch_launches(backend, variant, buckets, compaction)
+    check_launches(stats["launches"], want["launches"], what)
+    if stats["merge_replays"] != want["replays"]:
+        raise AssertionError(f"{what}: {stats['merge_replays']} graph replays, want "
+                             f"{want['replays']}")
+
+
+def batch_run(torch, call, check, warm=True) -> tuple:
+    """A ``cluster_batch`` call as the batch phase drives it: :func:`timed`
+    with its launches checked, the busy time over a profiled run, and
+    (``warm``) a third run's wall; problems per second of the warm wall,
+    and the host seconds that building every result's linkage matrix takes
+    again (``ClusterResult`` builds one a problem, a Python loop a merge)."""
+    from repro_torch.core.dendrogram import to_linkage_matrix
+
+    res, stats = timed_busy(torch, call, "batch run", check)
+    t0 = time.perf_counter()
+    for r in res:
+        to_linkage_matrix(r.merges, n=r.n)
+    stats["host_linkage_s"] = time.perf_counter() - t0
+    if warm:
+        w = timed(torch, call)[1]
+        check_launches(w["launches"], stats["launches"], "warm batch run")
+        stats.update(warm_wall_s=w["wall_s"],
+                     warm_idle_share=1 - stats["device_busy_s"] / w["wall_s"])
+    stats["problems_per_s"] = len(res) / stats.get("warm_wall_s", stats["wall_s"])
+    return res, stats
+
+
+BATCH_RUN_KEYS = ("wall_s", "warm_wall_s", "device_busy_s", "idle_share", "warm_idle_share",
+                  "problems_per_s", "host_linkage_s", "peak_gib", "launches", "merge_replays",
+                  "profiler_tries")
+
+
+def batch_numbers(stats: dict) -> dict:
+    return {k: stats[k] for k in BATCH_RUN_KEYS if k in stats}
+
+
+def check_lanes_equal(np, got, want, what: str) -> None:
+    for b, (g, w) in enumerate(zip(got, want)):
+        check_bit_equal(np, g.merges, w, f"{what}, problem {b}")
+
+
+def batch_bench(torch, np) -> dict:
+    """The reference's benchmarks/bench_batch.py setting: B = 64 matrices
+    of n = 128 random points in 8-D, complete, algorithm "lw", on both
+    backends against a loop of single-problem calls on the card."""
+    from repro_torch.core import cluster, cluster_batch
+
+    B, n, d = BATCH_BENCH
+    X = np.random.default_rng(0).normal(size=(B, n, d))
+    mats = [np.sqrt(((x[:, None] - x[None]) ** 2).sum(-1)).astype(np.float32) for x in X]
+    out = {}
+    for backend in ("serial", "kernel"):
+        what = f"batch bench {backend}"
+        res, stats = batch_run(
+            torch, lambda: cluster_batch(mats, "complete", algorithm="lw", backend=backend),
+            lambda st: check_batch_run(st, backend, "baseline", (n,), what))
+        loop, loop_stats = timed(torch, lambda: [
+            cluster(m, "complete", algorithm="lw", backend=backend, keep_inputs=False).merges
+            for m in mats])
+        check_lanes_equal(np, res, loop, what)
+        out[backend] = dict(batch_numbers(stats), loop_wall_s=loop_stats["wall_s"],
+                            buckets=res.stats.buckets)
+    return out
+
+
+def b2_read_bytes(n: int, lanes: int, plan) -> float:
+    """Σ 4·L'·S over the lanes and lockstep merges of full lanes of ``n``
+    slots: each merge reads the live rows (L' = n − 1 − t after merge t)
+    of its stage's size S."""
+    total, t = 0.0, 0
+    for size, steps in plan:
+        total += 4 * size * sum(n - 1 - k for k in range(t, t + steps))
+        t += steps
+    return lanes * total
+
+
+def batch_full(torch, np) -> dict:
+    """Full width: B = 256 problems of n = 1024 points in 64-D
+    (``gaussian_mixture(seed=b)``), complete, one bucket of 1 GiB of
+    matrices: kernel staged (1024 → 512 → 256) and unstaged, serial staged,
+    and kernel lazy on the first 64; staged equals unstaged bit for bit,
+    the kernel's slots the serial's, lazy's the kernel baseline's."""
+    from repro_torch.core import cluster_batch
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    B, n, d = BATCH_FULL
+    pts = [gaussian_mixture(seed=b, n=n, dim=d, return_labels=False) for b in range(B)]
+    runs = {}
+    for name, backend, variant, compaction, probs in (
+            ("kernel", "kernel", "baseline", True, pts),
+            ("kernel_unstaged", "kernel", "baseline", False, pts),
+            ("serial", "serial", "baseline", True, pts),
+            ("kernel_lazy", "kernel", "lazy", True, pts[:BATCH_LAZY_B])):
+        what = f"batch full {name}"
+        res, stats = batch_run(
+            torch, lambda: cluster_batch(probs, "complete", algorithm="lw", backend=backend,
+                                         variant=variant, compaction=compaction),
+            lambda st: check_batch_run(st, backend, variant, (n,), what, compaction),
+            warm=name == "kernel")
+        plan = lw_plan(backend, n, n - 1, compaction)
+        stats.update(stage_sizes=[size for size, _ in plan])
+        if backend == "kernel" and variant == "baseline":
+            stats.update(b2_read_bytes=b2_read_bytes(n, B, plan),
+                         b2_launches=stats["launches"]["lw_merge_batch"])
+        runs[name] = (res, stats)
+        torch.cuda.empty_cache()
+    kernel = runs["kernel"][0]
+    check_lanes_equal(np, kernel, [r.merges for r in runs["kernel_unstaged"][0]],
+                      "batch full kernel, staged vs unstaged")
+    for b, (k, s) in enumerate(zip(kernel, runs["serial"][0])):
+        check_merges(np, k.merges, s.merges, f"batch full kernel vs serial, problem {b}")
+    for b, (z, k) in enumerate(zip(runs["kernel_lazy"][0], kernel)):
+        check_merges(np, z.merges, k.merges, f"batch full kernel lazy vs baseline, problem {b}")
+    return {name: batch_numbers(st) | {k: st[k] for k in ("stage_sizes", "b2_read_bytes",
+                                                          "b2_launches") if k in st}
+            for name, (_, st) in runs.items()}
+
+
+def batch_ragged(torch, np) -> dict:
+    """The batch_dedup traffic: 4096 problems of 16 to 512 random points in
+    16-D (buckets 16 … 512), complete, on the kernel backend; a sample of
+    64 problems against their single-problem runs on the card.  The metric
+    is named: a set of 16 points in 16-D is square, which would otherwise
+    read as a distance matrix."""
+    from repro_torch.core import cluster, cluster_batch
+    from repro_torch.core.batched import bucket_n
+
+    count, lo, hi, d = BATCH_RAGGED
+    rng = np.random.default_rng(1)
+    pts = [rng.normal(size=(k, d)).astype(np.float32) for k in rng.integers(lo, hi + 1, count)]
+    buckets = sorted({bucket_n(len(p)) for p in pts})
+    res, stats = batch_run(
+        torch, lambda: cluster_batch(pts, "complete", metric="euclidean", algorithm="lw",
+                                     backend="kernel"),
+        lambda st: check_batch_run(st, "kernel", "baseline", buckets, "batch ragged"), warm=False)
+    for i in rng.choice(count, BATCH_SAMPLE, replace=False):
+        want = cluster(pts[i], "complete", metric="euclidean", algorithm="lw", backend="kernel",
+                       keep_inputs=False)
+        check_bit_equal(np, res[i].merges, want.merges, f"batch ragged problem {i}")
+    return dict(batch_numbers(stats), buckets=res.stats.buckets,
+                padded_problems=res.stats.padded_problems, pad_waste=res.stats.pad_waste,
+                sample_checked=BATCH_SAMPLE)
+
+
+def batch_points(torch, np) -> dict:
+    """B = 256 ward point sets of n = 256 in 64-D with default knobs: the
+    buckets go to the batched matrix-free chain (plain torch, no kernel),
+    whose dendrograms equal the LW batch's on the same inputs but where the
+    two part at a near-tie (counted; :func:`check_equivalent`); the chain's
+    trips from a second run of the chain alone."""
+    from repro_torch.core import cluster_batch
+    from repro_torch.core.nnchain import CHAIN_GRAPH_TRIPS as k
+    from repro_torch.core.nnchain import nn_chain_batched_from_points
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    B, n, d = BATCH_POINTS
+    pts = [gaussian_mixture(seed=1000 + b, n=n, dim=d, return_labels=False) for b in range(B)]
+    res, stats = batch_run(torch, lambda: cluster_batch(pts, "ward"),
+                           lambda st: check_launches(st["launches"], {}, "batch points chain"),
+                           warm=False)
+    if {r.algorithm for r in res} != {"nnchain"}:
+        raise AssertionError(f"default knobs ran {sorted({r.algorithm for r in res})}")
+    lw, lw_stats = timed(torch, lambda: cluster_batch(pts, "ward", algorithm="lw",
+                                                      backend="kernel"))
+    check_batch_run(lw_stats, "kernel", "baseline", (n,), "batch points, LW batch")
+    near_tie = [b for b, (c, w) in enumerate(zip(res, lw))
+                if not check_equivalent(np, c.merges, w.merges, n,
+                                        f"batch points chain vs LW, problem {b}", near_ties=True)]
+    chain, chain_stats = timed(torch, lambda: nn_chain_batched_from_points(
+        np.stack(pts), [n] * B, "ward"))
+    return dict(batch_numbers(stats), lw_wall_s=lw_stats["wall_s"],
+                lanes_equivalent=B - len(near_tie), lanes_near_tie=near_tie,
+                chain_alone_wall_s=chain_stats["wall_s"],
+                trips_max=int(chain.iters.max()), trips_mean=float(chain.iters.float().mean()),
+                lockstep_trips=k * max(-(-(n - 1) // k), -(-int(chain.iters.max()) // k)))
+
+
+def phase_batch(torch, np, spec: dict) -> dict:
+    """Phase 13, in a process of its own (``run_child``): ``cluster_batch``
+    at the bench, full-width, ragged and points settings."""
+    out = {}
+    for name, run in (("bench", batch_bench), ("full", batch_full), ("ragged", batch_ragged),
+                      ("points", batch_points)):
+        out[name] = run(torch, np)
+        say(f"phase 13 batch {name}: " + json.dumps(out[name]))
+        torch.cuda.empty_cache()
+    return out
+
+
 LATER_PHASES_FLAG, PROFILE_CHAIN_FLAG = "--later-phases", "--profile-chain"
+BATCH_FLAG = "--batch"
 
 
 def run_child(torch, flag: str, spec: dict) -> dict:
@@ -1494,7 +1893,8 @@ def phases_10_to_12(torch, np, spec: dict) -> dict:
     return dict(assigned=assigned, landmark=landmark, rmsd=rmsd)
 
 
-CHILDREN = {LATER_PHASES_FLAG: phases_10_to_12, PROFILE_CHAIN_FLAG: profile_chain}
+CHILDREN = {LATER_PHASES_FLAG: phases_10_to_12, PROFILE_CHAIN_FLAG: profile_chain,
+            BATCH_FLAG: phase_batch}
 
 
 def child(flag: str) -> int:
@@ -1512,7 +1912,8 @@ def child(flag: str) -> int:
 
 
 def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
-            serial: dict, lazy: dict, assigned: dict, landmark: dict, rmsd: dict) -> str:
+            serial: dict, lazy: dict, assigned: dict, landmark: dict, rmsd: dict,
+            batch: dict) -> str:
     """The numbers a reader checks first, on one line near the end."""
     def g(x):
         return f"{x:.6g}"
@@ -1569,7 +1970,73 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
                  f"{g(rmsd['card_build_s'])} cpu build_s {g(rmsd['cpu_build_s'])} matrix err "
                  f"{g(rmsd['matrix_max_abs_err'])} clusters differing on the CPU's matrix "
                  f"{rmsd['clusters_differing_on_cpu_matrix']}")
+    for label, s in (*((f"batch bench {k}", v) for k, v in batch["bench"].items()),
+                     *((f"batch full {k}", v) for k, v in batch["full"].items()),
+                     ("batch ragged", batch["ragged"]), ("batch points chain", batch["points"])):
+        parts.append(f"{label} wall_s {g(s['wall_s'])}"
+                     + (f" (warm {g(s['warm_wall_s'])})" if "warm_wall_s" in s else "")
+                     + f" busy_s {g(s['device_busy_s'])} idle {g(s['idle_share'])} problems/s "
+                     f"{g(s['problems_per_s'])} peak_gib {g(s['peak_gib'])}"
+                     + (f" B2 reads {g(s['b2_read_bytes'] / 1e12)} TB in {s['b2_launches']} "
+                        f"launches" if "b2_read_bytes" in s else ""))
+    parts.append(f"batch ragged buckets {batch['ragged']['buckets']} pad_waste "
+                 f"{g(batch['ragged']['pad_waste'])}; batch points trips max "
+                 f"{batch['points']['trips_max']} mean {g(batch['points']['trips_mean'])}")
     return "summary: " + "; ".join(parts)
+
+
+def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assigned: dict,
+                     batch: dict) -> list:
+    """The ``{"kernels": [...]}`` line: each TPU kernel's CUDA counterpart
+    with its main-path entry's numbers first and every entry listed."""
+    src = {"masked_argmin": ("src/repro_torch/csrc/minscan.cu", "src/repro/kernels/minscan.py:71"),
+           "lw_step": ("src/repro_torch/csrc/lw_step.cu", "src/repro/kernels/lw_step.py:154"),
+           "lw_update": ("src/repro_torch/csrc/lw_update.cu", "src/repro/kernels/lw_update.py:72"),
+           "row_sq_euclidean": ("src/repro_torch/csrc/row_sq.cu",
+                                "src/repro/kernels/pairwise.py:148"),
+           "pairwise_sq_euclidean": ("src/repro_torch/csrc/pairwise.cu",
+                                     "src/repro/kernels/pairwise.py:60")}
+    # B2, B3 and B5 launch through their second entries on the main path (the
+    # merge, the lazy merge, the chain trip): a kernel's line gives that
+    # entry's launches and times, and lists every entry under "entries"
+    # "stages": the compaction stages of the LW run the launches were
+    # counted in (null for the chains and the labeler, which do not stage)
+    def numbers(key, path, entry):
+        row = kernels[key]
+        return dict(launches=path["launches"][entry], max_abs_err=row["max_abs_err"],
+                    ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"], library_ms=row.get("library_ms"), n=key[1],
+                    bound_bytes_per_s=row["bound_bytes_per_s"], stages=path.get("stages"))
+
+    # the batch entries: times at the full-width bucket, launches from its runs
+    full_b = BATCH_FULL[:2]
+    b_kernel, b_lazy = batch["full"]["kernel"], batch["full"]["kernel_lazy"]
+    inventory = []
+    for name, entries in (
+            ("masked_argmin", [("masked_argmin", ("masked_argmin", FULL_N), full),
+                               ("masked_argmin_batch", ("masked_argmin_batch", full_b),
+                                b_kernel)]),
+            ("lw_step", [("lw_merge", ("lw_merge/complete", FULL_N), full),
+                         ("lw_step", ("lw_step/complete", FULL_N), full),
+                         ("lw_merge_batch", ("lw_merge_batch/complete", full_b), b_kernel)]),
+            ("lw_update", [("lazy_merge", ("lazy_merge/complete", MID_N), lazy),
+                           ("lw_update", ("lw_update/complete", FULL_N), lazy),
+                           ("lazy_merge_batch", ("lazy_merge_batch/complete", full_b),
+                            b_lazy)]),
+            ("row_sq_euclidean", [("chain_trip", ("chain_trip", CHAIN_N), points),
+                                  ("row_sq_euclidean", ("row_sq_euclidean", CHAIN_N), points)]),
+            ("pairwise_sq_euclidean", [("pairwise_sq_euclidean",
+                                        ("pairwise_sq_euclidean", QUERY_N),
+                                        assigned["centroid"]["kernel"])])):
+        listed = [dict(entry=entry, **numbers(key, path, entry)) for entry, key, path in entries]
+        for row in listed:                        # the lazy merges' second launch, the rescan
+            if row["entry"] == "lazy_merge":
+                row["rescan_launches"] = lazy["launches"]["lazy_rescan"]
+            elif row["entry"] == "lazy_merge_batch":
+                row["rescan_launches"] = b_lazy["launches"]["lazy_rescan_batch"]
+        inventory.append(dict(name=name, route="cuda", source=src[name][0],
+                              replaces=src[name][1], **listed[0], entries=listed))
+    return inventory
 
 
 T0 = time.perf_counter()
@@ -1631,6 +2098,11 @@ def main() -> int:
         say(f"phase 2 lazy_merge n={n}: " + json.dumps(row))
         kernels[("lazy_merge/complete", n)] = row
         torch.cuda.empty_cache()
+    for B, n, reps in BATCH_KERNEL_SHAPES:
+        for name, row in phase_batch_kernels(torch, B, n, reps, l2_rate).items():
+            say(f"phase 2 {name} B={B} n={n}: " + json.dumps(row))
+            kernels[(name, (B, n))] = row
+        torch.cuda.empty_cache()
 
     # 3. the paper's configuration
     X_paper, paper_merges, paper_chain, paper = phase_paper(torch, np)
@@ -1672,49 +2144,16 @@ def main() -> int:
     threshold = phase_threshold(torch, np, X_paper, paper_merges)
     say(f"phase 9 distance_threshold n={PAPER_N} complete: " + json.dumps(threshold))
 
-    # 10-12 run in a process of their own (run_child says why)
+    # 10-12 and 13 run in processes of their own (run_child says why)
     later = run_child(torch, LATER_PHASES_FLAG, build_indexes(paper_chain, points_res))
     assigned, landmark, rmsd = later["assigned"], later["landmark"], later["rmsd"]
+    del paper_chain, points_res
+    batch = run_child(torch, BATCH_FLAG, {})
 
-    # 13. inventory, card, result
-    src = {"masked_argmin": ("src/repro_torch/csrc/minscan.cu", "src/repro/kernels/minscan.py:71"),
-           "lw_step": ("src/repro_torch/csrc/lw_step.cu", "src/repro/kernels/lw_step.py:154"),
-           "lw_update": ("src/repro_torch/csrc/lw_update.cu", "src/repro/kernels/lw_update.py:72"),
-           "row_sq_euclidean": ("src/repro_torch/csrc/row_sq.cu",
-                                "src/repro/kernels/pairwise.py:148"),
-           "pairwise_sq_euclidean": ("src/repro_torch/csrc/pairwise.cu",
-                                     "src/repro/kernels/pairwise.py:60")}
-    # B2, B3 and B5 launch through their second entries on the main path (the
-    # merge, the lazy merge, the chain trip): a kernel's line gives that
-    # entry's launches and times, and lists every entry under "entries"
-    # "stages": the compaction stages of the LW run the launches were
-    # counted in (null for the chains and the labeler, which do not stage)
-    def numbers(key, path, entry):
-        row = kernels[key]
-        return dict(launches=path["launches"][entry], max_abs_err=row["max_abs_err"],
-                    ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                    bound_by=row["bound_by"], library_ms=row.get("library_ms"), n=key[1],
-                    bound_bytes_per_s=row["bound_bytes_per_s"], stages=path.get("stages"))
-
-    inventory = []
-    for name, entries in (
-            ("masked_argmin", [("masked_argmin", ("masked_argmin", FULL_N), full)]),
-            ("lw_step", [("lw_merge", ("lw_merge/complete", FULL_N), full),
-                         ("lw_step", ("lw_step/complete", FULL_N), full)]),
-            ("lw_update", [("lazy_merge", ("lazy_merge/complete", MID_N), lazy),
-                           ("lw_update", ("lw_update/complete", FULL_N), lazy)]),
-            ("row_sq_euclidean", [("chain_trip", ("chain_trip", CHAIN_N), points),
-                                  ("row_sq_euclidean", ("row_sq_euclidean", CHAIN_N), points)]),
-            ("pairwise_sq_euclidean", [("pairwise_sq_euclidean",
-                                        ("pairwise_sq_euclidean", QUERY_N),
-                                        assigned["centroid"]["kernel"])])):
-        listed = [dict(entry=entry, **numbers(key, path, entry)) for entry, key, path in entries]
-        if listed[0]["entry"] == "lazy_merge":    # its second launch, the rescan
-            listed[0]["rescan_launches"] = lazy["launches"]["lazy_rescan"]
-        inventory.append(dict(name=name, route="cuda", source=src[name][0],
-                              replaces=src[name][1], **listed[0], entries=listed))
-
-    print(summary(kernels, paper, full, dense, points, serial, lazy, assigned, landmark, rmsd))
+    # 14. inventory, card, result
+    inventory = kernel_inventory(kernels, full, lazy, points, assigned, batch)
+    print(summary(kernels, paper, full, dense, points, serial, lazy, assigned, landmark, rmsd,
+                  batch))
     print(json.dumps({"kernels": inventory}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1723,5 +2162,42 @@ def main() -> int:
     return 0
 
 
+SINGLE_TIMES_FLAG = "--single-kernel-times"
+
+
+def single_kernel_times(src: str | None) -> int:
+    """``python3 chip_smoke.py --single-kernel-times [SRC]``: phase 2's rows of
+    the single-problem entries of B1, B2 and B3 (their checks included) for
+    the ``repro_torch`` under ``SRC`` (default: this checkout's), one JSON
+    line each.  Run it for two trees in one call, in the order A, B, B, A,
+    to compare their kernels on one card."""
+    import torch
+
+    if src:
+        sys.path.insert(0, str(Path(src).resolve()))
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import repro_torch
+
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    l2_rate = l2_read_rate(torch)
+    rows = {}
+    for n in (PAPER_N, FULL_N):
+        for name, row in phase_kernels(torch, n, l2_rate).items():
+            rows[f"{name} n={n}"] = row["ms"]
+        torch.cuda.empty_cache()
+    for n in LAZY_SHAPES:
+        rows[f"lazy_merge/complete n={n}"] = phase_lazy_merge(torch, n, l2_rate)["ms"]
+        torch.cuda.empty_cache()
+    print(json.dumps({"src": str(Path(repro_torch.__file__).parents[1]), "ms": rows,
+                      "card": gpu_line()}))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == [SINGLE_TIMES_FLAG]:
+        sys.exit(single_kernel_times((sys.argv[2:3] or [None])[0]))
     sys.exit(child(sys.argv[1]) if sys.argv[1:2] and sys.argv[1] in CHILDREN else main())

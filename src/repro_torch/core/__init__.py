@@ -1,6 +1,18 @@
 """repro_torch.core — the clustering engines of the port."""
 
-from repro_torch.core.api import ClusterResult, build_distance_matrix, cluster
+from repro_torch.core.api import (
+    BatchResult,
+    ClusterResult,
+    build_distance_matrix,
+    cluster,
+    cluster_batch,
+)
+from repro_torch.core.batched import (
+    BatchStats,
+    BucketSignature,
+    bucket_signature,
+    cluster_batch_merges,
+)
 from repro_torch.core.distance import DistanceBudget, count_distance_queries
 from repro_torch.core.engine import VARIANTS, LWResult, plan_stages, resolve_compaction
 from repro_torch.core.lance_williams import lance_williams, lance_williams_from_points
@@ -18,12 +30,18 @@ __all__ = [
     "POINTS_METHODS",
     "REDUCIBLE_METHODS",
     "VARIANTS",
+    "BatchResult",
+    "BatchStats",
+    "BucketSignature",
     "ClusterResult",
     "DistanceBudget",
     "LWResult",
     "LandmarkResult",
+    "bucket_signature",
     "build_distance_matrix",
     "cluster",
+    "cluster_batch",
+    "cluster_batch_merges",
     "coefficients",
     "count_distance_queries",
     "default_metric",

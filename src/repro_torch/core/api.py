@@ -3,7 +3,8 @@
 Counterpart of :mod:`repro.core.api`, for the parts this port runs: the
 NN-chain engine (dense, and matrix-free on points) behind the default
 knobs, the Lance-Williams merge loop on the serial and kernel backends,
-and the landmark tier.
+the landmark tier, and :func:`cluster_batch` for many small problems at
+once (shape buckets on the serial and kernel backends).
 ``cluster(...)`` takes raw ``(n, d)`` points, ``(n, atoms, 3)``
 conformations (``metric="rmsd"``) or a pre-built ``(n, n)`` distance
 matrix, resolves ``algorithm``/``backend``/``matrix_free`` and the
@@ -15,29 +16,33 @@ returns a :class:`ClusterResult`.  The knobs are documented once, in
 from __future__ import annotations
 
 import warnings
+from collections.abc import Sequence
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from repro_torch.core import dendrogram as dg
+from repro_torch.core.batched import BatchStats, bucket_n, cluster_batch_merges
 from repro_torch.core.distance import pairwise_euclidean, pairwise_rmsd, pairwise_sq_euclidean
 from repro_torch.core.engine import resolve_device, symmetrize
 from repro_torch.core.linkage import METHODS, default_metric
 from repro_torch.core.nnchain import (
+    POINTS_METHODS,
     nn_chain,
     nn_chain_from_points,
     resolve_algorithm,
+    resolve_batch_algorithm,
     resolve_matrix_free,
 )
 
 #: Engines and backends of the JAX package that this port does not run yet,
 #: with the ROADMAP.md item that ports each.
 _NOT_PORTED_ALGORITHMS = {
-    "twophase": "A10 (distributed)",
+    "twophase": "A7 (distributed)",
 }
 _NOT_PORTED_BACKENDS = {
-    "distributed": "A10 (distributed)",
+    "distributed": "A7 (distributed)",
 }
 
 
@@ -373,3 +378,109 @@ def _cluster_landmark(points, method, metric, backend, stop_at_k, distance_thres
         distances=None,
         metric=metric,
     )
+
+
+@dataclass
+class BatchResult(Sequence):
+    """Results of a :func:`cluster_batch` call: one :class:`ClusterResult`
+    per problem, in input order, and the scheduler's :class:`BatchStats`."""
+
+    results: list[ClusterResult]
+    stats: BatchStats
+
+    def __len__(self) -> int:
+        return len(self.results)
+
+    def __getitem__(self, idx):
+        return self.results[idx]
+
+    def labels(self, k: int) -> list[np.ndarray]:
+        """Per-problem flat labels for ``k`` clusters, ``k`` clamped per
+        problem to ``[1, n_b]`` and up to an early-stopped problem's stop
+        level; ``k <= 0`` raises."""
+        if k <= 0:
+            raise ValueError(f"k must be a positive cluster count, got {k}")
+        return [r.labels(max(1, min(k, r.n), r.n - r.n_merges)) for r in self.results]
+
+
+def cluster_batch(
+    problems: Sequence,
+    method: str = "complete",
+    *,
+    metric: str | None = None,
+    is_distance: bool | None = None,
+    algorithm: str = "auto",
+    backend: str = "auto",
+    variant: str = "baseline",
+    stop_at_k: int = 1,
+    distance_threshold: float | None = None,
+    compaction: bool | str = "auto",
+    keep_inputs: bool = False,
+    device=None,
+) -> BatchResult:
+    """Cluster many independent problems, one batched engine call a shape
+    bucket (:func:`repro_torch.core.batched.cluster_batch_merges`).
+
+    Each problem is read as :func:`cluster` reads its ``data``; sizes may
+    be ragged.  The knobs resolve as in :func:`repro.core.api.cluster_batch`
+    on one device: ``backend="auto"`` is ``"serial"`` (plain torch over
+    each bucket) and ``"kernel"`` runs the batch-grid CUDA kernels;
+    ``algorithm="auto"`` keeps dense buckets on the LW loop and sends
+    matrix-free buckets (``(n, d)`` points under the squared-Euclidean
+    convention: ward, or average/weighted with ``metric="sqeuclidean"``)
+    of at least :data:`~repro_torch.core.nnchain.NNCHAIN_BATCH_AUTO_MIN_N`
+    to the batched NN chain, whose lists come back height-sorted.  On the
+    LW loop every problem's merges equal ``cluster(problems[b], method,
+    algorithm="lw", backend=<the same>, ...)`` bit for bit.  The
+    distributed backend is not ported yet (ROADMAP.md A7).  ``device``
+    defaults to CUDA; ``device="cpu"`` runs the kernels' plain versions.
+    """
+    if method not in METHODS:
+        raise ValueError(f"unknown linkage method {method!r}")
+    if backend == "auto":
+        backend = "serial"        # one device, as the JAX package resolves it
+    if backend in _NOT_PORTED_BACKENDS:
+        raise NotImplementedError(
+            f"backend={backend!r} is not ported yet: ROADMAP.md {_NOT_PORTED_BACKENDS[backend]}"
+        )
+    if backend not in ("serial", "kernel"):
+        raise ValueError(f"unknown backend {backend!r}")
+    dev = resolve_device(device)
+
+    interps = [_interpret_input(data, method, metric, is_distance) for data in problems]
+    # a matrix-free capable problem whose bucket resolves to nnchain ships
+    # its points; every other problem builds its matrix here, on the device
+    matrices, points_list, algos, sizes = [], [], [], []
+    for D, pts, used_metric in interps:
+        n_b = int((D if pts is None else pts).shape[0])
+        sizes.append(n_b)
+        capable = (pts is not None and pts.ndim == 2 and method in POINTS_METHODS
+                   and used_metric == "sqeuclidean")
+        algo_b = resolve_batch_algorithm(
+            algorithm, method=method, engine=backend, bucket_n=bucket_n(max(n_b, 2)),
+            variant=variant, compaction=compaction, points_capable=capable,
+        )
+        algos.append(algo_b)
+        if algo_b == "nnchain" and capable:
+            matrices.append(None)
+            points_list.append(np.asarray(pts, np.float32))
+        else:
+            matrices.append(D if pts is None else build_distance_matrix(pts, used_metric,
+                                                                         device=dev))
+            points_list.append(None)
+
+    merge_lists, stats = cluster_batch_merges(
+        matrices, method, engine=backend, variant=variant, stop_at_k=stop_at_k,
+        distance_threshold=distance_threshold, compaction=compaction, algorithm=algorithm,
+        points=points_list, device=dev,
+    )
+    results = [
+        ClusterResult(
+            merges=np.asarray(m), method=method, backend=backend, algorithm=algo,
+            n_leaves=n_b, points=pts if keep_inputs else None,
+            distances=mat if (keep_inputs and mat is not None) else None, metric=used_metric,
+        )
+        for m, mat, algo, n_b, (_, pts, used_metric)
+        in zip(merge_lists, matrices, algos, sizes, interps)
+    ]
+    return BatchResult(results=results, stats=stats)

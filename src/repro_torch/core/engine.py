@@ -255,11 +255,12 @@ def symmetrize(D: torch.Tensor) -> torch.Tensor:
 
 def premask(D: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
     """Apply the liveness/diagonal mask once, up front, in place: dead rows,
-    dead columns and the diagonal of ``D`` become ``+inf`` (the serial
-    backend's premasked representation)."""
-    D.diagonal().fill_(_INF)
+    dead columns and the diagonal of ``D`` (``(..., n, n)``, with ``alive``
+    ``(..., n)``) become ``+inf`` (the serial backend's premasked
+    representation)."""
+    D.diagonal(dim1=-2, dim2=-1).fill_(_INF)
     dead = ~alive
-    return D.masked_fill_(dead[:, None], _INF).masked_fill_(dead[None, :], _INF)
+    return D.masked_fill_(dead[..., :, None], _INF).masked_fill_(dead[..., None, :], _INF)
 
 
 def resolve_n_steps(n: int, stop_at_k: int) -> int:
@@ -355,14 +356,14 @@ def run_merge_loop(ops: StepOps, state: LWState, n_steps: int,
 
 
 def _live_perm(alive: torch.Tensor, half: int):
-    """The compaction permutation: the live slots packed ascending, which
-    keeps their relative order (the order first-minimum tie-breaking keys
-    on, so the merges are unchanged).  Returns ``(live, p)``: the new
-    liveness and the gather index (dead tail slots point at slot ``n -
-    1``; their cells are masked)."""
-    n = alive.shape[0]
+    """The compaction permutation of ``alive`` ``(..., n)``: the live slots
+    packed ascending, which keeps their relative order (the order
+    first-minimum tie-breaking keys on, so the merges are unchanged).
+    Returns ``(live, p)``: the new liveness and the gather index (dead tail
+    slots point at slot ``n - 1``; their cells are masked)."""
+    n = alive.shape[-1]
     ks = torch.arange(n, device=alive.device)
-    perm = torch.sort(torch.where(alive, ks, n)).values[:half]
+    perm = torch.sort(torch.where(alive, ks, n)).values[..., :half]
     return perm < n, perm.clamp_max(n - 1)
 
 
@@ -616,13 +617,16 @@ def _resident_ops(method: str, seed, buffers, kind, merge_fn, graph=None) -> Ste
     state and its candidate: a merge reads nothing back and allocates
     nothing.  ``graph`` (:class:`~repro_torch.kernels.lw_step.MergeGraph`'s
     signature, on a CUDA device) captures :data:`THRESHOLD_CHECK_TRIPS`
-    merges at the first ``replay``; without it the ops have no ``replay``."""
+    merges at the first ``replay``; without it the ops have no ``replay``.
+    The batch engine's buffers (a leading lane axis) go through the same
+    ops, a merge then being one lockstep merge of every lane."""
 
     def resident(s: LWState) -> LWState:
         if isinstance(s.cache, kind):
             return s
         b = buffers(s)
-        return s._replace(cand=(b.cand[0], b.cand[1], b.dmin[0]), cache=b)
+        return s._replace(cand=(b.cand[..., 0], b.cand[..., 1], b.dmin.reshape(b.cand.shape[:-1])),
+                          cache=b)
 
     def merge(s: LWState) -> LWState:
         s = resident(s)

@@ -33,6 +33,15 @@ minimum (a merge) and otherwise the first index of the minimum (a push).
 Merge records, sizes, liveness and the cluster representation stay on
 the device.  The same loop over :func:`_points_nnchain_ops` is the
 matrix-free chain's host-driven form, one row build a trip.
+
+The batched chains (:func:`nn_chain_batched`,
+:func:`nn_chain_batched_from_points`) run ``B`` lanes of a shape bucket in
+lockstep, as the JAX package's ``vmap`` of the chain loop does: every
+trip is one trip of every lane, plain torch over ``(B, n, n)`` matrices or
+``(B, n, d)`` summaries (the reference's batched points chain builds its
+row with jnp, not the Pallas kernel), each lane with its own chain stack
+and done flag on the device; the flags are read back once every
+:data:`CHAIN_GRAPH_TRIPS` trips.
 """
 
 from __future__ import annotations
@@ -65,6 +74,11 @@ NNCHAIN_AUTO_MIN_N = 256
 #: Smallest n for which ``matrix_free="auto"`` drops the dense matrix on
 #: capable inputs (the JAX package's threshold).
 MATRIX_FREE_AUTO_MIN_N = 4096
+
+#: Smallest *bucket* n for which batched ``algorithm="auto"`` sends a
+#: matrix-free points bucket to the batched chain (the JAX package's
+#: threshold; dense buckets stay on the LW loop).
+NNCHAIN_BATCH_AUTO_MIN_N = 64
 
 #: Trips of the matrix-free chain a captured CUDA graph replays; the loop
 #: reads the counts back once a replay.
@@ -133,6 +147,55 @@ def resolve_algorithm(
         and n >= NNCHAIN_AUTO_MIN_N
         and variant == "baseline"
         and compaction in (None, "auto")
+    ):
+        return "nnchain"
+    return "lw"
+
+
+def resolve_batch_algorithm(
+    flag: str,
+    *,
+    method: str,
+    engine: str,
+    bucket_n: int,
+    variant: str = "baseline",
+    compaction="auto",
+    points_capable: bool = False,
+) -> str:
+    """Canonical ``algorithm=`` switch for one batched bucket, as in the JAX
+    package: ``"nnchain"`` needs a reducible method and the serial engine;
+    ``"auto"`` picks the chain only for a matrix-free bucket
+    (``points_capable``: ``(n, d)`` points under a :data:`POINTS_METHODS`
+    squared-Euclidean convention) of at least
+    :data:`NNCHAIN_BATCH_AUTO_MIN_N` on the default-knob serial path."""
+    if flag == "lw":
+        return "lw"
+    if flag == "nnchain":
+        if method not in REDUCIBLE_METHODS:
+            raise ValueError(
+                f"algorithm='nnchain' needs a reducible method "
+                f"{REDUCIBLE_METHODS}, got {method!r} (centroid/median can "
+                "produce inversions that break the chain invariant; use "
+                "algorithm='lw')"
+            )
+        if engine not in ("auto", "serial"):
+            raise ValueError(
+                f"batched algorithm='nnchain' is the vmapped single-device "
+                f"chain; engine={engine!r} keeps the LW merge loop (pass "
+                "engine='serial' or algorithm='lw')"
+            )
+        return "nnchain"
+    if flag != "auto":
+        raise ValueError(
+            f"algorithm must be 'auto', 'lw' or 'nnchain', got {flag!r}"
+        )
+    if (
+        points_capable
+        and method in POINTS_METHODS
+        and engine == "serial"
+        and bucket_n >= NNCHAIN_BATCH_AUTO_MIN_N
+        and variant == "baseline"
+        and compaction in (None, False, "auto")
     ):
         return "nnchain"
     return "lw"
@@ -437,3 +500,182 @@ def nn_chain_from_points(X, method: str = "ward", *, device=None) -> ChainResult
     W = W.contiguous().clone()              # merges rewrite summaries in place
     state = _init_state((W, torch.zeros(n, dtype=torch.float32, device=dev)), n, dev)
     return _resident_chain(method, state, n - 1)
+
+
+# ---------------------------------------------------------------------------
+# batched compositions: B lanes of a shape bucket in lockstep
+# ---------------------------------------------------------------------------
+
+
+def _batch_chain_loop(row, merge, alive, sizes, n_real) -> ChainResult:
+    """The chain loop of every lane of a bucket at once, until each lane
+    has its ``min(max(n_real − 1, 0), n − 1)`` merges (or hits the cap of
+    ``4n + 8`` trips, or stops at a NaN row).
+
+    Each trip is :func:`~repro_torch.kernels.pairwise.chain_trip_plain`'s
+    over the lane axis: ``row(top)`` gives each lane's ``(B, n)`` raw row
+    of its tip, ``merge(i, j, m, n_i, n_j, mask)`` commits the merges of
+    the lanes in ``mask`` into the representation in place.  A lane that is
+    done changes nothing.  The done flags are read back once every
+    :data:`CHAIN_GRAPH_TRIPS` trips, after the first ``⌈(n − 1) / k⌉``
+    chunks (no lane finishes sooner).  ``n_merges`` and ``iters`` come back
+    as ``(B,)`` int64 tensors on the CPU.
+    """
+    B, n = alive.shape
+    dev = alive.device
+    steps = max(n - 1, 0)
+    merges = torch.zeros((B, steps, 4), dtype=torch.float32, device=dev)
+    n_merges = torch.zeros(B, dtype=torch.int64, device=dev)
+    iters = torch.zeros(B, dtype=torch.int64, device=dev)
+    target = torch.as_tensor(np.minimum(np.maximum(np.asarray(n_real) - 1, 0), steps),
+                             dtype=torch.int64, device=dev)
+    lanes, ks = torch.arange(B, device=dev), torch.arange(n, device=dev)
+    chain = torch.zeros((B, n + 1), dtype=torch.int64, device=dev)
+    chain[:, 0] = torch.argmax(alive.to(torch.uint8), dim=1)     # the first live slot
+    length = torch.ones(B, dtype=torch.int64, device=dev)
+    stopped = torch.zeros(B, dtype=torch.bool, device=dev)
+    cap = 4 * n + 8
+
+    def running():
+        return (n_merges < target) & (iters < cap) & ~stopped
+
+    def trip():
+        nonlocal length, stopped
+        active = running()
+        top = chain.gather(1, (length - 1).clamp_min(0)[:, None])[:, 0]
+        prev = chain.gather(1, (length - 2).clamp_min(0)[:, None])[:, 0]
+        rowm = torch.where(alive & (ks != top[:, None]), row(top), torch.inf)
+        m = rowm.amin(dim=1)
+        c = torch.where(rowm == m[:, None], ks, n).amin(dim=1)   # first index of the minimum
+        prev_hit = (length >= 2) & (rowm.gather(1, prev[:, None])[:, 0] == m)
+        c = torch.where(prev_hit, prev, c)                        # the previous element wins ties
+        do = active & prev_hit
+        push = active & ~prev_hit & (c < n)
+        i, j = torch.minimum(top, c), torch.maximum(top, c).clamp_max(n - 1)
+        n_i, n_j = sizes[lanes, i], sizes[lanes, j]
+        merge(i, j, m, n_i, n_j, do)
+        new_size = n_i + n_j
+        at = n_merges.clamp_max(steps - 1)
+        rec = torch.stack((i.to(torch.float32), j.to(torch.float32), m, new_size), dim=1)
+        merges[lanes, at] = torch.where(do[:, None], rec, merges[lanes, at])
+        sizes[lanes, j] = torch.where(do, 0.0, n_j)
+        sizes[lanes, i] = torch.where(do, new_size, sizes[lanes, i])
+        alive[lanes, j] = alive[lanes, j] & ~do
+        slot = length.clamp(0, n)                                 # a push writes the next slot
+        chain[lanes, slot] = torch.where(push, c, chain[lanes, slot])
+        length = torch.where(do, length - 2, torch.where(push, length + 1, length))
+        restart = do & (length == 0)                              # an emptied chain restarts
+        chain[:, 0] = torch.where(restart, torch.argmax(alive.to(torch.uint8), dim=1),
+                                  chain[:, 0])
+        length = torch.where(restart, 1, length)
+        n_merges.add_(do)
+        iters.add_(active)
+        stopped = stopped | (active & ~(do | push))               # a NaN row
+
+    if steps:
+        for _ in range(-(-steps // CHAIN_GRAPH_TRIPS)):
+            for _ in range(CHAIN_GRAPH_TRIPS):
+                trip()
+        while bool(running().any()):                              # the one read-back of a chunk
+            for _ in range(CHAIN_GRAPH_TRIPS):
+                trip()
+    return ChainResult(merges=merges, n_merges=n_merges.cpu(), iters=iters.cpu())
+
+
+def _check_bucket_n_real(n_real, B: int) -> np.ndarray:
+    n_real = np.asarray(n_real, dtype=np.int64)
+    if n_real.shape != (B,):
+        raise ValueError(f"n_real must be ({B},) to match the bucket, got {n_real.shape}")
+    return n_real
+
+
+def nn_chain_batched(Db, n_real, method: str = "complete", *, device=None) -> ChainResult:
+    """Batched NN-chain over a ``(B, n, n)`` shape bucket, on ``device``
+    (CUDA unless told otherwise).
+
+    Lane ``b`` agglomerates ``Db[b, :n_real[b], :n_real[b]]``; rows and
+    columns past ``n_real[b]`` are padding.  Returns stacked chain-order
+    merge buffers ``(B, n − 1, 4)``: lane ``b``'s are its first
+    ``n_merges[b]`` rows; pass them through
+    :func:`repro_torch.core.dendrogram.canonical_order` before cutting.
+    """
+    if method not in METHODS:
+        raise ValueError(f"unknown linkage method {method!r}")
+    if method not in REDUCIBLE_METHODS:
+        raise ValueError(
+            f"nn_chain is exact only for reducible methods "
+            f"{REDUCIBLE_METHODS}, got {method!r}"
+        )
+    dev = resolve_device(device)
+    Db = torch.as_tensor(Db, dtype=torch.float32, device=dev)
+    if Db.ndim != 3 or Db.shape[1] != Db.shape[2]:
+        raise ValueError(f"expected a (B, n, n) bucket of distance matrices, got "
+                         f"{tuple(Db.shape)}")
+    B, n = Db.shape[0], Db.shape[1]
+    n_real = _check_bucket_n_real(n_real, B)
+    alive = torch.arange(n, device=dev) < torch.as_tensor(n_real, device=dev)[:, None]
+    D = torch.where(alive[:, :, None] & alive[:, None, :], symmetrize(Db), 0.0)
+    lanes = torch.arange(B, device=dev)
+    sizes = alive.to(torch.float32)
+
+    def row(top):
+        return D[lanes, top]
+
+    def merge(i, j, m, n_i, n_j, do):
+        new = update_row(method, D[lanes, i], D[lanes, j], m[:, None], n_i[:, None],
+                         n_j[:, None], sizes).masked_fill(~alive, 0.0)
+        new[lanes, i] = 0.0
+        new[lanes, j] = 0.0
+        keep = do[:, None]
+        D[lanes, i] = torch.where(keep, new, D[lanes, i])
+        D[lanes, :, i] = torch.where(keep, new, D[lanes, :, i])
+
+    return _batch_chain_loop(row, merge, alive, sizes, n_real)
+
+
+def nn_chain_batched_from_points(Xb, n_real, method: str = "ward", *,
+                                 device=None) -> ChainResult:
+    """Batched matrix-free agglomeration of a ``(B, n, d)`` points bucket on
+    ``device`` (CUDA unless told otherwise): lane ``b`` clusters ``Xb[b,
+    :n_real[b]]`` under the squared-Euclidean convention of
+    :func:`nn_chain_from_points` (:data:`POINTS_METHODS` only); no ``(n,
+    n)`` matrix exists in any lane.  Merges are in chain order, as
+    :func:`nn_chain_batched` returns them."""
+    if method not in POINTS_METHODS:
+        raise ValueError(
+            f"matrix-free points mode supports {POINTS_METHODS} (their LW "
+            f"distance is a geometric-summary function), got {method!r} — "
+            "build the distance matrices and use nn_chain_batched instead"
+        )
+    dev = resolve_device(device)
+    W = torch.as_tensor(Xb, dtype=torch.float32, device=dev)
+    if W.ndim != 3:
+        raise ValueError(f"expected a (B, n, d) points bucket, got {tuple(W.shape)}")
+    W = W.contiguous().clone()              # merges rewrite summaries in place
+    B, n = W.shape[0], W.shape[1]
+    n_real = _check_bucket_n_real(n_real, B)
+    alive = torch.arange(n, device=dev) < torch.as_tensor(n_real, device=dev)[:, None]
+    u = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    lanes = torch.arange(B, device=dev)
+    sizes = alive.to(torch.float32)
+
+    def row(top):
+        t = W - W[lanes, top][:, None, :]
+        return summary_distance(method, (t * t).sum(-1), u, u[lanes, top][:, None], sizes,
+                                sizes[lanes, top][:, None])
+
+    def merge(i, j, m, n_i, n_j, do):
+        w_i, w_j, u_i, u_j = W[lanes, i], W[lanes, j], u[lanes, i], u[lanes, j]
+        tot = n_i + n_j
+        gap = ((w_i - w_j) ** 2).sum(-1)
+        if method == "weighted":                # WPGMA midpoint recursion
+            w_new = 0.5 * (w_i + w_j)
+            u_new = 0.5 * (u_i + u_j) + 0.25 * gap
+        else:                                   # size-weighted centroid (+ scatter)
+            w_new = (n_i[:, None] * w_i + n_j[:, None] * w_j) / tot[:, None]
+            u_new = ((n_i * u_i + n_j * u_j) / tot + (n_i * n_j) / (tot * tot) * gap
+                     if method == "average" else torch.zeros_like(u_i))   # ward: u stays 0
+        W[lanes, i] = torch.where(do[:, None], w_new, w_i)
+        u[lanes, i] = torch.where(do, u_new, u_i)
+
+    return _batch_chain_loop(row, merge, alive, sizes, n_real)

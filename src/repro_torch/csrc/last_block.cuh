@@ -36,10 +36,16 @@ __device__ __forceinline__ float key_value(unsigned long long key) {
     return __uint_as_float(u);
 }
 
-// Thread 0's ticket after the block barrier: true in the last block of the
-// grid to draw one.  Release orders the block's writes before it, acquire
+// Thread 0's ticket after the block barrier: true in the last of `blocks`
+// blocks to draw one (a batched launch keeps a ticket a lane, drawn by the
+// lane's blocks).  Release orders the block's writes before it, acquire
 // the last block's reads after it.  The caller resets the ticket to 0.
-__device__ __forceinline__ bool draw_ticket(unsigned long long* ticket) {
+__device__ __forceinline__ bool draw_ticket(unsigned long long* ticket, unsigned blocks) {
     cuda::atomic_ref<unsigned long long, cuda::thread_scope_device> t(*ticket);
-    return t.fetch_add(1ull, cuda::memory_order_acq_rel) == gridDim.x - 1;
+    return t.fetch_add(1ull, cuda::memory_order_acq_rel) == blocks - 1;
+}
+
+// The ticket of a launch whose whole grid draws one.
+__device__ __forceinline__ bool draw_ticket(unsigned long long* ticket) {
+    return draw_ticket(ticket, gridDim.x);
 }

@@ -67,6 +67,21 @@
 // The recurrence is the shared lance_williams.cuh, rounded operation by
 // operation as linkage.update_row, so the kernel agrees bit for bit with
 // the plain torch step.
+//
+// A third entry, lw_merge_batch, is the merge entry with a lane index more:
+// B stacked problems of n slots merge in lockstep, one launch a merge of
+// every lane (the batched kernel engine of a shape bucket).  Lane b's
+// operands sit at b n^2 (D), b n (alive, sizes, rmin, rarg), b ceil(n/32)
+// (bits), b cap 4 (merges) and b times the width of each per-lane word
+// (cand, dmin, count, limit, sync).  The grid's x axis is lane-major over
+// each lane's row blocks (gridDim.y would stop at 65535 lanes); the ticket
+// is a lane's, drawn by its blocks, and the lane's last block does its
+// epilogue.  A lane whose count has reached its limit (it made its
+// min(max(n_real - stop_at_k, 0), n_steps) merges, or it is padding with
+// n_real = 0) is a no-op: its first block adds one to its count, which
+// then counts the lockstep merges, and no cell, record or word of it is
+// written.  The single-problem entry is this body compiled without the
+// lane index.
 #include "first_min.cuh"
 #include "lance_williams.cuh"
 #include "last_block.cuh"
@@ -103,6 +118,28 @@ struct Operands {
     long long cap;
     long long* count;          // merges recorded: the next row of `merges`
     unsigned long long* sync;  // the running minimum's key, the block ticket
+    // lw_merge_batch: each lane's merge limit, and its blocks
+    const long long* limit;
+    int lane_blocks;
+
+    // Lane `b`'s operands of a batch of stacked problems.
+    __device__ __forceinline__ Operands lane(long long b) const {
+        const long long nn = (long long)n * n, words = (n + 31) >> 5;
+        Operands l = *this;
+        l.D += b * nn;
+        l.sizes += b * n;
+        l.bits += b * words;
+        l.rmin += b * n;
+        l.rarg += b * n;
+        l.cand += 2 * b;
+        l.dmin += b;
+        l.alive += b * n;
+        l.merges += b * cap * 4;
+        l.count += b;
+        l.sync += 2 * b;
+        l.limit += b;
+        return l;
+    }
 };
 
 struct Merge {
@@ -243,14 +280,15 @@ __device__ __forceinline__ void row_first_min(float& v, int& c) {
 // Each row's writer fenced its rmin/rarg before the block barrier, and the
 // ticket is drawn with release and acquire (last_block.cuh).
 __device__ __forceinline__ void finish_merge(const Operands& a, const Merge& m,
-                                             const unsigned long long* block_keys, int rows) {
+                                             const unsigned long long* block_keys, int rows,
+                                             unsigned blocks) {
     __shared__ bool last;
     __syncthreads();
     if (threadIdx.x == 0) {
         unsigned long long key = kKeyInit;
         for (int g = 0; g < rows; ++g) key = min(key, block_keys[g]);
         if (key < kKeyInit) atomicMin(a.sync, key);
-        last = draw_ticket(a.sync + 1);
+        last = draw_ticket(a.sync + 1, blocks);
     }
     __syncthreads();
     if (!last || threadIdx.x != 0) return;
@@ -276,9 +314,10 @@ __device__ __forceinline__ void finish_merge(const Operands& a, const Merge& m,
     a.sync[1] = 0;
 }
 
-// One merge; G warps own a row, kThreads / (32 G) rows a block.
+// One merge; G warps own a row, kThreads / (32 G) rows a block, `rb` the
+// block's row block within its lane and `blocks` the lane's blocks.
 template <int M, int G, bool kResident>
-__device__ __forceinline__ void step(const Operands& a) {
+__device__ __forceinline__ void step(const Operands& a, int rb, unsigned blocks) {
     constexpr int T = 32 * G;
     constexpr int R = kThreads / T;
     extern __shared__ unsigned s_bits[];
@@ -289,7 +328,7 @@ __device__ __forceinline__ void step(const Operands& a) {
     merge_sizes<kResident>(a, m);
 
     const int lane = threadIdx.x % T, group = threadIdx.x / T;
-    const int r = blockIdx.x * R + group;
+    const int r = rb * R + group;
     float bv = CUDART_INF_F, new_r = 0.0f;
     int bc = INT_MAX;
     if (r < a.n) {
@@ -323,19 +362,32 @@ __device__ __forceinline__ void step(const Operands& a) {
             s_key[group] = r < a.n && bv < CUDART_INF_F ? min_key(bv, r) : kKeyInit;
         }
     }
-    if constexpr (kResident) finish_merge(a, m, s_key, R);
+    if constexpr (kResident) finish_merge(a, m, s_key, R, blocks);
 }
 
 // Four blocks an SM (at most 64 registers a thread): n = 1968 runs in one
 // wave, and a row a block keeps enough loads in flight for HBM.
 template <int M, int G>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM) lw_step_kernel(const Operands a) {
-    step<M, G, false>(a);
+    step<M, G, false>(a, blockIdx.x, gridDim.x);
 }
 
 template <int M, int G>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM) lw_merge_kernel(const Operands a) {
-    step<M, G, true>(a);
+    step<M, G, true>(a, blockIdx.x, gridDim.x);
+}
+
+// The batch: block x is row block x % lane_blocks of lane x / lane_blocks.
+template <int M, int G>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+lw_merge_batch_kernel(const Operands a0) {
+    const int b = blockIdx.x / a0.lane_blocks, rb = blockIdx.x - b * a0.lane_blocks;
+    const Operands a = a0.lane(b);
+    if (*a.count >= *a.limit) {   // the lane made its merges: a no-op, counted
+        if (rb == 0 && threadIdx.x == 0) *a.count += 1;
+        return;
+    }
+    step<M, G, true>(a, rb, a0.lane_blocks);
 }
 
 // alive as a bitmask: bit c % 32 of word c / 32.
@@ -348,42 +400,63 @@ pack_alive_kernel(const unsigned char* __restrict__ alive, int n, unsigned* __re
 
 size_t shared_bytes(int n) { return (size_t)((n + 31) / 32) * sizeof(unsigned); }
 
-// One launch: G warps own a row, by the row's length.
-template <int M, bool kResident>
+// Which entry a launch is.
+enum Entry { kStep, kMerge, kMergeBatch };
+
+// One launch of `lanes` problems: G warps own a row, by the row's length.
+template <int M, Entry E>
 struct Launch {
     template <int G>
-    static void go(const Operands& a, cudaStream_t stream) {
+    static void go(Operands a, long long lanes, cudaStream_t stream) {
         constexpr int R = kWarps / G;
         const unsigned blocks = (unsigned)((a.n + R - 1) / R);
-        if constexpr (kResident)
+        if constexpr (E == kMergeBatch) {
+            a.lane_blocks = (int)blocks;
+            lw_merge_batch_kernel<M, G>
+                <<<(unsigned)(lanes * blocks), kThreads, shared_bytes(a.n), stream>>>(a);
+        } else if constexpr (E == kMerge) {
             lw_merge_kernel<M, G><<<blocks, kThreads, shared_bytes(a.n), stream>>>(a);
-        else
+        } else {
             lw_step_kernel<M, G><<<blocks, kThreads, shared_bytes(a.n), stream>>>(a);
+        }
     }
 
-    static void run(const Operands& a, cudaStream_t stream) {
-        if (a.n <= kWarpRowMaxN) go<1>(a, stream);
-        else if (a.n <= kPairRowMaxN) go<2>(a, stream);
-        else go<kWarps>(a, stream);
+    static void run(const Operands& a, long long lanes, cudaStream_t stream) {
+        if (a.n <= kWarpRowMaxN) go<1>(a, lanes, stream);
+        else if (a.n <= kPairRowMaxN) go<2>(a, lanes, stream);
+        else go<kWarps>(a, lanes, stream);
+    }
+
+    template <int G>
+    static const void* kernel() {
+        if constexpr (E == kMergeBatch) return (const void*)lw_merge_batch_kernel<M, G>;
+        else return (const void*)lw_merge_kernel<M, G>;
     }
 
     static cudaError_t load(long long n) {
         cudaFuncAttributes attr;
-        const void* fn = n <= kWarpRowMaxN   ? (const void*)lw_merge_kernel<M, 1>
-                         : n <= kPairRowMaxN ? (const void*)lw_merge_kernel<M, 2>
-                                             : (const void*)lw_merge_kernel<M, kWarps>;
+        const void* fn = n <= kWarpRowMaxN   ? kernel<1>()
+                         : n <= kPairRowMaxN ? kernel<2>()
+                                             : kernel<kWarps>();
         return cudaFuncGetAttributes(&attr, fn);
     }
 };
 
 template <int M>
-void launch_step(const Operands& a, cudaStream_t stream) { Launch<M, false>::run(a, stream); }
+void launch_step(const Operands& a, cudaStream_t stream) { Launch<M, kStep>::run(a, 1, stream); }
 
 template <int M>
-void launch_merge(const Operands& a, cudaStream_t stream) { Launch<M, true>::run(a, stream); }
+void launch_merge(const Operands& a, cudaStream_t stream) { Launch<M, kMerge>::run(a, 1, stream); }
 
 template <int M>
-void load_merge(long long n, cudaError_t* err) { *err = Launch<M, true>::load(n); }
+void launch_merge_batch(const Operands& a, long long lanes, cudaStream_t stream) {
+    Launch<M, kMergeBatch>::run(a, lanes, stream);
+}
+
+template <int M>
+void load_merge(long long n, bool batch, cudaError_t* err) {
+    *err = batch ? Launch<M, kMergeBatch>::load(n) : Launch<M, kMerge>::load(n);
+}
 
 }  // namespace
 
@@ -428,12 +501,10 @@ extern "C" int lw_step(int device, int method, float* D, const float* sizes,
 // rarg: (n,) int64, the rows' results; sync: two int64, (0xFF80...0, 0)
 // between launches.  Launches on `stream` of CUDA device `device`; returns
 // cudaGetLastError().
-extern "C" int lw_merge(int device, int method, float* D, unsigned char* alive, unsigned* bits,
-                        float* sizes, float* merges, long long cap, long long* cand, float* dmin,
-                        long long* count, float* rmin, long long* rarg, unsigned long long* sync,
-                        long long n, cudaStream_t stream) {
-    const cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
+Operands merge_operands(float* D, unsigned char* alive, unsigned* bits, float* sizes,
+                        float* merges, long long cap, long long* cand, float* dmin,
+                        long long* count, float* rmin, long long* rarg,
+                        unsigned long long* sync, long long n) {
     Operands a{};
     a.D = D;
     a.sizes = sizes;
@@ -448,16 +519,48 @@ extern "C" int lw_merge(int device, int method, float* D, unsigned char* alive, 
     a.cap = cap;
     a.count = count;
     a.sync = sync;
+    return a;
+}
+
+extern "C" int lw_merge(int device, int method, float* D, unsigned char* alive, unsigned* bits,
+                        float* sizes, float* merges, long long cap, long long* cand, float* dmin,
+                        long long* count, float* rmin, long long* rarg, unsigned long long* sync,
+                        long long n, cudaStream_t stream) {
+    const cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    const Operands a = merge_operands(D, alive, bits, sizes, merges, cap, cand, dmin, count, rmin,
+                                      rarg, sync, n);
     LW_DISPATCH_METHOD(method, launch_merge, a, stream)
     return (int)cudaGetLastError();
 }
 
-// Load the lw_merge kernel a launch at this n takes, before a stream
-// capture: CUDA loads kernels lazily, at their first launch, and a first
-// load must not fall inside a capture.  Returns the CUDA error.
-extern "C" int lw_merge_load(int device, int method, long long n) {
+// One lockstep merge of B stacked problems, in place, each lane as lw_merge
+// on its own slices: D (B, n, n), alive and sizes (B, n), bits (B,
+// ceil(n/32)), merges (B, cap, 4), cand (B, 2), dmin (B,), count (B,), rmin
+// and rarg (B, n), sync (B, 2); limit (B,) int64, the merges a lane makes (a
+// lane whose count reached it only adds one to its count).  Same stream and
+// return as lw_merge.
+extern "C" int lw_merge_batch(int device, int method, float* D, unsigned char* alive,
+                              unsigned* bits, float* sizes, float* merges, long long cap,
+                              long long* cand, float* dmin, long long* count, float* rmin,
+                              long long* rarg, unsigned long long* sync, long long n,
+                              const long long* limit, long long B, cudaStream_t stream) {
+    const cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    Operands a = merge_operands(D, alive, bits, sizes, merges, cap, cand, dmin, count, rmin, rarg,
+                                sync, n);
+    a.limit = limit;
+    LW_DISPATCH_METHOD(method, launch_merge_batch, a, B, stream)
+    return (int)cudaGetLastError();
+}
+
+// Load the lw_merge (batch: lw_merge_batch) kernel a launch at this n
+// takes, before a stream capture: CUDA loads kernels lazily, at their first
+// launch, and a first load must not fall inside a capture.  Returns the
+// CUDA error.
+extern "C" int lw_merge_load(int device, int method, long long n, int batch) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    LW_DISPATCH_METHOD(method, load_merge, n, &err)
+    LW_DISPATCH_METHOD(method, load_merge, n, batch != 0, &err)
     return (int)err;
 }

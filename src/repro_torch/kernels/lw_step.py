@@ -21,6 +21,14 @@ Bound: bytes.  The step needs the ``L × L`` live cells read once and row
 and column ``i`` written, about ``4·L²`` bytes for ``L`` slots live after
 the merge, at 3.35 TB/s.  The kernel reads whole live rows with 16-byte
 loads, ``4·L·n`` bytes, so dead columns are its gap to the bound.
+
+:func:`lw_merge_batch` is the merge entry's batch-grid form, the batched
+kernel engine's merge: one launch merges every lane of ``B`` stacked
+problems in lockstep, on :class:`MergeBatchBuffers` (the same buffers with
+a leading lane axis, and each lane's merge limit: a lane that made its
+merges, or is padding, is a no-op).  The TPU package batches the same
+kernel through ``pallas_call``'s ``vmap`` rule.  Bound: bytes, the sum of
+each active lane's ``4·L'²`` and bookkeeping.
 """
 
 from __future__ import annotations
@@ -65,8 +73,10 @@ def _lib():
                             *[ctypes.c_void_p] * 4]
     lib.lw_merge.argtypes = [ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 5, ctypes.c_longlong,
                              *[ctypes.c_void_p] * 6, ctypes.c_longlong, ctypes.c_void_p]
-    lib.lw_merge_load.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
-    for fn in (lib.lw_step, lib.lw_merge, lib.lw_merge_load):
+    lib.lw_merge_batch.argtypes = [*lib.lw_merge.argtypes[:-1], ctypes.c_void_p,
+                                   ctypes.c_longlong, ctypes.c_void_p]
+    lib.lw_merge_load.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+    for fn in (lib.lw_step, lib.lw_merge, lib.lw_merge_batch, lib.lw_merge_load):
         fn.restype = ctypes.c_int
     return lib
 
@@ -130,23 +140,25 @@ lw_step.launches = 0
 
 
 def alive_bits(alive: torch.Tensor) -> torch.Tensor:
-    """``alive`` as ``(⌈n/32⌉,)`` int32 words, bit ``c % 32`` of word
-    ``c // 32`` set when slot ``c`` is alive (the kernel's bitmask)."""
-    n = alive.numel()
-    padded = torch.zeros(-(-n // 32) * 32, dtype=torch.int64, device=alive.device)
-    padded[:n] = alive
-    words = (padded.view(-1, 32) << torch.arange(32, device=alive.device)).sum(1)
+    """``alive`` ``(..., n)`` as ``(..., ⌈n/32⌉)`` int32 words, bit ``c % 32``
+    of word ``c // 32`` set when slot ``c`` is alive (the kernel's bitmask)."""
+    lead, n = alive.shape[:-1], alive.shape[-1]
+    padded = torch.zeros((*lead, -(-n // 32) * 32), dtype=torch.int64, device=alive.device)
+    padded[..., :n] = alive
+    words = (padded.view(*lead, -1, 32) << torch.arange(32, device=alive.device)).sum(-1)
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
-def device_words(words, device) -> torch.Tensor:
-    """The int64 ``words`` as a tensor on ``device``, written by fill
-    launches: a copy from the host would wait for the card, and buffers
-    built between two stages of a run must not."""
-    out = torch.zeros(len(words), dtype=torch.int64, device=device)
+def device_words(words, device, lanes: int | None = None) -> torch.Tensor:
+    """The int64 ``words`` as a tensor on ``device`` (``lanes`` copies as a
+    ``(lanes, len(words))`` tensor), written by fill launches, one a word: a
+    copy from the host would wait for the card, and buffers built between
+    two stages of a run must not."""
+    shape = (len(words),) if lanes is None else (lanes, len(words))
+    out = torch.zeros(shape, dtype=torch.int64, device=device)
     for k, w in enumerate(words):
         if w:
-            out[k:k + 1].fill_(w)
+            out[..., k:k + 1].fill_(w)
     return out
 
 
@@ -260,7 +272,7 @@ def lw_merge(method: str, b: MergeBuffers) -> MergeBuffers:
 
 def _load_merge(method: str, b: MergeBuffers) -> None:
     err = _lib().lw_merge_load(b.D.device.index, METHODS.index(method),
-                               _check_buffers(method, b))
+                               _check_buffers(method, b), 0)
     if err:
         raise RuntimeError(f"lw_merge kernel load failed: CUDA error {err}")
 
@@ -270,11 +282,150 @@ lw_merge.load = _load_merge
 lw_merge.counters = (lw_merge,)
 
 
+class MergeBatchBuffers(NamedTuple):
+    """:class:`MergeBuffers` of ``B`` stacked problems in lockstep, each
+    field with a leading lane axis (``D`` ``(B, n, n)``, ``merges`` ``(B,
+    cap, 4)``, ``cand`` ``(B, 2)``, ``dmin`` and ``count`` ``(B,)``, ``sync``
+    ``(B, 2)``, ...), and ``limit`` ``(B,)`` int64, the merges each lane
+    makes: a lane whose ``count`` reached it only adds one to ``count``,
+    which then counts the lockstep merges (records stay where they are)."""
+
+    D: torch.Tensor
+    alive: torch.Tensor
+    bits: torch.Tensor
+    sizes: torch.Tensor
+    merges: torch.Tensor
+    cand: torch.Tensor
+    dmin: torch.Tensor
+    count: torch.Tensor
+    rmin: torch.Tensor
+    rarg: torch.Tensor
+    sync: torch.Tensor
+    limit: torch.Tensor
+
+
+def merge_batch_buffers(D, alive, sizes, merges, cand, start: int, limit) -> MergeBatchBuffers:
+    """Batch buffers around the lanes' ``D``, ``alive``, ``sizes`` and
+    ``merges`` (kept, not copied), with each lane's candidate ``cand = (r,
+    c, dmin)`` (``(B,)`` tensors), ``start`` lockstep merges made and the
+    merge ``limit`` ``(B,)``; built by device launches alone."""
+    B, n = alive.shape
+    dev = D.device
+    r, c, dmin = cand
+    return MergeBatchBuffers(
+        D=D, alive=alive, bits=alive_bits(alive), sizes=sizes, merges=merges,
+        cand=torch.stack((r, c), dim=1).to(torch.int64),
+        dmin=dmin.to(torch.float32).clone(),
+        count=torch.full((B,), start, dtype=torch.int64, device=dev),
+        rmin=torch.full((B, n), torch.inf, dtype=torch.float32, device=dev),
+        rarg=torch.zeros((B, n), dtype=torch.int64, device=dev),
+        sync=device_words((_KEY_INIT, 0), dev, lanes=B),
+        limit=limit.to(torch.int64),
+    )
+
+
+def lw_merge_batch_plain(method: str, b: MergeBatchBuffers) -> MergeBatchBuffers:
+    """The plain torch version of :func:`lw_merge_batch`, on any device, in
+    place: each active lane (``count < limit``) as :func:`lw_merge_plain`,
+    the others unchanged; every lane's ``count`` advanced.  Torch ops over
+    the lane axis, nothing read back."""
+    B, n = b.alive.shape
+    lanes = torch.arange(B, device=b.D.device)
+    ks = torch.arange(n, device=b.D.device)
+    active = b.count < b.limit
+    act = active[:, None]
+    i = torch.minimum(b.cand[:, 0], b.cand[:, 1])      # i keeps the union
+    j = torch.maximum(b.cand[:, 0], b.cand[:, 1])
+    n_i, n_j = b.sizes[lanes, i], b.sizes[lanes, j]
+    row_i, row_j, col_i = b.D[lanes, i], b.D[lanes, j], b.D[lanes, :, i]
+    keep = b.alive & (ks != i[:, None]) & (ks != j[:, None])
+    new = torch.where(keep, update_row(method, row_i, row_j, b.dmin[:, None], n_i[:, None],
+                                       n_j[:, None], b.sizes), 0.0)
+    b.D[lanes, :, i] = torch.where(act, new, col_i)
+    b.D[lanes, i] = torch.where(act, new, row_i)
+    live = b.alive & (ks != j[:, None])
+    valid = live[:, :, None] & live[:, None, :] & (ks[:, None] != ks[None, :])
+    rmin, rarg = torch.min(torch.where(valid, b.D, torch.inf), dim=2)   # first minimum
+    new_size = n_i + n_j
+    at = b.count.clamp_max(b.merges.shape[1] - 1)
+    rec = torch.stack((i.to(torch.float32), j.to(torch.float32), b.dmin, new_size), dim=1)
+    b.merges[lanes, at] = torch.where(act, rec, b.merges[lanes, at])
+    b.count.add_(1)
+    b.alive[lanes, j] = b.alive[lanes, j] & ~active
+    b.bits.copy_(alive_bits(b.alive))
+    b.sizes[lanes, j] = torch.where(active, 0.0, n_j)
+    b.sizes[lanes, i] = torch.where(active, new_size, b.sizes[lanes, i])
+    m, r_next = torch.min(rmin, dim=1)
+    b.cand.copy_(torch.where(act, torch.stack((r_next, rarg[lanes, r_next]), dim=1), b.cand))
+    b.dmin.copy_(torch.where(active, m, b.dmin))
+    b.rmin.copy_(torch.where(act, rmin, b.rmin))
+    b.rarg.copy_(torch.where(act, rarg, b.rarg))
+    return b
+
+
+def _check_batch_buffers(method: str, b: MergeBatchBuffers) -> tuple[int, int]:
+    if b.D.ndim != 3 or b.D.shape[0] < 1:
+        raise ValueError(f"lw_merge_batch needs a (B, n, n) stack, got {tuple(b.D.shape)}")
+    B = b.D.shape[0]
+    n = _check_square("lw_merge_batch", method, b.D[0])
+    if b.merges.ndim != 3 or (b.merges.shape[0], b.merges.shape[2]) != (B, 4):
+        raise ValueError(f"lw_merge_batch merges must be ({B}, cap, 4), got "
+                         f"{tuple(b.merges.shape)}")
+    _check_operands("lw_merge_batch", (
+        (b.D, torch.float32, B * n * n), (b.alive, torch.bool, B * n),
+        (b.bits, torch.int32, B * -(-n // 32)), (b.sizes, torch.float32, B * n),
+        (b.merges, torch.float32, b.merges.numel()), (b.cand, torch.int64, 2 * B),
+        (b.dmin, torch.float32, B), (b.count, torch.int64, B), (b.rmin, torch.float32, B * n),
+        (b.rarg, torch.int64, B * n), (b.sync, torch.int64, 2 * B), (b.limit, torch.int64, B)))
+    return B, n
+
+
+def lw_merge_batch(method: str, b: MergeBatchBuffers) -> MergeBatchBuffers:
+    """One lockstep merge of every lane, in place on ``b``: each lane whose
+    ``count`` is below its ``limit`` makes the merge :func:`lw_merge` makes
+    on its slices; the others only advance ``count``.
+
+    One launch that reads nothing back and allocates nothing, so a run of
+    lockstep merges can be captured as a CUDA graph (:class:`MergeGraph`,
+    ``merge=lw_merge_batch``).  A CUDA tensor launches the kernel; a CPU
+    tensor takes the plain version.
+    """
+    B, n = _check_batch_buffers(method, b)
+    if b.D.device.type == "cpu":
+        return lw_merge_batch_plain(method, b)
+    _build.check_cuda(b.D, torch.float32, *b[1:])
+    err = _lib().lw_merge_batch(
+        b.D.device.index, METHODS.index(method), b.D.data_ptr(), b.alive.data_ptr(),
+        b.bits.data_ptr(), b.sizes.data_ptr(), b.merges.data_ptr(), b.merges.shape[1],
+        b.cand.data_ptr(), b.dmin.data_ptr(), b.count.data_ptr(), b.rmin.data_ptr(),
+        b.rarg.data_ptr(), b.sync.data_ptr(), n, b.limit.data_ptr(), B,
+        _build.raw_stream(b.D.device.index),
+    )
+    if err:
+        raise RuntimeError(f"lw_merge_batch kernel launch failed: CUDA error {err}")
+    lw_merge_batch.launches += 1
+    return b
+
+
+def _load_merge_batch(method: str, b: MergeBatchBuffers) -> None:
+    err = _lib().lw_merge_load(b.D.device.index, METHODS.index(method),
+                               _check_batch_buffers(method, b)[1], 1)
+    if err:
+        raise RuntimeError(f"lw_merge_batch kernel load failed: CUDA error {err}")
+
+
+lw_merge_batch.launches = 0
+lw_merge_batch.load = _load_merge_batch
+lw_merge_batch.counters = (lw_merge_batch,)
+
+
 class MergeGraph:
     """``k`` merges of ``merge`` on the buffers ``b``, captured once as a
     CUDA graph on a side stream; :meth:`replay` runs them on the current
     stream.  ``merge`` is a resident merge entry, :func:`lw_merge` (the
-    default) or :func:`repro_torch.kernels.lw_update.lazy_merge`: it
+    default), :func:`repro_torch.kernels.lw_update.lazy_merge` or their
+    batch forms on batch buffers (a replay then makes ``k`` lockstep merges
+    of every lane): it
     carries ``load(method, b)``, which loads its kernels, and ``counters``,
     the wrappers whose ``launches`` a merge adds one to.
 

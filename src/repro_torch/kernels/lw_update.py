@@ -25,6 +25,14 @@ second (:func:`lazy_rescan`) rescans the listed rows and leaves the next
 candidate on the device.  :class:`~repro_torch.kernels.lw_step.MergeGraph`
 captures a chunk of such merges as a CUDA graph.  Bound: bytes, about
 ``(45 + 4·s)·n`` a merge with ``s`` stale rows, and latency in practice.
+
+:func:`lazy_merge_batch` (with :func:`lazy_rescan_batch`) is that merge's
+batch-grid form, the batched kernel engine's ``lazy`` merge: two launches
+merge every lane of ``B`` stacked problems in lockstep, on
+:class:`LazyBatchBuffers` (a leading lane axis, and each lane's merge
+limit: a lane that made its merges, or is padding, is a no-op).  The TPU
+package batches the row-update kernel through ``pallas_call``'s ``vmap``
+rule.  Bound: bytes, the sum of each active lane's ``(45 + 4·s)·n``.
 """
 
 from __future__ import annotations
@@ -54,8 +62,12 @@ def _lib():
              ctypes.c_longlong, ctypes.c_void_p]
     lib.lazy_merge.argtypes = [ctypes.c_int, ctypes.c_int, *state]
     lib.lazy_rescan.argtypes = [ctypes.c_int, *state]
-    lib.lazy_merge_load.argtypes = [ctypes.c_int, ctypes.c_int]
-    for fn in (lib.lw_update, lib.lazy_merge, lib.lazy_rescan, lib.lazy_merge_load):
+    batch = [*state[:-1], ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    lib.lazy_merge_batch.argtypes = [ctypes.c_int, ctypes.c_int, *batch]
+    lib.lazy_rescan_batch.argtypes = [ctypes.c_int, *batch]
+    lib.lazy_merge_load.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    for fn in (lib.lw_update, lib.lazy_merge, lib.lazy_rescan, lib.lazy_merge_batch,
+               lib.lazy_rescan_batch, lib.lazy_merge_load):
         fn.restype = ctypes.c_int
     return lib
 
@@ -292,7 +304,7 @@ def lazy_merge(method: str, b: LazyBuffers) -> LazyBuffers:
 
 
 def _load_lazy_merge(method: str, b: LazyBuffers) -> None:
-    err = _lib().lazy_merge_load(b.D.device.index, METHODS.index(method))
+    err = _lib().lazy_merge_load(b.D.device.index, METHODS.index(method), 0)
     if err:
         raise RuntimeError(f"lazy_merge kernel load failed: CUDA error {err}")
 
@@ -300,3 +312,212 @@ def _load_lazy_merge(method: str, b: LazyBuffers) -> None:
 lazy_merge.launches = 0
 lazy_merge.load = _load_lazy_merge
 lazy_merge.counters = (lazy_merge, lazy_rescan)
+
+
+class LazyBatchBuffers(NamedTuple):
+    """:class:`LazyBuffers` of ``B`` stacked problems in lockstep, each
+    field with a leading lane axis (``D`` ``(B, n, n)``, ``merges`` ``(B,
+    cap, 4)``, ``cand`` ``(B, 2)``, ``sync`` ``(B, 4)``, ...), and ``limit``
+    ``(B,)`` int64, the merges each lane makes: a lane whose ``count``
+    reached it only adds one to ``count``, which then counts the lockstep
+    merges, and its rescan does nothing."""
+
+    D: torch.Tensor
+    alive: torch.Tensor
+    sizes: torch.Tensor
+    merges: torch.Tensor
+    count: torch.Tensor
+    cand: torch.Tensor
+    dmin: torch.Tensor
+    rmin: torch.Tensor
+    rarg: torch.Tensor
+    stale: torch.Tensor
+    n_stale: torch.Tensor
+    rescanned: torch.Tensor
+    sync: torch.Tensor
+    limit: torch.Tensor
+
+
+def lazy_batch_buffers(D, alive, sizes, merges, cand, cache, start: int, limit) -> LazyBatchBuffers:
+    """Batch buffers around the lanes' ``D``, ``alive``, ``sizes``,
+    ``merges`` and caches ``cache = (rmin, rarg)`` (kept, not copied), with
+    each lane's candidate ``cand = (r, c, dmin)`` (``(B,)`` tensors),
+    ``start`` lockstep merges made and the merge ``limit`` ``(B,)``."""
+    B, n = alive.shape
+    dev = D.device
+    r, c, dmin = cand
+    rmin, rarg = cache
+    return LazyBatchBuffers(
+        D=D, alive=alive, sizes=sizes, merges=merges,
+        count=torch.full((B,), start, dtype=torch.int64, device=dev),
+        cand=torch.stack((r, c), dim=1).to(torch.int64),
+        dmin=dmin.to(torch.float32).clone(),
+        rmin=rmin, rarg=rarg,
+        stale=torch.zeros((B, n), dtype=torch.int32, device=dev),
+        n_stale=torch.zeros(B, dtype=torch.int32, device=dev),
+        rescanned=torch.zeros(B, dtype=torch.int64, device=dev),
+        sync=device_words(_SYNC_INIT, dev, lanes=B),
+        limit=limit.to(torch.int64),
+    )
+
+
+def _lazy_update_batch_plain(method: str, b: LazyBatchBuffers) -> None:
+    """The batch merge launch's plain version: each active lane (``count <
+    limit``) as :func:`_lazy_update_plain`, the others unchanged; every
+    lane's ``count`` advanced."""
+    from repro_torch.core.engine import _INF, _cache_invalidate
+
+    B, n = b.alive.shape
+    lanes = torch.arange(B, device=b.D.device)
+    ks = torch.arange(n, device=b.D.device)
+    active = b.count < b.limit
+    act = active[:, None]
+    i = torch.minimum(b.cand[:, 0], b.cand[:, 1])      # i keeps the union
+    j = torch.maximum(b.cand[:, 0], b.cand[:, 1])
+    n_i, n_j = b.sizes[lanes, i], b.sizes[lanes, j]
+    row_i, row_j, col_i = b.D[lanes, i], b.D[lanes, j], b.D[lanes, :, i]
+    keep = b.alive & (ks != i[:, None]) & (ks != j[:, None])
+    new = lw_update_plain(method, row_i, row_j, b.dmin[:, None], n_i[:, None], n_j[:, None],
+                          b.sizes, keep)
+    b.D[lanes, i] = torch.where(act, new, row_i)
+    b.D[lanes, :, i] = torch.where(act, new, col_i)
+    new_size = n_i + n_j
+    at = b.count.clamp_max(b.merges.shape[1] - 1)
+    rec = torch.stack((i.to(torch.float32), j.to(torch.float32), b.dmin, new_size), dim=1)
+    b.merges[lanes, at] = torch.where(act, rec, b.merges[lanes, at])
+    b.count.add_(1)
+    b.alive[lanes, j] = b.alive[lanes, j] & ~active
+    b.sizes[lanes, j] = torch.where(active, 0.0, n_j)
+    b.sizes[lanes, i] = torch.where(active, new_size, b.sizes[lanes, i])
+    col = torch.where(keep, new, _INF)
+    ij = torch.stack((i[:, None], j[:, None]))
+    rmin, rarg, stale = _cache_invalidate((b.rmin, b.rarg), ij, col, ks, b.alive)
+    # row i is stale whenever it is alive: its masked row is column i's kept lanes
+    m_i = col.amin(dim=1, keepdim=True)
+    row_i_stale = stale & (ks == i[:, None])
+    rmin = torch.where(row_i_stale, m_i, rmin)
+    rarg = torch.where(row_i_stale, torch.where(col == m_i, ks, n).amin(dim=1, keepdim=True),
+                       rarg)
+    listed = stale & ~row_i_stale & act
+    b.stale.copy_(torch.sort(torch.where(listed, ks, n), dim=1).values)
+    b.n_stale.copy_(torch.where(active, listed.sum(1), b.n_stale))
+    b.rmin.copy_(torch.where(act, rmin, b.rmin))
+    b.rarg.copy_(torch.where(act, rarg, b.rarg))
+
+
+def lazy_rescan_batch_plain(b: LazyBatchBuffers) -> LazyBatchBuffers:
+    """The plain version of :func:`lazy_rescan_batch`, on any device, in
+    place: each lane whose merge launch was not a no-op (``count <=
+    limit``) as :func:`lazy_rescan_plain`, the others unchanged."""
+    from repro_torch.core.batch_engine import cached_cand_batch, masked_row_mins_batch
+
+    B, n = b.alive.shape
+    ks = torch.arange(n, device=b.D.device)
+    active = b.count <= b.limit
+    act = active[:, None]
+    listed = torch.where(ks < b.n_stale[:, None], b.stale.to(torch.int64), n)
+    mask = torch.zeros((B, n + 1), dtype=torch.bool, device=b.D.device)
+    mask = mask.scatter_(1, listed, True)[:, :n] & act
+    rm, ra = masked_row_mins_batch(b.D, b.alive)
+    rmin, rarg = torch.where(mask, rm, b.rmin), torch.where(mask, ra, b.rarg)
+    r, c, m = cached_cand_batch(b.alive, rmin, rarg)
+    b.rmin.copy_(rmin)
+    b.rarg.copy_(rarg)
+    b.cand.copy_(torch.where(act, torch.stack((r, c), dim=1), b.cand))
+    b.dmin.copy_(torch.where(active, m, b.dmin))
+    b.rescanned.add_(torch.where(active, b.n_stale, 0))
+    b.n_stale.copy_(torch.where(active, 0, b.n_stale))
+    return b
+
+
+def lazy_merge_batch_plain(method: str, b: LazyBatchBuffers) -> LazyBatchBuffers:
+    """The plain torch version of :func:`lazy_merge_batch`, on any device,
+    in place: the merge launch's work, then the rescan's."""
+    _lazy_update_batch_plain(method, b)
+    return lazy_rescan_batch_plain(b)
+
+
+def _check_lazy_batch(b: LazyBatchBuffers) -> tuple[int, int]:
+    if b.D.ndim != 3 or b.D.shape[1] != b.D.shape[2] or b.D.shape[0] < 1:
+        raise ValueError(f"lazy_merge_batch needs a (B, n, n) stack, got {tuple(b.D.shape)}")
+    B, n = b.D.shape[0], b.D.shape[1]
+    if not 1 <= n < 2**31:
+        raise ValueError(f"lazy_merge_batch needs 1 <= n < 2**31, got {n}")
+    if b.merges.ndim != 3 or (b.merges.shape[0], b.merges.shape[2]) != (B, 4):
+        raise ValueError(f"lazy_merge_batch merges must be ({B}, cap, 4), got "
+                         f"{tuple(b.merges.shape)}")
+    for t, dtype, numel in ((b.alive, torch.bool, B * n), (b.sizes, torch.float32, B * n),
+                            (b.merges, torch.float32, b.merges.numel()),
+                            (b.count, torch.int64, B), (b.cand, torch.int64, 2 * B),
+                            (b.dmin, torch.float32, B), (b.rmin, torch.float32, B * n),
+                            (b.rarg, torch.int64, B * n), (b.stale, torch.int32, B * n),
+                            (b.n_stale, torch.int32, B), (b.rescanned, torch.int64, B),
+                            (b.sync, torch.int64, 4 * B), (b.limit, torch.int64, B)):
+        if t.dtype != dtype or t.numel() != numel:
+            raise ValueError(f"lazy_merge_batch operand: expected {numel} x {dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    return B, n
+
+
+def _batch_args(b: LazyBatchBuffers, B: int, n: int) -> list:
+    return [b.D.data_ptr(), b.alive.data_ptr(), b.sizes.data_ptr(), b.merges.data_ptr(),
+            b.merges.shape[1], *(t.data_ptr() for t in b[4:13]), n, b.limit.data_ptr(), B,
+            _build.raw_stream(b.D.device.index)]
+
+
+def lazy_rescan_batch(b: LazyBatchBuffers) -> LazyBatchBuffers:
+    """The second launch of a resident batch ``lazy`` merge, in place on
+    ``b``: each lane as :func:`lazy_rescan`, but the lanes whose merge
+    launch was a no-op.  A CUDA tensor launches the kernel (a fixed grid of
+    ``max(1, 132 // B)`` blocks a lane); a CPU tensor takes the plain
+    version."""
+    B, n = _check_lazy_batch(b)
+    if b.D.device.type == "cpu":
+        return lazy_rescan_batch_plain(b)
+    _build.check_cuda(b.D, torch.float32, *b[1:])
+    err = _lib().lazy_rescan_batch(b.D.device.index, *_batch_args(b, B, n))
+    if err:
+        raise RuntimeError(f"lazy_rescan_batch kernel launch failed: CUDA error {err}")
+    lazy_rescan_batch.launches += 1
+    return b
+
+
+lazy_rescan_batch.launches = 0
+
+
+def lazy_merge_batch(method: str, b: LazyBatchBuffers) -> LazyBatchBuffers:
+    """One lockstep ``lazy`` merge of every lane, in place on ``b``: each
+    lane whose ``count`` is below its ``limit`` makes the merge
+    :func:`lazy_merge` makes on its slices; the others only advance
+    ``count``.
+
+    On a CUDA tensor two launches that read nothing back and allocate
+    nothing: the merge kernel (counted here), then
+    :func:`lazy_rescan_batch` (counted there); a run of lockstep merges can
+    be captured as a CUDA graph
+    (:class:`~repro_torch.kernels.lw_step.MergeGraph`,
+    ``merge=lazy_merge_batch``).  A CPU tensor takes the plain version.
+    """
+    if method not in METHODS:
+        raise ValueError(f"unknown linkage method {method!r}")
+    B, n = _check_lazy_batch(b)
+    if b.D.device.type == "cpu":
+        return lazy_merge_batch_plain(method, b)
+    _build.check_cuda(b.D, torch.float32, *b[1:])
+    err = _lib().lazy_merge_batch(b.D.device.index, METHODS.index(method),
+                                  *_batch_args(b, B, n))
+    if err:
+        raise RuntimeError(f"lazy_merge_batch kernel launch failed: CUDA error {err}")
+    lazy_merge_batch.launches += 1
+    return lazy_rescan_batch(b)
+
+
+def _load_lazy_merge_batch(method: str, b: LazyBatchBuffers) -> None:
+    err = _lib().lazy_merge_load(b.D.device.index, METHODS.index(method), 1)
+    if err:
+        raise RuntimeError(f"lazy_merge_batch kernel load failed: CUDA error {err}")
+
+
+lazy_merge_batch.launches = 0
+lazy_merge_batch.load = _load_lazy_merge_batch
+lazy_merge_batch.counters = (lazy_merge_batch, lazy_rescan_batch)

@@ -10,6 +10,13 @@ Bound: bytes, one read of the ``L × L`` live cells, ``4·L²`` bytes, at
 the whole row, dead rows skipped: ``4·L·n`` bytes) and reduces the row
 results in a second one-block pass; both passes break ties on the index,
 so block order does not matter.
+
+:func:`masked_argmin_batch` is the kernel's batch-grid form, the seed of the
+batched kernel engine (once a compaction stage of a shape bucket): ``B``
+stacked problems, each lane's first minimum, in one launch of each pass
+(up to ``n = 1024`` a warp a row, then one reduction block a lane).  The
+TPU package batches the same kernel through ``pallas_call``'s ``vmap``
+rule.  Bound: bytes, ``Σ 4·L_b² + B·n`` over the lanes' live cells.
 """
 
 from __future__ import annotations
@@ -31,14 +38,25 @@ def masked_argmin_plain(D: torch.Tensor, alive: torch.Tensor):
     return v, flat
 
 
+def masked_argmin_batch_plain(D: torch.Tensor, alive: torch.Tensor):
+    """The plain torch version of the batch kernel, on any device."""
+    B, n = alive.shape
+    ks = torch.arange(n, device=D.device)
+    valid = alive[:, :, None] & alive[:, None, :] & (ks[:, None] != ks[None, :])
+    return torch.min(torch.where(valid, D, torch.inf).reshape(B, -1), dim=1)  # first minimum
+
+
 @functools.cache
-def _kernel():
-    fn = _build.load("minscan").masked_argmin
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("minscan")
+    lib.masked_argmin.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_longlong, *[ctypes.c_void_p] * 5]
+    lib.masked_argmin_batch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_longlong, ctypes.c_longlong,
+                                        *[ctypes.c_void_p] * 5]
+    for fn in (lib.masked_argmin, lib.masked_argmin_batch):
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def masked_argmin(D: torch.Tensor, alive: torch.Tensor):
@@ -59,7 +77,7 @@ def masked_argmin(D: torch.Tensor, alive: torch.Tensor):
     rarg = torch.empty(n, dtype=torch.int64, device=D.device)
     v = torch.empty((), dtype=torch.float32, device=D.device)
     flat = torch.empty((), dtype=torch.int64, device=D.device)
-    err = _kernel()(D.device.index, D.data_ptr(), alive.data_ptr(), n, rmin.data_ptr(), rarg.data_ptr(),
+    err = _lib().masked_argmin(D.device.index, D.data_ptr(), alive.data_ptr(), n, rmin.data_ptr(), rarg.data_ptr(),
                     v.data_ptr(), flat.data_ptr(), _build.raw_stream(D.device.index))
     if err:
         raise RuntimeError(f"masked_argmin kernel launch failed: CUDA error {err}")
@@ -69,3 +87,34 @@ def masked_argmin(D: torch.Tensor, alive: torch.Tensor):
 
 masked_argmin.launches = 0
 
+
+
+def masked_argmin_batch(D: torch.Tensor, alive: torch.Tensor):
+    """Each lane's masked ``(min, flat argmin)`` of ``(B, n, n)`` float32
+    ``D`` with ``(B, n)`` bool ``alive``, as ``(B,)`` tensors (float32,
+    int64; the flat index ``r·n + c`` within the lane) on ``D``'s device.
+
+    A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
+    """
+    if D.ndim != 3 or D.shape[1] != D.shape[2] or D.shape[1] < 1:
+        raise ValueError(f"masked_argmin_batch needs a (B, n, n) stack, got {tuple(D.shape)}")
+    B, n = D.shape[0], D.shape[1]
+    if alive.shape != (B, n) or alive.dtype != torch.bool:
+        raise ValueError(f"alive must be ({B}, {n}) bool, got {tuple(alive.shape)} {alive.dtype}")
+    if D.device.type == "cpu":
+        return masked_argmin_batch_plain(D, alive)
+    _build.check_cuda(D, torch.float32, alive)
+    rmin = torch.empty((B, n), dtype=torch.float32, device=D.device)
+    rarg = torch.empty((B, n), dtype=torch.int64, device=D.device)
+    v = torch.empty(B, dtype=torch.float32, device=D.device)
+    flat = torch.empty(B, dtype=torch.int64, device=D.device)
+    err = _lib().masked_argmin_batch(D.device.index, D.data_ptr(), alive.data_ptr(), B, n,
+                                     rmin.data_ptr(), rarg.data_ptr(), v.data_ptr(),
+                                     flat.data_ptr(), _build.raw_stream(D.device.index))
+    if err:
+        raise RuntimeError(f"masked_argmin_batch kernel launch failed: CUDA error {err}")
+    masked_argmin_batch.launches += 1
+    return v, flat
+
+
+masked_argmin_batch.launches = 0

@@ -1,11 +1,13 @@
-"""The public wrappers of the kernel backend: the merge loop and the
-pairwise distance build.
+"""The public wrappers of the kernel backend: the merge loop, its batched
+form over a shape bucket, and the pairwise distance build.
 
-Counterpart of :func:`repro.kernels.ops.lance_williams_kernelized` and
+Counterpart of :func:`repro.kernels.ops.lance_williams_kernelized`,
+:func:`repro.kernels.ops.lance_williams_kernelized_batch` and
 :func:`repro.kernels.ops.pairwise`.  The TPU wrappers padded every operand
 to a 128-lane multiple and picked interpret mode off the TPU; the CUDA
 kernels take the raw sizes and mask their own ragged edges, so neither is
-needed here.
+needed here.  The TPU package batches its kernels through ``vmap``; here
+each kernel of the batched loop has an explicit lane axis.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from repro_torch.core.engine import (
     run_kernel,
     symmetrize,
 )
+from repro_torch.core.batch_engine import run_kernel_batch
 from repro_torch.kernels.pairwise import pairwise_sq_euclidean
 
 
@@ -67,6 +70,49 @@ def lance_williams_kernelized(
         method=method,
         n_steps=n_steps,
         variant=variant,
+        distance_threshold=distance_threshold,
+        compaction=resolve_kernel_compaction(compaction, n, n_steps),
+    )
+
+
+def lance_williams_kernelized_batch(
+    Db,
+    n_real,
+    *,
+    method: str = "complete",
+    n_steps: int,
+    variant: str = "baseline",
+    distance_threshold: float | None = None,
+    compaction: bool | str = "auto",
+    device=None,
+) -> LWResult:
+    """Batched serial LW with the batch-grid CUDA kernels as inner loops:
+    ``B`` stacked problems merge in lockstep
+    (:func:`repro_torch.core.batch_engine.run_kernel_batch`).
+
+    ``Db`` is ``(B, n, n)`` stacked matrices, copied to ``device`` (CUDA
+    unless told otherwise) and symmetrized lane by lane; lane ``b``'s slots
+    ``>= n_real[b]`` are dead from the start.  Returns ``(B, n_steps, 4)``
+    merges and ``(B,)`` merge counts, on the device: lane ``b``'s rows
+    past its count are not its merges (the scheduler slices them off).
+    Each lane's merges equal :func:`lance_williams_kernelized` on its own
+    matrix bit for bit.  ``compaction`` resolves on the bucket's size
+    (:func:`resolve_kernel_compaction`).
+    """
+    check_knobs(method, variant)
+    dev = resolve_device(device)
+    Db = torch.as_tensor(Db, dtype=torch.float32, device=dev)
+    if Db.ndim != 3 or Db.shape[1] != Db.shape[2]:
+        raise ValueError(f"expected a (B, n, n) bucket of distance matrices, got "
+                         f"{tuple(Db.shape)}")
+    n = Db.shape[-1]
+    n_real = torch.as_tensor(n_real, dtype=torch.int64, device=dev)
+    if n_real.shape != Db.shape[:1]:
+        raise ValueError(f"n_real must be ({Db.shape[0]},) to match the bucket, got "
+                         f"{tuple(n_real.shape)}")
+    return run_kernel_batch(
+        symmetrize(Db), torch.arange(n, device=dev) < n_real[:, None],
+        method=method, n_steps=n_steps, variant=variant,
         distance_threshold=distance_threshold,
         compaction=resolve_kernel_compaction(compaction, n, n_steps),
     )

@@ -52,9 +52,6 @@ def one_torch_thread():
 GEOMETRIC = ("centroid", "median", "ward")
 PORT = {"serial": lance_williams, "kernel": lance_williams_kernelized}
 KNOB_FLAGS = (True, False, "auto", "on", "off", None, "sometimes")
-#: Names of ``repro.core`` that wait for batching (ROADMAP.md A5).
-NOT_PORTED = {"BatchResult", "BatchStats", "BucketSignature", "bucket_signature",
-              "cluster_batch", "cluster_batch_merges"}
 
 
 @functools.cache
@@ -202,11 +199,7 @@ def test_remap_merges_matches_reference(n_merges, rng):
 
 @pytest.mark.parametrize("name", sorted(jcore.__all__))
 def test_package_surface_matches_reference(name):
-    """``repro_torch.core`` exports every name of ``repro.core`` but the
-    batching names of ROADMAP.md A5."""
-    if name in NOT_PORTED:
-        assert name not in core.__all__
-        return
+    """``repro_torch.core`` exports every name of ``repro.core``."""
     assert name in core.__all__
     assert getattr(core, name) is not None
     if name in ("METHODS", "VARIANTS", "REDUCIBLE_METHODS", "POINTS_METHODS"):

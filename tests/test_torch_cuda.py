@@ -960,3 +960,260 @@ def test_cuda_staged_loop_reads_nothing_back(variant, cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(got.merges, want.merges)
+
+
+# ---------------------------------------------------------------------------
+# the batch-grid forms of B1, B2 and B3, and the batched kernel engine
+# ---------------------------------------------------------------------------
+
+BATCH_BUCKETS = (8, 64, 1024)
+
+
+def batch_lanes(n):
+    """Each bucket's real sizes: an empty lane, one slot, two, the full
+    bucket, and a few in between."""
+    return (0, 1, 2, n, max(n // 2, 3), n - 1, 3)
+
+
+def batch_state(rng, n, method, device):
+    """A bucket as the batched engine holds it after its seed: stacked
+    symmetric matrices (padding zero), liveness, sizes, every lane's masked
+    first minimum, and each lane's merge limit (its real merges)."""
+    from repro_torch.core.batch_engine import cached_cand_batch, masked_row_mins_batch
+
+    n_real = batch_lanes(n)
+    B = len(n_real)
+    D = np.zeros((B, n, n), np.float32)
+    for b, k in enumerate(n_real):
+        D[b, :k, :k] = random_distance_matrix(rng, k, squared=method in ("centroid", "median",
+                                                                             "ward"))
+    D = torch.tensor(D, device=device)
+    alive = torch.arange(n, device=device) < torch.tensor(n_real, device=device)[:, None]
+    sizes = alive.to(torch.float32)
+    limit = torch.tensor([max(k - 1, 0) for k in n_real], device=device)
+    rmin, rarg = masked_row_mins_batch(D, alive)
+    return D, alive, sizes, limit, (rmin, rarg), cached_cand_batch(alive, rmin, rarg), n_real
+
+
+def fused_batch(state, device, cap):
+    D, alive, sizes, limit, _, cand, _ = state
+    merges = torch.zeros((D.shape[0], cap, 4), device=device)
+    return lw_step.merge_batch_buffers(D.clone(), alive.clone(), sizes.clone(), merges, cand, 0,
+                                       limit)
+
+
+def lazy_batch(state, device, cap):
+    D, alive, sizes, limit, (rmin, rarg), cand, _ = state
+    merges = torch.zeros((D.shape[0], cap, 4), device=device)
+    return lw_update.lazy_batch_buffers(D.clone(), alive.clone(), sizes.clone(), merges, cand,
+                                        (rmin.clone(), rarg.clone()), 0, limit)
+
+
+def assert_batch_equal(got, want, skip=("stale",)):
+    for name, a, b in zip(type(got)._fields, got, want):
+        if name not in skip:
+            assert torch.equal(a, b), f"{name} differs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", BATCH_BUCKETS)
+def test_cuda_masked_argmin_batch_matches_plain_and_single(n, cuda, rng):
+    """B1's batch form against its plain twin and against one single-problem
+    launch a lane (empty, one-slot and full lanes among them), bit for bit."""
+    D, alive, *_ = batch_state(rng, n, "complete", cuda)
+    alive[3, 1::3] = False                       # dead slots inside a full lane
+    launches = minscan.masked_argmin_batch.launches
+    v, flat = minscan.masked_argmin_batch(D, alive)
+    assert minscan.masked_argmin_batch.launches == launches + 1
+    vp, flatp = minscan.masked_argmin_batch_plain(D, alive)
+    assert torch.equal(v, vp) and torch.equal(flat, flatp)
+    for b in range(D.shape[0]):
+        vs, fs = minscan.masked_argmin(D[b], alive[b])
+        assert (float(vs), int(fs)) == (float(v[b]), int(flat[b])), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("n", BATCH_BUCKETS)
+def test_cuda_lw_merge_batch_matches_plain_and_single(method, n, cuda, rng):
+    """B2's batch merge entry over lockstep merges past every lane's limit:
+    against its plain twin (every buffer, bit for bit) and against the
+    single-problem merge entry launched on each lane alone as many times as
+    its limit (the lanes of 0, 1 and 2 slots and the full bucket among
+    them); the key and the tickets end as they began."""
+    state = batch_state(rng, n, method, cuda)
+    steps = min(n + 1, 40)
+    bk, bp = fused_batch(state, cuda, n), fused_batch(state, cuda, n)
+    sync = bk.sync.clone()
+    for _ in range(steps):
+        lw_step.lw_merge_batch(method, bk)
+        lw_step.lw_merge_batch_plain(method, bp)
+    torch.cuda.synchronize()
+    assert_batch_equal(bk, bp)
+    assert torch.equal(bk.sync, sync)
+    assert bk.count.tolist() == [steps] * len(state[-1])
+    D, alive, sizes, limit, _, (r, c, v), n_real = state
+    for b in range(D.shape[0]):
+        cand = (r[b], c[b], v[b])
+        single = lw_step.merge_buffers(D[b].clone(), alive[b].clone(), sizes[b].clone(),
+                                       torch.zeros((n, 4), device=cuda), cand, 0)
+        for _ in range(min(steps, int(limit[b]))):
+            lw_step.lw_merge(method, single)
+        for name in ("D", "alive", "bits", "sizes", "merges", "cand", "dmin", "rmin", "rarg"):
+            assert torch.equal(getattr(single, name).reshape(-1),
+                               getattr(bk, name)[b].reshape(-1)), (b, n_real[b], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("n", BATCH_BUCKETS)
+def test_cuda_lazy_merge_batch_matches_plain_and_single(method, n, cuda, rng):
+    """B3's batch merge and rescan over lockstep merges past every lane's
+    limit: against their plain twins and against the single-problem lazy
+    merge launched on each lane alone as many times as its limit."""
+    state = batch_state(rng, n, method, cuda)
+    steps = min(n + 1, 40)
+    bk, bp = lazy_batch(state, cuda, n), lazy_batch(state, cuda, n)
+    sync = bk.sync.clone()
+    merges, rescans = lw_update.lazy_merge_batch.launches, lw_update.lazy_rescan_batch.launches
+    for _ in range(steps):
+        lw_update.lazy_merge_batch(method, bk)
+        lw_update.lazy_merge_batch_plain(method, bp)
+    torch.cuda.synchronize()
+    assert lw_update.lazy_merge_batch.launches == merges + steps
+    assert lw_update.lazy_rescan_batch.launches == rescans + steps
+    assert_batch_equal(bk, bp)
+    assert torch.equal(bk.sync, sync)
+    D, alive, sizes, limit, (rmin, rarg), (r, c, v), n_real = state
+    for b in range(D.shape[0]):
+        single = lw_update.lazy_buffers(D[b].clone(), alive[b].clone(), sizes[b].clone(),
+                                        torch.zeros((n, 4), device=cuda), (r[b], c[b], v[b]),
+                                        (rmin[b].clone(), rarg[b].clone()), 0)
+        for _ in range(min(steps, int(limit[b]))):
+            lw_update.lazy_merge(method, single)
+        for name in ("D", "alive", "sizes", "merges", "cand", "dmin", "rmin", "rarg",
+                     "rescanned"):
+            assert torch.equal(getattr(single, name).reshape(-1),
+                               getattr(bk, name)[b].reshape(-1)), (b, n_real[b], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ("baseline", "lazy"))
+def test_cuda_batch_graph_replays_eager_merges(variant, cuda, rng):
+    """A captured graph of lockstep batch merges gives the eager launches'
+    buffers, and each replay adds its merges to the entries' counters."""
+    from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS as k
+
+    state = batch_state(rng, 300, "ward", cuda)
+    make, merge = ((fused_batch, lw_step.lw_merge_batch) if variant == "baseline"
+                   else (lazy_batch, lw_update.lazy_merge_batch))
+    eager, replayed = make(state, cuda, 300), make(state, cuda, 300)
+    for _ in range(2 * k):
+        merge("ward", eager)
+    graph = lw_step.MergeGraph("ward", replayed, k, merge=merge)
+    counts = [f.launches for f in merge.counters]
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert [f.launches for f in merge.counters] == [c + 2 * k for c in counts]
+    assert_batch_equal(replayed, eager)
+
+
+def batch_problems(method, sizes, seed=20):
+    rng = np.random.default_rng([seed, METHODS.index(method)])
+    return [random_distance_matrix(rng, n, squared=method in ("centroid", "median", "ward"))
+            .astype(np.float32) for n in sizes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_cuda_cluster_batch_matches_single_and_cpu(method, variant, cuda):
+    """``cluster_batch`` on both backends on the card: every problem's
+    merges equal its single-problem run on the card bit for bit, and the
+    CPU batch's slots, under ``stop_at_k`` and a threshold too."""
+    from repro_torch.core import cluster, cluster_batch
+
+    probs = batch_problems(method, (5, 8, 13, 16, 3, 30, 2, 61))
+    thr = float(np.median(probs[5]))
+    for backend in ("serial", "kernel"):
+        for knobs in ({}, {"stop_at_k": 3}, {"distance_threshold": thr}):
+            got = cluster_batch(probs, method, backend=backend, variant=variant, **knobs)
+            cpu = cluster_batch(probs, method, backend=backend, variant=variant,
+                                device="cpu", **knobs)
+            for p, g, c in zip(probs, got, cpu):
+                want = cluster(p, method, algorithm="lw", backend=backend, variant=variant,
+                               **knobs).merges
+                assert np.array_equal(g.merges, want), (backend, knobs, len(p))
+                assert_same_merges(g.merges, c.merges)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ("baseline", "lazy"))
+def test_cuda_staged_batch_reads_nothing_back(variant, cuda):
+    """The staged batched kernel loop (bucket 512: 512 → 256), no
+    threshold, under the sync debug mode "error": no stage boundary and no
+    lockstep merge waits for the card.  Equal to the unstaged batch and to
+    each lane's single-problem run, bit for bit."""
+    from repro_torch.core import batch_engine, engine
+    from repro_torch.kernels.ops import lance_williams_kernelized
+
+    n, method = 512, "complete"
+    probs = batch_problems(method, (512, 300, 2, 400), seed=21)
+    Db = np.zeros((4, n, n), np.float32)
+    for b, p in enumerate(probs):
+        Db[b, :len(p), :len(p)] = p
+    n_real = torch.tensor([len(p) for p in probs], device=cuda)
+
+    def bucket():
+        D = engine.symmetrize(torch.tensor(Db, device=cuda))
+        return D, torch.arange(n, device=cuda) < n_real[:, None]
+
+    want = batch_engine.run_kernel_batch(*bucket(), method=method, n_steps=n - 1,
+                                         variant=variant, compaction=False)
+    D, alive = bucket()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = batch_engine.run_kernel_batch(D, alive, method=method, n_steps=n - 1,
+                                            variant=variant, compaction=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got.merges, want.merges) and torch.equal(got.n_merges, want.n_merges)
+    for b, p in enumerate(probs):
+        single = lance_williams_kernelized(p, method, variant=variant)
+        k = len(p) - 1
+        assert int(got.n_merges[b]) == k
+        assert torch.equal(got.merges[b, :k], single.merges[:k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+def test_cuda_batch_merges_stable_under_load(method, cuda):
+    """The batch entries' per-lane last-block protocol under load: a matrix
+    product loop on a second stream while ``cluster_batch(backend=
+    "kernel")`` runs again and again (B2's batch merge and B3's, each
+    replayed from graphs): every run equals the first bit for bit and the
+    CPU's slot for slot."""
+    from repro_torch.core import cluster_batch
+
+    a = torch.randn(4096, 4096, device=cuda)
+    c = torch.empty_like(a)
+    load = torch.cuda.Stream(device=cuda)
+    probs = batch_problems(method, (300, 97, 250, 2, 180, 300, 33, 140), seed=22)
+    for variant in ("baseline", "lazy"):
+        want = cluster_batch(probs, method, backend="kernel", variant=variant, device="cpu")
+        first = None
+        for run in range(STRESS_GRAPH_RUNS):
+            if run % 4 == 0:
+                with torch.cuda.stream(load):
+                    for _ in range(8):
+                        torch.matmul(a, a, out=c)
+            got = cluster_batch(probs, method, backend="kernel", variant=variant)
+            if first is None:
+                first = got
+                for g, w in zip(got, want):
+                    assert_same_merges(g.merges, w.merges)
+            for b, (g, f) in enumerate(zip(got, first)):
+                assert np.array_equal(g.merges, f.merges), (variant, run, b)
+    load.synchronize()
