@@ -111,14 +111,32 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     share, problems per second and launches (one B1 batch seed a stage,
     one B2 batch launch a lockstep merge, graph replays of 128), checked
     against the kernel plan of each bucket.
-14. One line ``{"kernels": [...]}`` with each kernel's numbers (the batch
-    entries beside the others), the card's ``nvidia-smi`` line, and last
+14. The clustering service (``repro_torch.service``) under three traffic
+    mixes (SERVICE_MIXES): the reference load driver's defaults (complete,
+    serial engine, buckets 8/16/32, sizes 5-27, 200 req/s for 3 s); card
+    scale on the batch kernels (complete, kernel engine, buckets
+    128/256/512, sizes 100-512 in 16-D, ``max_batch`` 64, 5 s); and ward
+    point sets in 64-D that go to the batched chain (buckets 64/128/256,
+    ``max_batch`` 32, 3 s).  Each mix finds the rate a closed loop
+    sustains for 3 s; the last two run open loop at 0.8 of it.  Each mix warms a
+    service (programs built, graphs captured, each program's bytes), runs
+    open loop (requests a second, p50/p99 latency, pad waste) and again
+    under the profiler (busy time and idle share of the steady window).
+    Gates: no program built and no graph captured after warmup; no
+    request failed, shed, expired or unresolved; 64 sampled responses
+    equal ``cluster_batch`` of the same problems (LW bit for bit, the
+    chain as dendrograms); on the kernel engine, the launches of the
+    dispatched buckets' plans.
+15. One line ``{"kernels": [...]}`` with each kernel's numbers (the batch
+    entries beside the others, with their launches in the service's card
+    mix), the card's ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counters set to 0 just before it
 and read just after.  Phase 6's profiled chain run (``--profile-chain``),
-phases 10-12 (``--later-phases``) and phase 13 (``--batch``) run in child
-processes of this script, for the profiler's sake (``run_child``).
+phases 10-12 (``--later-phases``), phase 13 (``--batch``) and phase 14
+(``--service``) run in child processes of this script, for the
+profiler's sake (``run_child``).
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.
 """
@@ -1028,11 +1046,15 @@ def device_busy(torch, call, wall_s: float, launches: dict):
     fewer runs the call again, profiled, up to PROFILER_TRIES times in
     all (CUPTI drops whole sessions' records at random: ``run_child``),
     with the counters set to 0 before each run; ``profiler_tries`` says
-    how many it took.  Returns what the last run of ``call`` returned,
-    and the numbers."""
+    how many it took.  ``launches`` None takes the counters as each
+    profiled run leaves them (a service run, whose batching and so its
+    launches vary from run to run), and ``wall_s`` None the profiled run's
+    wall.  Returns what the last run of ``call`` returned, and the
+    numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    expected = launches
     for tries in range(1, PROFILER_TRIES + 1):
         reset_counters()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1040,6 +1062,7 @@ def device_busy(torch, call, wall_s: float, launches: dict):
             res = call()
             torch.cuda.synchronize()
             profiled_wall = time.perf_counter() - t0
+        launches = read_counters() if expected is None else expected
         busy_ns = 0
         kernel_ns, kernel_n = dict.fromkeys(KERNEL_SYMBOLS, 0), dict.fromkeys(KERNEL_SYMBOLS, 0)
         # the raw records: building prof.events() costs ~70 us a record
@@ -1064,7 +1087,7 @@ def device_busy(torch, call, wall_s: float, launches: dict):
             raise AssertionError(seen)
         print(f"{seen}: profiling the run again", flush=True)
     busy_s = busy_ns / 1e9
-    return res, dict(device_busy_s=busy_s, idle_share=1 - busy_s / wall_s,
+    return res, dict(device_busy_s=busy_s, idle_share=1 - busy_s / (wall_s or profiled_wall),
                      profiled_wall_s=profiled_wall, profiler_missed=missed,
                      profiler_tries=tries,
                      kernel_ms_mean={k: kernel_ns[k] / 1e6 / max(kernel_n[k], 1)
@@ -1827,8 +1850,205 @@ def phase_batch(torch, np, spec: dict) -> dict:
     return out
 
 
+#: Phase 14's traffic mixes: each a service configuration, the problems it
+#: is sent (real sizes drawn uniformly, points in ``dim`` dimensions, sent
+#: as matrices unless ``points``), the rate a closed loop of ``closed_s``
+#: seconds sustains on a service of its own, and the open-loop rate:
+#: ``rate`` req/s, or ``None`` for 0.8 of the closed loop's.  The open loop
+#: runs ``duration_s`` seconds, or longer where that rate would send fewer
+#: than SERVICE_MIN_REQUESTS requests.
+SERVICE_MIXES = {
+    # the reference load driver's defaults (repro.service.server main)
+    "default": dict(config=dict(method="complete", engine="serial", bucket_ns=(8, 16, 32),
+                                max_batch=8, max_delay_ms=2.0),
+                    sizes=(5, 8, 12, 20, 27), dim=8, points=False, rate=200.0,
+                    closed_s=3.0, duration_s=3.0),
+    # batch_dedup's sizes at card scale, on the batch kernels
+    "card": dict(config=dict(method="complete", engine="kernel", bucket_ns=(128, 256, 512),
+                             max_batch=64, max_delay_ms=5.0),
+                 sizes=tuple(range(100, 513)), dim=16, points=False, rate=None,
+                 closed_s=3.0, duration_s=5.0),
+    # ward point sets that default knobs send to the batched chain
+    "points": dict(config=dict(method="ward", engine="serial", algorithm="auto",
+                               points_dim=64, bucket_ns=(64, 128, 256), max_batch=32,
+                               max_delay_ms=5.0),
+                   sizes=tuple(range(33, 257)), dim=64, points=True, rate=None,
+                   closed_s=3.0, duration_s=3.0),
+}
+SERVICE_SAMPLE = 64            # responses a mix holds against cluster_batch
+SERVICE_MIN_REQUESTS = 3 * SERVICE_SAMPLE   # an open loop's least requests (its p99's base)
+
+
+def builds() -> tuple[int, int]:
+    """Bucket programs built and CUDA graphs captured in this process."""
+    from repro_torch.core.batched import BucketProgram
+    from repro_torch.kernels.lw_step import MergeGraph
+    from repro_torch.kernels.pairwise import TripGraph
+
+    return BucketProgram.built, MergeGraph.captures + TripGraph.captures
+
+
+def classify(futures) -> dict:
+    """Resolved futures by their typed outcome; unresolved ones apart."""
+    from repro_torch.service import DeadlineExceeded, ServiceOverloaded
+
+    out = dict(completed=0, failed=0, shed=0, expired=0, unresolved=0)
+    for f in futures:
+        exc = f.exception() if f.done() else None
+        key = ("unresolved" if not f.done() else "completed" if exc is None
+               else "shed" if isinstance(exc, ServiceOverloaded)
+               else "expired" if isinstance(exc, DeadlineExceeded) else "failed")
+        out[key] += 1
+    return out
+
+
+def service_load(torch, svc, mix: dict, rate: float, duration: float, seed: int) -> tuple:
+    """One open-loop run of ``duration`` seconds on a warmed service with
+    the counters set to 0 just before it: its futures, and the run's
+    numbers (elapsed, outcomes,
+    requests a second, builds and captures during it, launches, graph
+    replays, the buckets dispatched)."""
+    from repro_torch.kernels.lw_step import MergeGraph
+    from repro_torch.obs import spans_by_name
+    from repro_torch.service.server import run_load
+
+    torch.cuda.synchronize()
+    built0, compiles0 = builds(), svc.cache.stats.compiles
+    n_events = len(spans_by_name(svc.tracer.events(), "bucket"))
+    reset_counters()
+    futures, elapsed, drained = run_load(svc, rate_hz=rate, duration_s=duration,
+                                         sizes=mix["sizes"], seed=seed, dim=mix["dim"],
+                                         as_points=mix["points"])
+    torch.cuda.synchronize()
+    launches, replays = read_counters(), MergeGraph.replays
+    built = builds()
+    buckets = [int(e.args["signature"].split("/n")[1].split("/")[0])
+               for e in spans_by_name(svc.tracer.events(), "bucket")[n_events:]]
+    outcome = classify(futures)
+    return futures, dict(elapsed_s=elapsed, drained=drained, submitted=len(futures), **outcome,
+                         rps=outcome["completed"] / elapsed,
+                         steady_builds=built[0] - built0[0] + svc.cache.stats.compiles
+                         - compiles0, steady_captures=built[1] - built0[1],
+                         launches=launches, merge_replays=replays, buckets=len(buckets),
+                         bucket_ns=buckets)
+
+
+def check_service_samples(torch, np, mix: dict, futures, what: str) -> dict:
+    """SERVICE_SAMPLE responses against ``cluster_batch`` of the same
+    problems with the same engine and knobs, on the card: LW lists bit for
+    bit, chain lists as dendrograms (``merges_equivalent``)."""
+    from repro_torch.core import cluster_batch
+
+    cfg = mix["config"]
+    done = [f.result() for f in futures if f.done() and f.exception() is None]
+    if len(done) < SERVICE_SAMPLE:
+        raise AssertionError(f"{what}: {len(done)} responses, fewer than the "
+                             f"{SERVICE_SAMPLE} to sample")
+    picks = np.random.default_rng(7).choice(len(done), SERVICE_SAMPLE, replace=False)
+    got = [done[i] for i in picks]
+    inputs = [r.points if r.points is not None else r.distances for r in got]
+    want = cluster_batch(inputs, cfg["method"], backend=cfg["engine"],
+                         algorithm=cfg.get("algorithm", "auto"), is_distance=not mix["points"])
+    chain = 0
+    for r, w, i in zip(got, want, picks):
+        if r.algorithm != w.algorithm:
+            raise AssertionError(f"{what}: response {i} ran {r.algorithm}, cluster_batch "
+                                 f"{w.algorithm}")
+        if r.algorithm == "nnchain":
+            check_equivalent(np, r.merges, w.merges, r.n, f"{what}, response {i}")
+            chain += 1
+        else:
+            check_bit_equal(np, r.merges, w.merges, f"{what}, response {i}")
+    return dict(sampled=len(got), sampled_chain=chain)
+
+
+def service_mix(torch, np, name: str, mix: dict) -> dict:
+    """One traffic mix (phase 14): a closed-loop probe on a service of its
+    own, then a fresh service warmed and driven open loop
+    at the mix's rate, checked, and driven again for its base window under
+    the profiler for the busy time.  Gates: no build and no capture after
+    warmup, no request failed, shed, expired or left unresolved, the
+    sampled responses equal ``cluster_batch``'s, and on the kernel engine
+    the launches of the dispatched buckets' plans."""
+    from repro_torch.obs import Tracer
+    from repro_torch.service import ClusteringService, ServiceConfig
+    from repro_torch.service.server import run_closed_loop
+
+    cfg = ServiceConfig(**mix["config"])
+    torch.cuda.reset_peak_memory_stats()
+    with ClusteringService(cfg) as probe:
+        probe.warmup()
+        capacity = run_closed_loop(probe, duration_s=mix["closed_s"], sizes=mix["sizes"],
+                                   seed=1, dim=mix["dim"], as_points=mix["points"],
+                                   concurrency=max(2 * cfg.max_batch, 8))
+    rate = mix["rate"] or 0.8 * capacity
+    duration = max(mix["duration_s"], SERVICE_MIN_REQUESTS / rate)
+    out = dict(closed_loop_rps=capacity, window_s=duration)
+    torch.cuda.empty_cache()
+    with ClusteringService(cfg, tracer=Tracer(max_events=1_000_000)) as svc:
+        built0 = builds()
+        t0 = time.perf_counter()
+        warmed = svc.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        built = builds()
+        progs = svc.cache.programs()
+        out.update(rate_rps=rate, warmup_s=warm_s, warmup_programs=warmed,
+                   warmup_programs_counted=built[0] - built0[0],
+                   warmup_captures=built[1] - built0[1],
+                   program_bytes={f"n{p.sig.bucket_n}/B{p.sig.bucket_B}": p.nbytes
+                                  for p in progs},
+                   programs_gib=sum(p.nbytes for p in progs) / 2**30)
+        futures, run = service_load(torch, svc, mix, rate, duration, seed=2)
+        snap = svc.metrics.snapshot(svc.cache)
+        out.update(run, p50_ms=snap.p50_ms, p99_ms=snap.p99_ms, pad_waste=snap.pad_waste,
+                   mean_batch=snap.mean_batch_size, cache_hit_rate=snap.cache_hit_rate)
+        what = f"service {name}"
+        bad = {k: run[k] for k in ("failed", "shed", "expired", "unresolved") if run[k]}
+        if bad or not run["drained"]:
+            raise AssertionError(f"{what}: requests not served at {rate:.6g} req/s: {bad}")
+        if run["steady_builds"] or run["steady_captures"]:
+            raise AssertionError(f"{what}: steady traffic built {run['steady_builds']} programs "
+                                 f"and captured {run['steady_captures']} graphs")
+        if cfg.engine == "kernel":
+            check_batch_run(run, "kernel", cfg.variant, run["bucket_ns"], what)
+        else:
+            check_launches(run["launches"], {}, what)
+        out.update(check_service_samples(torch, np, mix, futures, what))
+
+        # the mix's base window again, profiled: its busy time and idle share
+        # (a window stretched to SERVICE_MIN_REQUESTS is not: the points
+        # mix's ~10^6 plain-torch launch records would take a minute to read)
+        def again():
+            return service_load(torch, svc, mix, rate, mix["duration_s"], seed=3)[1]
+
+        second, busy = device_busy(torch, again, None, None)
+        if second["steady_builds"] or second["steady_captures"] or second["completed"] != \
+                second["submitted"]:
+            raise AssertionError(f"{what}, profiled run: {second}")
+        out.update(profiled_rps=second["rps"],
+                   device_busy_s=busy["device_busy_s"],
+                   idle_share=1 - busy["device_busy_s"] / second["elapsed_s"],
+                   profiler_tries=busy["profiler_tries"])
+    out.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del out["bucket_ns"]
+    return out
+
+
+def phase_service(torch, np, spec: dict) -> dict:
+    """Phase 14, in a process of its own (``run_child``): the clustering
+    service on the card under each of SERVICE_MIXES."""
+    out = {}
+    for name, mix in SERVICE_MIXES.items():
+        out[name] = service_mix(torch, np, name, mix)
+        say(f"phase 14 service {name}: " + json.dumps(out[name]))
+        torch.cuda.empty_cache()
+    return out
+
+
 LATER_PHASES_FLAG, PROFILE_CHAIN_FLAG = "--later-phases", "--profile-chain"
 BATCH_FLAG = "--batch"
+SERVICE_FLAG = "--service"
 
 
 def run_child(torch, flag: str, spec: dict) -> dict:
@@ -1894,7 +2114,7 @@ def phases_10_to_12(torch, np, spec: dict) -> dict:
 
 
 CHILDREN = {LATER_PHASES_FLAG: phases_10_to_12, PROFILE_CHAIN_FLAG: profile_chain,
-            BATCH_FLAG: phase_batch}
+            BATCH_FLAG: phase_batch, SERVICE_FLAG: phase_service}
 
 
 def child(flag: str) -> int:
@@ -1913,7 +2133,7 @@ def child(flag: str) -> int:
 
 def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
             serial: dict, lazy: dict, assigned: dict, landmark: dict, rmsd: dict,
-            batch: dict) -> str:
+            batch: dict, service: dict) -> str:
     """The numbers a reader checks first, on one line near the end."""
     def g(x):
         return f"{x:.6g}"
@@ -1982,11 +2202,19 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
     parts.append(f"batch ragged buckets {batch['ragged']['buckets']} pad_waste "
                  f"{g(batch['ragged']['pad_waste'])}; batch points trips max "
                  f"{batch['points']['trips_max']} mean {g(batch['points']['trips_mean'])}")
+    for name, s in service.items():
+        parts.append(f"service {name} at {g(s['rate_rps'])} req/s"
+                     + f" (closed loop {g(s['closed_loop_rps'])})"
+                     + f": served {s['completed']}/{s['submitted']} rps {g(s['rps'])} p50_ms "
+                     f"{g(s['p50_ms'])} p99_ms {g(s['p99_ms'])} pad_waste {g(s['pad_waste'])} "
+                     f"busy_s {g(s['device_busy_s'])} idle {g(s['idle_share'])} warmup "
+                     f"{s['warmup_programs']} programs {s['warmup_captures']} graphs, steady "
+                     f"{s['steady_builds']}/{s['steady_captures']} peak_gib {g(s['peak_gib'])}")
     return "summary: " + "; ".join(parts)
 
 
 def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assigned: dict,
-                     batch: dict) -> list:
+                     batch: dict, service: dict) -> list:
     """The ``{"kernels": [...]}`` line: each TPU kernel's CUDA counterpart
     with its main-path entry's numbers first and every entry listed."""
     src = {"masked_argmin": ("src/repro_torch/csrc/minscan.cu", "src/repro/kernels/minscan.py:71"),
@@ -2030,6 +2258,8 @@ def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assign
                                         assigned["centroid"]["kernel"])])):
         listed = [dict(entry=entry, **numbers(key, path, entry)) for entry, key, path in entries]
         for row in listed:                        # the lazy merges' second launch, the rescan
+            if row["entry"] in service["card"]["launches"] and row["entry"].endswith("_batch"):
+                row["service_launches"] = service["card"]["launches"][row["entry"]]
             if row["entry"] == "lazy_merge":
                 row["rescan_launches"] = lazy["launches"]["lazy_rescan"]
             elif row["entry"] == "lazy_merge_batch":
@@ -2149,11 +2379,12 @@ def main() -> int:
     assigned, landmark, rmsd = later["assigned"], later["landmark"], later["rmsd"]
     del paper_chain, points_res
     batch = run_child(torch, BATCH_FLAG, {})
+    service = run_child(torch, SERVICE_FLAG, {})
 
-    # 14. inventory, card, result
-    inventory = kernel_inventory(kernels, full, lazy, points, assigned, batch)
+    # 15. inventory, card, result
+    inventory = kernel_inventory(kernels, full, lazy, points, assigned, batch, service)
     print(summary(kernels, paper, full, dense, points, serial, lazy, assigned, landmark, rmsd,
-                  batch))
+                  batch, service))
     print(json.dumps({"kernels": inventory}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

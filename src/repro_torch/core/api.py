@@ -118,19 +118,28 @@ class ClusterResult:
         return np.stack([X[labels == c].mean(axis=0) for c in range(k)])
 
 
-def build_distance_matrix(X, metric: str = "euclidean", *, device=None) -> torch.Tensor:
-    """``(n, d)`` points (``(n, atoms, 3)`` conformations for ``rmsd``) →
-    ``(n, n)`` float32 distances on ``device``."""
+def check_points(X, metric: str) -> np.ndarray:
+    """``X`` as an array, after the checks :func:`build_distance_matrix`
+    makes of its points and metric (raises ``ValueError``)."""
     X = np.asarray(X)
     if metric == "rmsd":
         if X.ndim != 3 or X.shape[-1] != 3:
             raise ValueError("rmsd metric expects (n, atoms, 3) conformations")
-        return pairwise_rmsd(torch.as_tensor(X, dtype=torch.float32,
-                                             device=resolve_device(device)))
+        return X
     if X.ndim != 2:
         raise ValueError(f"expected (n, d) points, got {X.shape}")
     if metric not in ("euclidean", "sqeuclidean"):
         raise ValueError(f"unknown metric {metric!r}")
+    return X
+
+
+def build_distance_matrix(X, metric: str = "euclidean", *, device=None) -> torch.Tensor:
+    """``(n, d)`` points (``(n, atoms, 3)`` conformations for ``rmsd``) →
+    ``(n, n)`` float32 distances on ``device``."""
+    X = check_points(X, metric)
+    if metric == "rmsd":
+        return pairwise_rmsd(torch.as_tensor(X, dtype=torch.float32,
+                                             device=resolve_device(device)))
     Xt = torch.as_tensor(X, dtype=torch.float32, device=resolve_device(device))
     return pairwise_euclidean(Xt) if metric == "euclidean" else pairwise_sq_euclidean(Xt)
 

@@ -17,13 +17,15 @@ merges.  Two compositions:
   the lane axis.  It launches no hand-written kernel.  A lane that ran out
   of live pairs merges garbage (slot 0 with itself, at ``+inf``) in its own
   slices, as the reference's lanes do; those rows are past its prefix.
-* **kernel** (:func:`run_kernel_batch`): the batch-grid forms of the
-  kernels on device-resident ``(B, …)`` buffers: B1's batch seed once a
-  stage, then one launch of B2's batch merge a lockstep merge (``lazy``:
-  B3's batch merge and rescan), replayed from a CUDA graph of
+* **kernel** (:class:`KernelBatchLoop`, :func:`run_kernel_batch`): the
+  batch-grid forms of the kernels on device-resident ``(B, …)`` buffers,
+  static for a bucket shape: B1's batch seed once a stage, then one launch
+  of B2's batch merge a lockstep merge (``lazy``: B3's batch merge and
+  rescan), replayed from a CUDA graph of
   :data:`~repro_torch.core.engine.THRESHOLD_CHECK_TRIPS` merges captured
-  once a stage; on the CPU their plain twins.  A lane that made its merges
-  (or is padding) is a no-op in the kernels, keyed on its merge limit.
+  once a stage when the loop is built; on the CPU their plain twins.  A
+  lane that made its merges (or is padding) is a no-op in the kernels,
+  keyed on its merge limit.
 
 Lane ``b`` makes ``min(max(n_real[b] − (n − n_steps), 0), n_steps)``
 merges: its own under the stop level ``n − n_steps`` that the bucket's
@@ -41,8 +43,6 @@ threshold the loop reads nothing back.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -56,7 +56,6 @@ from repro_torch.core.engine import (
     StepOps,
     _cache_invalidate,
     _live_perm,
-    _resident_ops,
     check_knobs,
     plan_stages,
     premask,
@@ -172,64 +171,19 @@ def dense_batch_ops(method: str, n: int, variant: str, device) -> StepOps:
 
 
 # ---------------------------------------------------------------------------
-# kernel composition: the batch-grid kernels on resident (B, ...) buffers
-# ---------------------------------------------------------------------------
-
-
-def kernel_batch_ops(method: str, n: int, variant: str, limit: torch.Tensor, device) -> StepOps:
-    """The kernel primitives over the lane axis, for a stage of ``n``
-    slots: ``baseline``/``rowmin`` seed with B1's batch form and merge with
-    one launch of B2's (:func:`~repro_torch.kernels.lw_step.lw_merge_batch`);
-    ``lazy`` seeds every lane's masked row minima and merges with B3's two
-    launches (:func:`~repro_torch.kernels.lw_update.lazy_merge_batch`), on
-    buffers built once a stage around the state and the lanes' merge
-    ``limit``.  On a CUDA device the merges replay from a
-    :class:`~repro_torch.kernels.lw_step.MergeGraph`."""
-    from repro_torch.kernels import lw_step, lw_update
-    from repro_torch.kernels.minscan import masked_argmin_batch
-
-    on_card = torch.device(device).type == "cuda"
-    if variant == "lazy":
-        merge = lw_update.lazy_merge_batch
-
-        def seed(s: LWState) -> LWState:
-            rmin, rarg = masked_row_mins_batch(s.D, s.alive)
-            return s._replace(cache=(rmin, rarg), cand=cached_cand_batch(s.alive, rmin, rarg))
-
-        def buffers(s: LWState):
-            return lw_update.lazy_batch_buffers(s.D, s.alive, s.sizes, s.merges, s.cand, s.cache,
-                                                s.n_merges, limit)
-
-        kind = lw_update.LazyBatchBuffers
-    else:
-        merge = lw_step.lw_merge_batch
-
-        def seed(s: LWState) -> LWState:
-            v, flat = masked_argmin_batch(s.D, s.alive)
-            return s._replace(cand=(torch.div(flat, n, rounding_mode="floor"), flat % n, v))
-
-        def buffers(s: LWState):
-            return lw_step.merge_batch_buffers(s.D, s.alive, s.sizes, s.merges, s.cand,
-                                               s.n_merges, limit)
-
-        kind = lw_step.MergeBatchBuffers
-    graph = functools.partial(lw_step.MergeGraph, merge=merge) if on_card else None
-    return _resident_ops(method, seed, buffers, kind, merge, graph)
-
-
-# ---------------------------------------------------------------------------
 # compaction over the lane axis, and the staged lockstep loop
 # ---------------------------------------------------------------------------
 
 
-def compact_batch(D, alive, sizes, remap, half: int, *, premasked: bool = True):
+def compact_batch(D, alive, sizes, remap, half: int, *, premasked: bool = True, out=None):
     """:func:`repro_torch.core.engine.compact_dense` for every lane in one
     pass: each lane's live rows and columns packed, ascending, into a ``(B,
     half, half)`` stack, a few rows of every lane at a time.  Returns ``(D',
-    alive', sizes', remap')``."""
+    alive', sizes', remap')``; with ``out = (D', alive', sizes')`` the first
+    three are written into those tensors (a static stage's buffers)."""
     B, n = alive.shape
     live, p = _live_perm(alive, half)
-    Dn = torch.empty((B, half, half), dtype=D.dtype, device=D.device)
+    Dn = torch.empty((B, half, half), dtype=D.dtype, device=D.device) if out is None else out[0]
     step = max(1, RESCAN_ROWS // B)
     for a in range(0, half, step):
         rows = p[:, a:a + step]
@@ -237,7 +191,10 @@ def compact_batch(D, alive, sizes, remap, half: int, *, premasked: bool = True):
         Dn[:, a:a + rows.shape[1]] = block.gather(2, p[:, None, :].expand(-1, rows.shape[1], -1))
     if premasked:
         premask(Dn, live)
-    return Dn, live, torch.where(live, sizes.gather(1, p), 0.0), remap.gather(1, p)
+    new_sizes = torch.where(live, sizes.gather(1, p), 0.0)
+    if out is not None:
+        live, new_sizes = out[1].copy_(live), out[2].copy_(new_sizes)
+    return Dn, live, new_sizes, remap.gather(1, p)
 
 
 def _remap_rows(merges, remap, start: int, stop: int) -> None:
@@ -331,6 +288,151 @@ def run_dense_batch(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_step
     )
 
 
+class KernelBatchLoop:
+    """The kernel lockstep loop of one bucket shape on static buffers:
+    built once, run many times (a service's bucket programs run it again
+    and again; :func:`run_kernel_batch` builds one for one run).
+
+    Every tensor the loop's merges touch is allocated by the loop, around
+    the ``(B, n, n)`` operand ``D`` (stage 0's matrix, kept and updated in
+    place by a run): the liveness, sizes, the ``(B, n_steps, 4)`` record
+    and the lanes' merge limits here, and for each compaction stage of the
+    plan its matrix, liveness and sizes (after the first) and its merge
+    buffers (:class:`~repro_torch.kernels.lw_step.MergeBatchBuffers`, or
+    for ``lazy`` :class:`~repro_torch.kernels.lw_update.LazyBatchBuffers`
+    with the row-minimum caches).  On a CUDA device each stage of at least
+    :data:`~repro_torch.core.engine.THRESHOLD_CHECK_TRIPS` merges captures
+    its :class:`~repro_torch.kernels.lw_step.MergeGraph` once.  A stage is
+    built when a run first reaches it, so a one-shot run that stops early
+    pays for no later stage; ``eager=True`` builds every stage here (a
+    cached program, whose runs then build and capture nothing).
+
+    :meth:`run` writes the lanes' liveness, sizes, limits and a cleared
+    record, then runs :func:`run_batch_loop`; each stage's seed resets its
+    buffers in place (the merge count at the stage's start, the per-row
+    minima, the kernels' sync words and tickets, and for ``lazy`` the stale
+    lists and the caches from the seed's scan) before it writes the
+    candidate.  The merges are a fresh loop's bit for bit.
+    """
+
+    def __init__(self, D: torch.Tensor, *, method: str, n_steps: int,
+                 variant: str = "baseline", compaction: bool = False, eager: bool = False):
+        check_knobs(method, variant)
+        B, n, dev = D.shape[0], D.shape[-1], D.device
+        self.method, self.variant, self.D = method, variant, D
+        self.stages = (plan_stages(n, n_steps, min_stage=engine.KERNEL_MIN_STAGE)
+                       if compaction else ((n, n_steps),))
+        self.alive = torch.zeros((B, n), dtype=torch.bool, device=dev)
+        self.sizes = torch.zeros((B, n), dtype=torch.float32, device=dev)
+        self.merges = torch.zeros((B, n_steps, 4), dtype=torch.float32, device=dev)
+        self.limit = torch.zeros(B, dtype=torch.int64, device=dev)
+        zero = torch.zeros(B, dtype=torch.int64, device=dev)
+        self._cand = (zero, zero, torch.zeros(B, dtype=torch.float32, device=dev))
+        self._stages: dict[int, tuple] = {}
+        if eager:
+            for size, _ in self.stages:
+                self._stage(size)
+
+    def _stage(self, size: int) -> tuple:
+        """The stage of ``size`` slots: ``(start, buffers, merge, sync words,
+        graph)``, built (and on a card captured) on first use."""
+        if size in self._stages:
+            return self._stages[size]
+        from repro_torch.kernels import lw_step, lw_update
+
+        B, dev = self.D.shape[0], self.D.device
+        si = [s for s, _ in self.stages].index(size)
+        start, steps = sum(k for _, k in self.stages[:si]), self.stages[si][1]
+        if si == 0:
+            Ds, alive, sizes = self.D, self.alive, self.sizes
+        else:
+            Ds = torch.zeros((B, size, size), dtype=torch.float32, device=dev)
+            alive = torch.zeros((B, size), dtype=torch.bool, device=dev)
+            sizes = torch.zeros((B, size), dtype=torch.float32, device=dev)
+        if self.variant == "lazy":
+            cache = (torch.full((B, size), _INF, device=dev),
+                     torch.zeros((B, size), dtype=torch.int64, device=dev))
+            b = lw_update.lazy_batch_buffers(Ds, alive, sizes, self.merges, self._cand, cache,
+                                             start, self.limit)
+            merge, sync = lw_update.lazy_merge_batch, lw_update._SYNC_INIT
+        else:
+            b = lw_step.merge_batch_buffers(Ds, alive, sizes, self.merges, self._cand, start,
+                                            self.limit)
+            merge, sync = lw_step.lw_merge_batch, (lw_step._KEY_INIT, 0)
+        graph = (lw_step.MergeGraph(self.method, b, THRESHOLD_CHECK_TRIPS, merge=merge)
+                 if dev.type == "cuda" and steps >= THRESHOLD_CHECK_TRIPS else None)
+        self._stages[size] = (start, b, merge, sync, graph)
+        return self._stages[size]
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every static device tensor of the loop (views of one storage
+        once): the operand, the record and each built stage's buffers."""
+        seen, out = set(), []
+        own = [self.D, self.alive, self.sizes, self.merges, self.limit, *self._cand]
+        for t in own + [t for _, b, *_ in self._stages.values() for t in b]:
+            if t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                out.append(t)
+        return out
+
+    def _ops(self, size: int) -> StepOps:
+        from repro_torch.kernels.lw_step import alive_bits
+        from repro_torch.kernels.minscan import masked_argmin_batch
+
+        start, b, merge_fn, sync, graph = self._stage(size)
+        lazy = self.variant == "lazy"
+
+        def seed(s: LWState) -> LWState:
+            b.count.fill_(start)
+            for k, w in enumerate(sync):
+                b.sync[:, k].fill_(w)
+            if lazy:
+                b.stale.zero_()
+                b.n_stale.zero_()
+                b.rescanned.zero_()
+                rmin, rarg = masked_row_mins_batch(s.D, s.alive)
+                r, c, m = cached_cand_batch(s.alive, rmin, rarg)
+                b.rmin.copy_(rmin)
+                b.rarg.copy_(rarg)
+            else:
+                b.bits.copy_(alive_bits(s.alive))
+                b.rmin.fill_(_INF)
+                b.rarg.zero_()
+                m, flat = masked_argmin_batch(s.D, s.alive)
+                r, c = torch.div(flat, size, rounding_mode="floor"), flat % size
+            b.cand[:, 0].copy_(r)
+            b.cand[:, 1].copy_(c)
+            b.dmin.copy_(m)
+            return s._replace(cand=(b.cand[:, 0], b.cand[:, 1], b.dmin), cache=b)
+
+        def merge(s: LWState) -> LWState:
+            merge_fn(self.method, b)
+            return s._replace(n_merges=s.n_merges + 1)
+
+        def replay(s: LWState) -> LWState:
+            graph.replay()
+            return s._replace(n_merges=s.n_merges + graph.merges)
+
+        return StepOps(seed=seed, merge=merge, replay=None if graph is None else replay)
+
+    def _compact(self, s: LWState, remap: torch.Tensor, size: int):
+        b = self._stage(size)[1]
+        return compact_batch(s.D, s.alive, s.sizes, remap, size, premasked=False,
+                             out=(b.D, b.alive, b.sizes))
+
+    def run(self, alive: torch.Tensor, distance_threshold: float | None = None) -> LWResult:
+        """One run over the operand ``D`` (symmetric, updated in place) with
+        ``(B, n)`` liveness ``alive``: as :func:`run_kernel_batch` returns,
+        the record being the loop's own static tensor."""
+        self.alive.copy_(alive)
+        self.sizes.copy_(alive)
+        self.limit.copy_(lane_limits(alive, self.merges.shape[1]))
+        self.merges.zero_()
+        state = LWState(self.D, self.alive, self.sizes, self.merges, 0, (), ())
+        return run_batch_loop(self.stages, state, self.limit, distance_threshold,
+                              ops_for=self._ops, compact=self._compact)
+
+
 def run_kernel_batch(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_steps: int,
                      variant: str = "baseline", distance_threshold: float | None = None,
                      compaction: bool = False) -> LWResult:
@@ -338,16 +440,9 @@ def run_kernel_batch(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_ste
     ``D`` (updated in place) with ``(B, n)`` liveness ``alive``: ``n_steps``
     lockstep merges on the batch-grid kernels, staged down to
     :data:`~repro_torch.core.engine.KERNEL_MIN_STAGE` with ``compaction``
-    (each stage seeds again and builds its own buffers and graph).  Returns
-    as :func:`run_dense_batch`."""
-    check_knobs(method, variant)
-    n, dev = alive.shape[1], D.device
-    limit = lane_limits(alive, n_steps)
-    return run_batch_loop(
-        plan_stages(n, n_steps, min_stage=engine.KERNEL_MIN_STAGE) if compaction
-        else ((n, n_steps),),
-        _init_batch_state(D, alive, n_steps), limit, distance_threshold,
-        ops_for=lambda size: kernel_batch_ops(method, size, variant, limit, dev),
-        compact=lambda s, remap, size: compact_batch(s.D, s.alive, s.sizes, remap, size,
-                                                     premasked=False),
-    )
+    (each stage seeds again, on its own buffers and graph).  One run of a
+    :class:`KernelBatchLoop` built around ``D``.  Returns as
+    :func:`run_dense_batch`."""
+    loop = KernelBatchLoop(D, method=method, n_steps=n_steps, variant=variant,
+                           compaction=compaction)
+    return loop.run(alive, distance_threshold)

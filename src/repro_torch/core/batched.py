@@ -28,13 +28,15 @@ over a mesh) is not ported yet: ``engine="distributed"`` raises
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from repro_torch.core import dendrogram as dg
-from repro_torch.core.batch_engine import run_dense_batch
+from repro_torch.core.batch_engine import KernelBatchLoop, run_dense_batch
 from repro_torch.core.engine import VARIANTS, resolve_compaction, resolve_device, symmetrize
 from repro_torch.core.linkage import METHODS
 from repro_torch.core.nnchain import (
@@ -165,38 +167,36 @@ class BatchStats:
 # ---------------------------------------------------------------------------
 
 
-def _stack_bucket(arrays, shape: tuple, device) -> torch.Tensor:
-    """One allocation on ``device``: the real problems (numpy arrays or
-    tensors) in the first lanes, at the top-left of their lane, and zeros
-    everywhere else (dead slots and dead problems)."""
-    out = torch.zeros(shape, dtype=torch.float32, device=device)
+def _fill_lanes(out: torch.Tensor, arrays, dirty: int) -> torch.Tensor:
+    """Write the real problems (numpy arrays or tensors) into the first
+    lanes of ``out``, each at the top-left of its lane, after zeroing the
+    first ``max(dirty, len(arrays))`` lanes: ``out`` is zero past the lanes
+    an earlier fill wrote (``dirty``), so padding stays zero."""
+    out[: max(dirty, len(arrays))].zero_()
     for b, a in enumerate(arrays):
         a = torch.as_tensor(a, dtype=torch.float32)
         out[(b, *(slice(0, k) for k in a.shape))] = a
     return out
 
 
-def _n_real(arrays, B_pad: int, device) -> torch.Tensor:
-    n_real = np.zeros((B_pad,), np.int64)
-    n_real[: len(arrays)] = [a.shape[0] for a in arrays]
-    return torch.as_tensor(n_real, device=device)
-
-
-def pack_bucket(mats: list, sig: BucketSignature, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+def pack_bucket(problems: list, sig: BucketSignature,
+                device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
     """Stack one bucket's problems into the engine's operand layout on
-    ``device``: ``(bucket_B, bucket_n, bucket_n)`` float32 matrices
-    (padded slots and problems zero) and the ``(bucket_B,)`` real sizes."""
-    shape = (sig.bucket_B, sig.bucket_n, sig.bucket_n)
-    return _stack_bucket(mats, shape, device), _n_real(mats, sig.bucket_B, device)
+    ``device``, as a run packs them (:meth:`BucketProgram.load` of a
+    program built for ``sig``): ``(bucket_B, bucket_n, bucket_n)`` float32
+    matrices, or ``(bucket_B, bucket_n, points_dim)`` points for a
+    matrix-free signature (padded slots and problems zero), and the
+    ``(bucket_B,)`` real sizes."""
+    prog = BucketProgram(sig, device)
+    prog.load(problems)
+    return prog.operand, prog.n_real
 
 
 def pack_points_bucket(points: list, sig: BucketSignature,
                        device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
-    """Stack one matrix-free bucket's point sets on ``device``: ``(bucket_B,
-    bucket_n, points_dim)`` float32 points (padding rows zero and inert)
-    and the ``(bucket_B,)`` real sizes; a padded lane costs O(n·d)."""
-    shape = (sig.bucket_B, sig.bucket_n, sig.points_dim)
-    return _stack_bucket(points, shape, device), _n_real(points, sig.bucket_B, device)
+    """:func:`pack_bucket` of a matrix-free bucket's ``(n_b, d)`` point
+    sets: a padded lane costs O(n·d)."""
+    return pack_bucket(points, sig, device)
 
 
 def merge_prefix(n: int, stop_at_k: int, n_merges: int) -> int:
@@ -207,32 +207,124 @@ def merge_prefix(n: int, stop_at_k: int, n_merges: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# the engines of one bucket
+# the bucket program: one signature's run on one device
 # ---------------------------------------------------------------------------
 
 
-def _run_serial(Db, n_real, threshold, *, method, n_steps, variant, with_threshold,
-                compaction=False):
-    """Serial batched engine: the lockstep plain-torch loop."""
-    n = Db.shape[-1]
-    return run_dense_batch(
-        symmetrize(Db), torch.arange(n, device=Db.device) < n_real[:, None], method=method,
-        n_steps=n_steps, variant=variant,
-        distance_threshold=threshold if with_threshold else None, compaction=compaction,
-    )
+class BucketProgram:
+    """One :class:`BucketSignature`'s run on one device, built once and run
+    many times: the port's counterpart of the JAX package's AOT-compiled
+    bucket executable (:mod:`repro_torch.service.cache` keeps them).
+
+    It allocates the bucket's operand once, ``(B, n, n)`` float32 (``(B, n,
+    d)`` for a matrix-free chain bucket), with the ``(B,)`` real sizes and
+    a host staging copy of each (pinned on a CUDA device).  The kernel
+    engine's LW bucket also builds its :class:`~repro_torch.core.batch_engine.KernelBatchLoop`:
+    each stage's static buffers for the signature's plan, and each stage's
+    CUDA graph, captured once.  With ``eager=True`` (a cached program) every
+    stage is built here and no run builds or captures; by default (a
+    one-shot :func:`cluster_batch_merges` bucket) a stage is built when a
+    run first reaches it, so a run that stops early pays for no later
+    stage.  The serial engine and the batched chain keep their static
+    operand and run their eager loops (their steps allocate as they go).
+
+    :meth:`run` is :meth:`load` then :meth:`execute` under the program's
+    lock: a program owns buffers that a run updates in place, so one run
+    holds it at a time (a second caller, say a worker the service's
+    watchdog abandoned, waits its turn).  :meth:`load` packs the problems
+    into the staging copy and uploads it in one copy (device tensors are
+    packed on the device directly); :meth:`execute` symmetrizes the operand
+    in place and runs the engine, returning ``(merges, n_merges)``: the
+    ``(B, n_steps, 4)`` records on the device and each lane's merge count
+    (on the device for LW, on the host for the chain).  Each lane's merges
+    are a fresh :func:`cluster_batch_merges` run's bit for bit.
+    ``BucketProgram.built`` counts the programs built in this process.
+    """
+
+    built = 0
+
+    def __init__(self, sig: BucketSignature, device="cpu", *, eager: bool = False):
+        dev = torch.device(device)
+        self.sig, self.device = sig, dev
+        self.lock = threading.Lock()
+        width = sig.points_dim or sig.bucket_n
+        shape = (sig.bucket_B, sig.bucket_n, width)
+        with _on(dev):
+            self.operand = torch.zeros(shape, dtype=torch.float32, device=dev)
+            self.n_real = torch.zeros(sig.bucket_B, dtype=torch.int64, device=dev)
+            pin = dev.type == "cuda"
+            self._staging = torch.zeros(shape, dtype=torch.float32, pin_memory=pin)
+            self._n_real_host = torch.zeros(sig.bucket_B, dtype=torch.int64, pin_memory=pin)
+            self._uploaded = torch.cuda.Event() if pin else None
+            self._used = 0              # lanes the last load wrote
+            self._loop = None
+            if sig.algorithm == "lw" and sig.engine == "kernel":
+                self._loop = KernelBatchLoop(self.operand, method=sig.method,
+                                             n_steps=sig.n_steps, variant=sig.variant,
+                                             compaction=sig.compaction, eager=eager)
+        BucketProgram.built += 1
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes the program keeps: the operand, the sizes and the
+        kernel loop's static buffers."""
+        ts = [self.operand, self.n_real]
+        if self._loop is not None:
+            ts += self._loop.tensors()[1:]      # past the operand
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def load(self, problems: list) -> None:
+        """Pack ``problems`` (numpy arrays or tensors, at most ``bucket_B``)
+        into the operand: each at the top-left of its lane, zeros in every
+        padded cell and lane."""
+        if len(problems) > self.sig.bucket_B:
+            raise ValueError(f"{len(problems)} problems exceed the bucket's {self.sig.bucket_B}")
+        ts = [torch.as_tensor(p, dtype=torch.float32) for p in problems]
+        with _on(self.device):
+            if self._uploaded is not None:
+                self._uploaded.synchronize()    # the last upload has left the host copies
+            if all(t.device.type == "cpu" for t in ts):
+                _fill_lanes(self._staging, ts, self._used)
+                self._used = len(ts)
+                self.operand.copy_(self._staging, non_blocking=True)
+            else:                               # a run rewrites the operand: zero it all
+                _fill_lanes(self.operand, ts, self.sig.bucket_B)
+            self._n_real_host.zero_()
+            self._n_real_host[: len(ts)] = torch.tensor([t.shape[0] for t in ts])
+            self.n_real.copy_(self._n_real_host, non_blocking=True)
+            if self._uploaded is not None:
+                self._uploaded.record()
+
+    def execute(self, distance_threshold: float | None = None):
+        """Run the engine on the loaded bucket; ``(merges, n_merges)``."""
+        sig, dev = self.sig, self.device
+        with _on(dev):
+            if sig.algorithm == "nnchain":
+                chain = nn_chain_batched_from_points if sig.points_dim else nn_chain_batched
+                res = chain(self.operand, self._n_real_host.numpy(), sig.method, device=dev)
+                return res.merges, res.n_merges
+            thr = distance_threshold if sig.with_threshold else None
+            alive = torch.arange(sig.bucket_n, device=dev) < self.n_real[:, None]
+            if self._loop is not None:
+                self.operand.copy_(symmetrize(self.operand))
+                res = self._loop.run(alive, thr)
+                return res.merges.clone(), res.n_merges
+            res = run_dense_batch(symmetrize(self.operand), alive, method=sig.method,
+                                  n_steps=sig.n_steps, variant=sig.variant,
+                                  distance_threshold=thr, compaction=sig.compaction)
+            return res.merges, res.n_merges
+
+    def run(self, problems: list, distance_threshold: float | None = None):
+        """:meth:`load` and :meth:`execute` under the program's lock."""
+        with self.lock:
+            self.load(problems)
+            return self.execute(distance_threshold)
 
 
-def _run_kernel(Db, n_real, threshold, *, method, n_steps, variant, with_threshold,
-                compaction=False):
-    """Kernel batched engine: the batch-grid CUDA kernels (their plain
-    twins on the CPU)."""
-    from repro_torch.kernels.ops import lance_williams_kernelized_batch
-
-    return lance_williams_kernelized_batch(
-        Db, n_real, method=method, n_steps=n_steps, variant=variant,
-        distance_threshold=threshold if with_threshold else None, compaction=compaction,
-        device=Db.device,
-    )
+def _on(dev: torch.device):
+    """The device context of a program's work: ``dev`` made current on the
+    calling thread (a service runs programs on its worker threads)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def cluster_batch_merges(
@@ -337,34 +429,23 @@ def cluster_batch_merges(
         cells_padded += B_pad * n_pad * width
         cells_real += sum(sizes[i] * (pdim or sizes[i]) for i in idxs)
 
-        if sig.algorithm == "nnchain":
-            if pdim:
-                Xb, n_real = pack_points_bucket([pts[i] for i in idxs], sig, dev)
-                res = nn_chain_batched_from_points(Xb, n_real.cpu(), method, device=dev)
-            else:
-                Db, n_real = pack_bucket([matrices[i] for i in idxs], sig, dev)
-                res = nn_chain_batched(Db, n_real.cpu(), method, device=dev)
-            merges, n_merges = res.merges.cpu().numpy(), res.n_merges.numpy()
-            for slot, idx in enumerate(idxs):
-                nr = sizes[idx]
-                if int(n_merges[slot]) != nr - 1:
-                    raise RuntimeError(
-                        "NN-chain loop hit its iteration cap before finishing — the "
-                        "input likely contains NaNs (the chain invariant needs a total "
-                        "order on distances)"
-                    )
-                canon = dg.canonical_order(merges[slot, : nr - 1], n=nr)
-                out[idx] = dg.truncate_canonical(canon, nr, stop_at_k, distance_threshold)
-            continue
-
-        Db, n_real = pack_bucket([matrices[i] for i in idxs], sig, dev)
-        run = _run_serial if engine == "serial" else _run_kernel
-        res = run(Db, n_real, distance_threshold, method=method, n_steps=sig.n_steps,
-                  variant=variant, with_threshold=sig.with_threshold,
-                  compaction=sig.compaction)
-        merges, n_merges = res.merges.cpu().numpy(), res.n_merges.cpu().numpy()
+        prog = BucketProgram(sig, dev)
+        merges, n_merges = prog.run([pts[i] if pdim else matrices[i] for i in idxs],
+                                    distance_threshold)
+        merges, n_merges = merges.cpu().numpy(), n_merges.cpu().numpy()
         for slot, idx in enumerate(idxs):
-            out[idx] = merges[slot, : merge_prefix(sizes[idx], stop_at_k, n_merges[slot])]
+            nr = sizes[idx]
+            if sig.algorithm == "lw":
+                out[idx] = merges[slot, : merge_prefix(nr, stop_at_k, n_merges[slot])]
+                continue
+            if int(n_merges[slot]) != nr - 1:
+                raise RuntimeError(
+                    "NN-chain loop hit its iteration cap before finishing — the "
+                    "input likely contains NaNs (the chain invariant needs a total "
+                    "order on distances)"
+                )
+            canon = dg.canonical_order(merges[slot, : nr - 1], n=nr)
+            out[idx] = dg.truncate_canonical(canon, nr, stop_at_k, distance_threshold)
 
     stats = BatchStats(
         n_problems=len(matrices), buckets=tuple(bucket_log), padded_problems=padded_problems,

@@ -34,17 +34,32 @@ def to_linkage_matrix(merges: np.ndarray, n: int | None = None) -> np.ndarray:
     leaves and id ``n + t`` names the cluster created at step ``t``.  For
     an early-stopped run pass the leaf count ``n`` explicitly; ``Z`` then
     has one row per performed merge (a truncated forest).
+
+    Vectorized (the reference walks the merges in a Python loop): the id
+    in slot ``s`` before merge ``t`` is ``n + t'`` for the last merge
+    ``t' < t`` that kept its union in slot ``s``, or ``s`` itself when there
+    is none.  One stable sort of the kept slots orders the writes by
+    ``(slot, step)``, and one ``searchsorted`` finds each read's last
+    earlier write; ``Z`` equals the loop's bit for bit.
     """
     merges = np.asarray(merges)
     n = _leaf_count(merges, n)
-    slot_id = np.arange(n)          # which cluster-id currently sits in a slot
-    Z = np.zeros((merges.shape[0], 4))
-    for t in range(merges.shape[0]):
-        i, j, dist, size = merges[t]
-        i, j = int(round(i)), int(round(j))
-        a, b = slot_id[i], slot_id[j]
-        Z[t] = (min(a, b), max(a, b), dist, size)
-        slot_id[i] = n + t
+    m = merges.shape[0]
+    Z = np.zeros((m, 4))
+    if m == 0:
+        return Z
+    ij = np.rint(merges[:, :2]).astype(np.int64)
+    order = np.argsort(ij[:, 0], kind="stable")        # writes by (slot, step)
+    keys = ij[order, 0] * (m + 1) + order
+    reads = ij * (m + 1) + np.arange(m)[:, None]         # slot s before merge t
+    last = np.searchsorted(keys, reads, side="left") - 1
+    hit = last >= 0
+    hit[hit] = ij[order[last[hit]], 0] == ij[hit]
+    ids = np.where(hit, n + order[np.maximum(last, 0)], ij)
+    Z[:, 0] = ids.min(axis=1)
+    Z[:, 1] = ids.max(axis=1)
+    Z[:, 2] = merges[:, 2]
+    Z[:, 3] = merges[:, 3]
     return Z
 
 

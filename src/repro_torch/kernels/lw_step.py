@@ -431,12 +431,16 @@ class MergeGraph:
 
     The kernels are loaded before the capture (CUDA loads kernels lazily,
     and a first load must not fall inside one).  A failed capture raises.
+    Its error mode is ``thread_local``: device work on another thread (a
+    service's submitter or a second worker) does not fail it.
     The wrappers' Python runs only while the graph is captured, so the
     capture leaves their counts as it found them and each replay adds the
     ``k`` launches of each that it makes (and one to ``MergeGraph.replays``).
+    ``MergeGraph.captures`` counts the graphs captured in this process.
     """
 
     replays = 0
+    captures = 0
 
     def __init__(self, method: str, b, k: int, merge=None):
         merge = lw_merge if merge is None else merge
@@ -447,7 +451,7 @@ class MergeGraph:
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self.graph.capture_begin()
+            self.graph.capture_begin(capture_error_mode="thread_local")
             try:
                 for _ in range(k):
                     merge(method, b)
@@ -456,6 +460,7 @@ class MergeGraph:
         torch.cuda.current_stream(dev).wait_stream(side)
         for f, count in zip(self.counters, launches):
             f.launches = count
+        MergeGraph.captures += 1
 
     def replay(self) -> None:
         self.graph.replay()

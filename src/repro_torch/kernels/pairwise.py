@@ -264,12 +264,15 @@ class TripGraph:
     current stream.
 
     The kernel is loaded before the capture (CUDA loads kernels lazily, and
-    a first load must not fall inside one).  A failed capture raises.  The
-    capture leaves ``chain_trip.launches`` as it found it; each replay adds
-    the ``k`` launches it makes, and one to ``TripGraph.replays``.
+    a first load must not fall inside one).  A failed capture raises; its
+    error mode is ``thread_local``, as :class:`~repro_torch.kernels.lw_step.MergeGraph`'s.
+    The capture leaves ``chain_trip.launches`` as it found it; each replay
+    adds the ``k`` launches it makes, and one to ``TripGraph.replays``.
+    ``TripGraph.captures`` counts the graphs captured in this process.
     """
 
     replays = 0
+    captures = 0
 
     def __init__(self, method: str, b: ChainBuffers, k: int):
         _, d = _check_chain_buffers(method, b)
@@ -282,7 +285,7 @@ class TripGraph:
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self.graph.capture_begin()
+            self.graph.capture_begin(capture_error_mode="thread_local")
             try:
                 for _ in range(k):
                     chain_trip(method, b)
@@ -290,6 +293,7 @@ class TripGraph:
                 self.graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(side)
         chain_trip.launches = launches
+        TripGraph.captures += 1
 
     def replay(self) -> None:
         self.graph.replay()

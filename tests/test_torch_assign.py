@@ -17,10 +17,10 @@ from repro.core import cluster as jcluster  # noqa: E402
 from repro.core import count_distance_queries as jcount  # noqa: E402
 from repro_torch.core import cluster, count_distance_queries  # noqa: E402
 from repro_torch.data.synthetic import conformations, gaussian_mixture  # noqa: E402
-from repro_torch.service import assign as tassign  # noqa: E402
 
-# the module, not the function that ``repro.service`` exports under its name
+# the modules, not the functions both packages' ``service`` exports under their name
 jassign = importlib.import_module("repro.service.assign")
+tassign = importlib.import_module("repro_torch.service.assign")
 
 BACKENDS = ("auto", "xla", "kernel")
 

@@ -1217,3 +1217,164 @@ def test_cuda_batch_merges_stable_under_load(method, cuda):
             for b, (g, f) in enumerate(zip(got, first)):
                 assert np.array_equal(g.merges, f.merges), (variant, run, b)
     load.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# bucket programs and the service on the card
+# ---------------------------------------------------------------------------
+
+
+def program_buckets(seed, squared=False):
+    """Two different buckets of bucket 512 (a two-stage kernel plan): ragged
+    problems, then fewer of other sizes."""
+    rng = np.random.default_rng(seed)
+    return ([random_distance_matrix(rng, n, squared=squared).astype(np.float32)
+             for n in (512, 300, 2, 400)],
+            [random_distance_matrix(rng, n, squared=squared).astype(np.float32)
+             for n in (260, 511)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,threshold", (("baseline", False), ("lazy", False),
+                                               ("rowmin", True)))
+def test_cuda_program_replayed_across_buckets_equals_fresh(variant, threshold, cuda):
+    """One kernel-engine program (its graphs captured when it is built) runs
+    bucket A, bucket B and A again: each run's merges equal a fresh
+    ``cluster_batch`` of the same problems on the card bit for bit, and the
+    runs capture no graph."""
+    from repro_torch.core.batched import BucketProgram, bucket_signature, cluster_batch_merges
+
+    sig = bucket_signature(512, 4, method="ward", engine="kernel", variant=variant,
+                           with_threshold=threshold)
+    assert sig.compaction
+    thr = 4.0 if threshold else None
+    captures0 = lw_step.MergeGraph.captures
+    prog = BucketProgram(sig, cuda, eager=True)
+    assert lw_step.MergeGraph.captures == captures0 + 2      # one graph a stage
+    A, B = program_buckets(23, squared=True)
+    for probs in (A, B, A):
+        captures0 = lw_step.MergeGraph.captures
+        merges, n_merges = prog.run(probs, thr)
+        merges, n_merges = merges.cpu().numpy(), n_merges.cpu().numpy()
+        assert lw_step.MergeGraph.captures == captures0     # a run captures nothing
+        want, _ = cluster_batch_merges(probs, "ward", engine="kernel", variant=variant,
+                                       distance_threshold=thr)
+        for b, (p, w) in enumerate(zip(probs, want)):
+            got = merges[b, : min(len(p) - 1, int(n_merges[b]))]
+            assert np.array_equal(got, w), (variant, len(p))
+
+
+@pytest.mark.cuda
+def test_cuda_one_shot_program_builds_a_stage_when_reached(cuda):
+    """A one-shot kernel program (``cluster_batch``'s) captures no graph
+    when it is built, and a threshold run that stops in the first stage
+    captures only that stage's; its merges equal a cached (eager)
+    program's."""
+    from repro_torch.core.batched import BucketProgram, bucket_signature
+
+    sig = bucket_signature(512, 4, method="ward", engine="kernel", with_threshold=True)
+    A, _ = program_buckets(26, squared=True)
+    eager = BucketProgram(sig, cuda, eager=True)
+    want, want_n = (t.cpu().numpy() for t in eager.run(A, 0.3))
+    assert int(want_n.max()) < 256                          # stops in stage 0 (512 → 256)
+    captures0 = lw_step.MergeGraph.captures
+    prog = BucketProgram(sig, cuda)
+    assert lw_step.MergeGraph.captures == captures0
+    assert prog.nbytes < eager.nbytes
+    got, got_n = (t.cpu().numpy() for t in prog.run(A, 0.3))
+    assert lw_step.MergeGraph.captures == captures0 + 1
+    assert np.array_equal(got_n, want_n)
+    for b, p in enumerate(A):
+        k = min(len(p) - 1, int(want_n[b]))
+        assert np.array_equal(got[b, :k], want[b, :k])
+
+
+@pytest.mark.cuda
+def test_cuda_service_points_on_a_dense_bucket_equal_cluster_batch(cuda):
+    """Points that ride a dense LW bucket get their matrix built on the
+    card, on the worker, as ``cluster_batch`` builds it: the merges equal
+    ``cluster_batch`` of the same points bit for bit, on both engines."""
+    from repro_torch.core import cluster_batch
+    from repro_torch.service import ClusteringService, ServiceConfig
+
+    rng = np.random.default_rng(27)
+    pts = [rng.normal(size=(int(n), 16)).astype(np.float32) for n in rng.integers(5, 200, 24)]
+    for engine in ("serial", "kernel"):
+        cfg = ServiceConfig(method="ward", engine=engine, algorithm="lw",
+                            bucket_ns=(8, 16, 32, 64, 128, 256), max_batch=8,
+                            max_delay_ms=2.0)
+        with ClusteringService(cfg) as svc:
+            got = [f.result(timeout=300) for f in svc.submit_many(pts, metric="sqeuclidean")]
+        want = cluster_batch(pts, "ward", metric="sqeuclidean", backend=engine, algorithm="lw")
+        for g, w in zip(got, want):
+            assert g.distances.device.type == "cuda"
+            assert np.array_equal(g.merges, w.merges), (engine, g.n)
+
+
+@pytest.mark.cuda
+def test_cuda_service_miss_captures_on_the_worker_while_another_thread_uploads(cuda):
+    """An unwarmed kernel-engine service builds its programs (and captures
+    their graphs) on its worker while another thread keeps copying to the
+    card: every request is served, equal to ``cluster_batch``."""
+    import threading
+
+    from repro_torch.core import cluster_batch
+    from repro_torch.service import ClusteringService, ServiceConfig
+
+    stop = threading.Event()
+    host = np.random.default_rng(0).normal(size=(1 << 20,)).astype(np.float32)
+
+    def upload():
+        while not stop.is_set():
+            t = torch.tensor(host, device=cuda)
+            (t * 2).sum().item()
+
+    uploader = threading.Thread(target=upload, daemon=True)
+    A, B = program_buckets(24)
+    probs = A + B
+    cfg = ServiceConfig(engine="kernel", bucket_ns=(512,), max_batch=4, max_delay_ms=1.0)
+    uploader.start()
+    try:
+        with ClusteringService(cfg) as svc:
+            got = [f.result(timeout=300) for f in svc.submit_many(probs)]
+            assert svc.cache.stats.compiles >= 1
+    finally:
+        stop.set()
+        uploader.join(timeout=60)
+    want = cluster_batch(probs, "complete", backend="kernel")
+    for g, w in zip(got, want):
+        assert np.array_equal(g.merges, w.merges)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ("serial", "kernel"))
+def test_cuda_service_steady_traffic_captures_nothing(engine, cuda):
+    """A warmed service on the card: steady traffic builds no program and
+    captures no graph, the kernel engine launches only the batch kernels
+    (from its programs' graphs), and every response equals
+    ``cluster_batch``'s bit for bit."""
+    from repro_torch.core import cluster_batch
+    from repro_torch.kernels.pairwise import TripGraph
+    from repro_torch.service import ClusteringService, ServiceConfig, engine_jit_cache_size
+
+    rng = np.random.default_rng(25)
+    probs = [random_distance_matrix(rng, int(n)).astype(np.float32)
+             for n in rng.integers(100, 257, 24)]
+    cfg = ServiceConfig(engine=engine, bucket_ns=(128, 256), max_batch=8, max_delay_ms=2.0)
+    with ClusteringService(cfg) as svc:
+        svc.warmup()
+        built, captures = engine_jit_cache_size(), lw_step.MergeGraph.captures
+        trips = TripGraph.captures
+        batch_entries = (minscan.masked_argmin_batch, lw_step.lw_merge_batch)
+        singles = (minscan.masked_argmin, lw_step.lw_step, lw_step.lw_merge,
+                   lw_update.lw_update, lw_update.lazy_merge, lw_update.lazy_merge_batch)
+        for f in batch_entries + singles:
+            f.launches = 0
+        got = [f.result(timeout=300) for f in svc.submit_many(probs)]
+        assert engine_jit_cache_size() == built
+        assert (lw_step.MergeGraph.captures, TripGraph.captures) == (captures, trips)
+    assert all(f.launches == 0 for f in singles)
+    assert all((f.launches > 0) == (engine == "kernel") for f in batch_entries)
+    want = cluster_batch(probs, "complete", backend=engine, is_distance=True)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.merges, w.merges)
