@@ -192,7 +192,19 @@ BATCH_LAZY_B = 64              # the full bucket's first problems through kernel
 BATCH_RAGGED = (4096, 16, 512, 16)   # problems, n from 16 to 512 uniform, d (batch_dedup's traffic)
 BATCH_SAMPLE = 64              # ragged lanes held against single-problem runs
 BATCH_POINTS = (256, 256, DIM)  # (B, n, d) ward points: default knobs send them to the chain
-BATCH_KERNEL_SHAPES = ((256, 1024, MERGE_REPS), (4096, 16, 8))   # (B, n, timed merges)
+# (B, n, timed merges, B1 and B3 too): the full-width and ragged buckets, the service card mix's
+# (64 lanes of 128, 256 and 512), and B2's batch form at n = 2048 (a row in several passes)
+BATCH_KERNEL_SHAPES = ((256, 1024, MERGE_REPS, True), (4096, 16, 8, True),
+                       (64, 128, MERGE_REPS, False), (64, 256, MERGE_REPS, False),
+                       (64, 512, MERGE_REPS, False), (16, 2048, MERGE_REPS, False))
+# the (lanes, n) at which B2's entries are loaded for the register and spill report: the
+# single-problem entries on each row width, the batch form on each ownership path
+RESOURCE_SHAPES = {"lw_step": ((1, 1024), (1, 4096), (1, 16384)),
+                   "lw_merge": ((1, 1024), (1, 4096), (1, 16384)),
+                   "lw_merge_batch": ((4096, 16), (1024, 32), (256, 64), (256, 127), (256, 128),
+                                      (256, 256), (256, 512), (256, 1024), (64, 256), (64, 512),
+                                      (16, 1024), (256, 2048), (16, 2048), (256, 1023),
+                                      (16, 1023))}
 RTOL, ATOL = 1e-4, 1e-5        # height tolerance of the JAX package's kernel tests
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once a launch
@@ -211,6 +223,7 @@ KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once
     "pairwise_sq_euclidean": ("pairwise_sq_kernel",),
 }
 NO_LAUNCHES = dict.fromkeys(KERNEL_SYMBOLS, 0)
+ENTRY_SOURCES = {"lw_merge_batch": "src/repro_torch/csrc/lw_merge_batch.cu"}
 
 
 def gpu_line() -> str:
@@ -571,18 +584,18 @@ def phase_lazy_merge(torch, n: int, l2_rate: float) -> dict:
                 **bound(torch, n_bytes, 12 * live + 2 * stale * n, 4 * n * n, l2_rate))
 
 
-def batch_mid_state(torch, B: int, n: int, reps: int, seed: int):
+def batch_mid_state(torch, B: int, n: int, reps: int, seed: int, dead: float = 0.4):
     """A bucket of B lanes as the batched loop holds them mid-run: each
-    lane a symmetric matrix of random points, ~60% of its slots live (at
-    least reps + 2), sizes that are not 1, its merge limit (live - 1), and
-    its masked first minimum."""
+    lane a symmetric matrix of random points, a share ``dead`` of its slots
+    dead at random (at least reps + 2 live), sizes that are not 1, its
+    merge limit (live - 1), and its masked first minimum."""
     from repro_torch.core.engine import symmetrize
     from repro_torch.kernels.minscan import masked_argmin_batch_plain
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     X = torch.randn(B, n, 8, generator=gen, device="cuda")
     D = symmetrize(torch.cdist(X, X))
-    alive = torch.rand(B, n, generator=gen, device="cuda") > 0.4
+    alive = torch.rand(B, n, generator=gen, device="cuda") >= dead
     alive[:, :reps + 2] = True
     sizes = torch.where(alive, torch.randint(1, 9, (B, n), generator=gen, device="cuda"), 0)
     v, flat = masked_argmin_batch_plain(D, alive)
@@ -610,20 +623,51 @@ def check_against_single(torch, bk, single_buffers, single_merge, method, reps: 
                 raise AssertionError(f"{what}: lane {b}'s {name} differs from its single launches")
 
 
-def phase_batch_kernels(torch, B: int, n: int, reps: int, l2_rate: float) -> dict:
-    """The batch-grid forms of B1, B2's merge entry and B3's lazy merge on a
-    mid-run bucket of B lanes: each against its plain twin and against one
-    single-problem launch a lane (per merge entry: ``reps`` lockstep merges
-    against each lane's own merges), bit for bit; then timed as phase 2
-    times the single-problem entries, with their bounds summed over the
-    lanes."""
-    from repro_torch.core.batch_engine import cached_cand_batch, masked_row_mins_batch
-    from repro_torch.kernels import lw_step, lw_update, minscan
+def resource_report(torch) -> dict:
+    """Registers and local (spilled) bytes a thread of every instantiation
+    of B2's entries, for each method, and the batch form's blocks an SM:
+    ``{entry: {"B=.. n=..": {method: [regs, local_bytes, blocks_per_sm]}}}``,
+    the batch form's keys with its plan."""
+    from repro_torch.core.linkage import METHODS
+    from repro_torch.kernels import lw_step
 
+    plan = getattr(lw_step, "merge_batch_plan", None)
+    out = {}
+    for entry, shapes in RESOURCE_SHAPES.items():
+        for B, n in shapes:
+            key = f"B={B} n={n}" + (f" {plan(B, n)}" if plan and entry == "lw_merge_batch" else "")
+            out.setdefault(entry, {})[key] = {
+                m: list(lw_step.kernel_resources(m, n, entry, lanes=B).values()) for m in METHODS}
+    return out
+
+
+def phase_batch_kernels(torch, B: int, n: int, reps: int, l2_rate: float,
+                        all_kernels: bool = True) -> dict:
+    """The batch-grid forms of B1, B2's merge entry and B3's lazy merge on a
+    mid-run bucket of B lanes (B2 alone unless ``all_kernels``): each
+    against its plain twin and against one single-problem launch a lane
+    (per merge entry: ``reps`` lockstep merges against each lane's own
+    merges), bit for bit; then timed as phase 2 times the single-problem
+    entries, with their bounds summed over the lanes."""
     out, method = {}, "complete"
     D, alive, sizes, limit, cand = batch_mid_state(torch, B, n, reps, seed=11)
     live = alive.sum(1).to(torch.float64)
     resident = 4 * B * n * n
+    if all_kernels:
+        out["masked_argmin_batch"] = batch_argmin_row(torch, D, alive, live, resident, l2_rate)
+    out["lw_merge_batch/complete"] = batch_merge_row(torch, method, D, alive, sizes, limit, cand,
+                                                     live, reps, resident, l2_rate)
+    if all_kernels:
+        out["lazy_merge_batch/complete"] = batch_lazy_row(torch, method, D, alive, sizes, limit,
+                                                          live, reps, resident, l2_rate)
+    return out
+
+
+def batch_argmin_row(torch, D, alive, live, resident: float, l2_rate: float) -> dict:
+    """B1's batch form against its plain twin and its single entry, timed."""
+    from repro_torch.kernels import minscan
+
+    B, n = alive.shape
     v, flat = minscan.masked_argmin_batch(D, alive)
     vp, flatp = minscan.masked_argmin_batch_plain(D, alive)
     if not (torch.equal(v, vp) and torch.equal(flat, flatp)):
@@ -632,7 +676,7 @@ def phase_batch_kernels(torch, B: int, n: int, reps: int, l2_rate: float) -> dic
     if not (torch.equal(torch.stack([s[0] for s in single]), v)
             and torch.equal(torch.stack([s[1] for s in single]), flat)):
         raise AssertionError(f"masked_argmin_batch B={B} n={n}: differs from single launches")
-    out["masked_argmin_batch"] = dict(
+    return dict(
         B=B, n=n, live_mean=float(live.mean()), max_abs_err=float((v - vp).abs().nan_to_num().max()),
         bit_equal=True, single_checked=B,
         ms=time_ms(torch, lambda: minscan.masked_argmin_batch(D, alive)),
@@ -641,7 +685,15 @@ def phase_batch_kernels(torch, B: int, n: int, reps: int, l2_rate: float) -> dic
         **bound(torch, float((4 * live * live + n + 12).sum()), float((live * live).sum()),
                 resident, l2_rate))
 
-    # B2's batch merge
+
+def batch_merge_row(torch, method: str, D, alive, sizes, limit, cand, live, reps: int,
+                    resident: float, l2_rate: float) -> dict:
+    """B2's batch form over ``reps`` lockstep merges against its plain twin
+    and its single merge entry, bit for bit, timed; with the ownership path
+    it took and the rate at which it read the live rows."""
+    from repro_torch.kernels import lw_step
+
+    B, n = alive.shape
     b0 = lw_step.merge_batch_buffers(D, alive, sizes, torch.zeros((B, n, 4), device="cuda"),
                                      cand, 0, limit)
     bk, bp = (lw_step.MergeBatchBuffers(*(t.clone() for t in b0)) for _ in range(2))
@@ -666,15 +718,25 @@ def phase_batch_kernels(torch, B: int, n: int, reps: int, l2_rate: float) -> dic
                            reps=reps)
     live_mean = live - 1 - (reps - 1) / 2          # a timed merge kills one slot a lane
     read = float((4 * live_mean * n).sum())        # each lane's live rows, read whole
-    out["lw_merge_batch/complete"] = dict(
-        B=B, n=n, live_mean=float(live_mean.mean()), max_abs_err=err, bit_equal=True,
+    plan = getattr(lw_step, "merge_batch_plan", None)
+    return dict(
+        B=B, n=n, path=str(plan(B, n)) if plan else "row blocks, a ticket a lane",
+        live_mean=float(live_mean.mean()), max_abs_err=err, bit_equal=True,
         single_checked=B, merges_checked=reps, ms=ms, plain_ms=plain_ms, library_ms=None,
         read_bytes=read, read_bytes_per_s=read / (ms * 1e-3),
         **bound(torch, float((4 * live_mean ** 2 + 8 * live_mean + 17 * n).sum()),
                 float((2 * live_mean ** 2 + 12 * n).sum()), resident, l2_rate))
-    del bk, b0
 
-    # B3's batch lazy merge and rescan
+
+def batch_lazy_row(torch, method: str, D, alive, sizes, limit, live, reps: int,
+                   resident: float, l2_rate: float) -> dict:
+    """B3's batch lazy merge and rescan against their plain twins and the
+    single lazy merge, bit for bit, timed."""
+    from repro_torch.core.batch_engine import cached_cand_batch, masked_row_mins_batch
+    from repro_torch.kernels import lw_update
+
+    B, n = alive.shape
+    live_mean = live - 1 - (reps - 1) / 2
     rmin, rarg = masked_row_mins_batch(D, alive)
     lcand = cached_cand_batch(alive, rmin, rarg)
     b0 = lw_update.lazy_batch_buffers(D, alive, sizes, torch.zeros((B, n, 4), device="cuda"),
@@ -701,13 +763,12 @@ def phase_batch_kernels(torch, B: int, n: int, reps: int, l2_rate: float) -> dic
     ms = time_merges(torch, lambda b: lw_update.lazy_merge_batch(method, b), b0, bk, reps=reps)
     plain_ms = time_merges(torch, lambda b: lw_update.lazy_merge_batch_plain(method, b), b0, bk,
                            reps=reps)
-    out["lazy_merge_batch/complete"] = dict(
+    return dict(
         B=B, n=n, live_mean=float(live_mean.mean()), max_abs_err=err, bit_equal=True,
         single_checked=B, merges_checked=reps, stale_rows_per_merge=float(stale.mean()), ms=ms,
         plain_ms=plain_ms, library_ms=None,
         **bound(torch, float((45 * n + stale * (4 * n + 20)).sum()),
                 float((12 * live_mean + 2 * stale * n).sum()), resident, l2_rate))
-    return out
 
 
 def lw_update_bytes(method: str, n: int, live: int) -> int:
@@ -2264,6 +2325,8 @@ def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assign
                 row["rescan_launches"] = lazy["launches"]["lazy_rescan"]
             elif row["entry"] == "lazy_merge_batch":
                 row["rescan_launches"] = b_lazy["launches"]["lazy_rescan_batch"]
+        for row in listed[1:]:                    # an entry in a source of its own
+            row["source"] = ENTRY_SOURCES.get(row["entry"], src[name][0])
         inventory.append(dict(name=name, route="cuda", source=src[name][0],
                               replaces=src[name][1], **listed[0], entries=listed))
     return inventory
@@ -2298,6 +2361,12 @@ def main() -> int:
     card = gpu_line()
     say(f"phase 1 build: {build_s:.2f} s; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)}; {card}")
+    resources = resource_report(torch)
+    say("phase 1 B2 registers and local bytes a thread: " + json.dumps(resources))
+    spilled = {shape: row for shape, row in resources["lw_merge_batch"].items()
+               if any(numbers[1] for numbers in row.values())}
+    if spilled:
+        raise AssertionError(f"lw_merge_batch spills: {spilled}")
 
     # 2. kernels against their plain versions
     l2_rate = l2_read_rate(torch)
@@ -2328,8 +2397,8 @@ def main() -> int:
         say(f"phase 2 lazy_merge n={n}: " + json.dumps(row))
         kernels[("lazy_merge/complete", n)] = row
         torch.cuda.empty_cache()
-    for B, n, reps in BATCH_KERNEL_SHAPES:
-        for name, row in phase_batch_kernels(torch, B, n, reps, l2_rate).items():
+    for B, n, reps, all_kernels in BATCH_KERNEL_SHAPES:
+        for name, row in phase_batch_kernels(torch, B, n, reps, l2_rate, all_kernels).items():
             say(f"phase 2 {name} B={B} n={n}: " + json.dumps(row))
             kernels[(name, (B, n))] = row
         torch.cuda.empty_cache()
@@ -2428,7 +2497,95 @@ def single_kernel_times(src: str | None) -> int:
     return 0
 
 
+BATCH_TIMES_FLAG = "--batch-kernel-times"
+
+
+def batch_kernel_times(src: str | None) -> int:
+    """``python3 chip_smoke.py --batch-kernel-times [SRC]``: the register and
+    spill report and phase 2's rows of B2's batch form at every
+    BATCH_KERNEL_SHAPES bucket (checks included) for the ``repro_torch``
+    under ``SRC``, one JSON line.  Run it for two trees in one call, in
+    the order A, B, B, A, to compare their batch forms on one card."""
+    import torch
+
+    if src:
+        sys.path.insert(0, str(Path(src).resolve()))
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import repro_torch
+
+    from repro_torch.kernels import _build, lw_step
+
+    _build.build_all()
+    l2_rate = l2_read_rate(torch)
+    rows, sweep = {}, {}
+    for B, n, reps, _ in BATCH_KERNEL_SHAPES:
+        D, alive, sizes, limit, cand = batch_mid_state(torch, B, n, reps, seed=11)
+        row = batch_merge_row(torch, "complete", D, alive, sizes, limit, cand,
+                              alive.sum(1).to(torch.float64), reps, 4 * B * n * n, l2_rate)
+        rows[f"B={B} n={n}"] = {k: row[k] for k in ("path", "ms", "bound_ms", "read_bytes_per_s")}
+        # a yardstick of the card's read rate: one torch reduction over the whole bucket
+        rows[f"B={B} n={n}"]["amin_bucket_bytes_per_s"] = (
+            4 * B * n * n / (time_ms(torch, lambda: torch.amin(D, dim=-1)) * 1e-3))
+        if hasattr(lw_step, "merge_batch_plan") and n > 128:
+            sweep[f"B={B} n={n}"] = plan_sweep(torch, D, alive, sizes, limit, cand, reps)
+        del D, alive, sizes, limit, cand
+        torch.cuda.empty_cache()
+    # the full-width bucket with every slot live: whole matrices read, no dead row skipped
+    B, n, reps, _ = BATCH_KERNEL_SHAPES[0]
+    D, alive, sizes, limit, cand = batch_mid_state(torch, B, n, reps, seed=11, dead=0.0)
+    row = batch_merge_row(torch, "complete", D, alive, sizes, limit, cand,
+                          alive.sum(1).to(torch.float64), reps, 4 * B * n * n, l2_rate)
+    rows[f"B={B} n={n} all live"] = {k: row[k] for k in ("path", "ms", "read_bytes_per_s")}
+    del D, alive, sizes, limit, cand
+    torch.cuda.empty_cache()
+    print(json.dumps({"src": str(Path(repro_torch.__file__).parents[1]), "lw_merge_batch": rows,
+                      "plan_sweep_ms": sweep, "resources": resource_report(torch),
+                      "card": gpu_line()}))
+    return 0
+
+
+def plan_sweep(torch, D, alive, sizes, limit, cand, reps: int) -> dict:
+    """B2's batch form with 1, 2, 4 and 8 blocks a lane (as many as give each
+    block a bitmask word of rows); on the bulk-copy path with wider row
+    groups, with rows in registers instead (a warp a row, 8 float4 a
+    thread) and, for rows in chunks, with 256 threads a block: each held
+    against its plain twin after ``reps`` merges and timed as phase 2 times
+    it, the measurement behind merge_batch_plan's cuts."""
+    from repro_torch.kernels import lw_step
+
+    B, n = alive.shape
+    b0 = lw_step.merge_batch_buffers(D, alive, sizes, torch.zeros((B, n, 4), device="cuda"),
+                                     cand, 0, limit)
+    bp = lw_step.MergeBatchBuffers(*(t.clone() for t in b0))
+    for _ in range(reps):
+        lw_step.lw_merge_batch_plain("complete", bp)
+    plan_fn = lw_step.merge_batch_plan
+    planned = plan_fn(B, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    plans = [planned._replace(blocks=k) for k in (1, 2, 4, 8) if 32 * k <= n]
+    if planned.unroll == 0:
+        plans += [planned._replace(group=g) for g in (8, 16, 32) if g > planned.group]
+        plans.append(lw_step.BatchPlan(32, 8, 256, planned.blocks))
+        if n > 1024:
+            plans.append(planned._replace(threads=256))
+    out = {}
+    try:
+        for plan in plans:
+            lw_step.merge_batch_plan = lambda lanes, n, sms, aligned=True, plan=plan: plan
+            bk = lw_step.MergeBatchBuffers(*(t.clone() for t in b0))
+            out[str(plan)] = time_merges(
+                torch, lambda b: lw_step.lw_merge_batch("complete", b), b0, bk, reps=reps)
+            check_batch_buffers(torch, bk, bp, f"lw_merge_batch B={B} n={n} {plan}",
+                                skip=("sync",))
+    finally:
+        lw_step.merge_batch_plan = plan_fn
+    return out
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == [SINGLE_TIMES_FLAG]:
         sys.exit(single_kernel_times((sys.argv[2:3] or [None])[0]))
+    if sys.argv[1:2] == [BATCH_TIMES_FLAG]:
+        sys.exit(batch_kernel_times((sys.argv[2:3] or [None])[0]))
     sys.exit(child(sys.argv[1]) if sys.argv[1:2] and sys.argv[1] in CHILDREN else main())

@@ -68,23 +68,12 @@
 // operation as linkage.update_row, so the kernel agrees bit for bit with
 // the plain torch step.
 //
-// A third entry, lw_merge_batch, is the merge entry with a lane index more:
-// B stacked problems of n slots merge in lockstep, one launch a merge of
-// every lane (the batched kernel engine of a shape bucket).  Lane b's
-// operands sit at b n^2 (D), b n (alive, sizes, rmin, rarg), b ceil(n/32)
-// (bits), b cap 4 (merges) and b times the width of each per-lane word
-// (cand, dmin, count, limit, sync).  The grid's x axis is lane-major over
-// each lane's row blocks (gridDim.y would stop at 65535 lanes); the ticket
-// is a lane's, drawn by its blocks, and the lane's last block does its
-// epilogue.  A lane whose count has reached its limit (it made its
-// min(max(n_real - stop_at_k, 0), n_steps) merges, or it is padding with
-// n_real = 0) is a no-op: its first block adds one to its count, which
-// then counts the lockstep merges, and no cell, record or word of it is
-// written.  The single-problem entry is this body compiled without the
-// lane index.
+// The merge entry's batch form, lw_merge_batch, is lw_merge_batch.cu; the
+// row primitives the two files share are lw_rows.cuh.
 #include "first_min.cuh"
 #include "lance_williams.cuh"
 #include "last_block.cuh"
+#include "lw_rows.cuh"
 
 namespace {
 
@@ -118,38 +107,7 @@ struct Operands {
     long long cap;
     long long* count;          // merges recorded: the next row of `merges`
     unsigned long long* sync;  // the running minimum's key, the block ticket
-    // lw_merge_batch: each lane's merge limit, and its blocks
-    const long long* limit;
-    int lane_blocks;
-
-    // Lane `b`'s operands of a batch of stacked problems.
-    __device__ __forceinline__ Operands lane(long long b) const {
-        const long long nn = (long long)n * n, words = (n + 31) >> 5;
-        Operands l = *this;
-        l.D += b * nn;
-        l.sizes += b * n;
-        l.bits += b * words;
-        l.rmin += b * n;
-        l.rarg += b * n;
-        l.cand += 2 * b;
-        l.dmin += b;
-        l.alive += b * n;
-        l.merges += b * cap * 4;
-        l.count += b;
-        l.sync += 2 * b;
-        l.limit += b;
-        return l;
-    }
 };
-
-struct Merge {
-    int i, j;
-    float dij, ni, nj;
-};
-
-__device__ __forceinline__ bool is_live(const unsigned* bits, int c) {
-    return (bits[c >> 5] >> (c & 31)) & 1u;
-}
 
 // The merge's slots and distance; its sizes come later (merge_sizes), off
 // the path to the first row loads.
@@ -172,89 +130,6 @@ __device__ __forceinline__ void merge_sizes(const Operands& a, Merge& m) {
         m.ni = *a.ni;
         m.nj = *a.nj;
     }
-}
-
-// Row r's first minimum over its valid cells but column i, U float4 loads
-// in flight a thread: cell (r, c) counts when c is alive and not i, j or r.
-// Column i's new value is folded in after the row's reduction, so the scan
-// does not wait for it.
-template <int T, int U>
-__device__ __forceinline__ void scan_row(const float* row, int n, int r, const Merge& m,
-                                         const unsigned* bits, int lane, float& bv, int& bc) {
-    auto visit = [&](float v, int c) {
-        if (v < bv && c != m.i && c != m.j && c != r && is_live(bits, c)) { bv = v; bc = c; }
-    };
-    const int head = head_columns(row, n);
-    const int body = head + ((n - head) & ~3);
-    if (lane < head) visit(row[lane], lane);
-    for (int c0 = head + 4 * lane; c0 < body; c0 += 4 * T * U) {
-        float4 x[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const int c = c0 + 4 * T * u;
-            if (c < body) x[u] = *reinterpret_cast<const float4*>(row + c);
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const int c = c0 + 4 * T * u;
-            if (c < body) {
-                visit(x[u].x, c);
-                visit(x[u].y, c + 1);
-                visit(x[u].z, c + 2);
-                visit(x[u].w, c + 3);
-            }
-        }
-    }
-    if (body + lane < n) visit(row[body + lane], body + lane);
-}
-
-// The merged row, written whole, and its first minimum (when row i is live
-// after the merge): cell (i, c) is the recurrence at spectator c, 0 where c
-// is dead, i or j.  One row a merge, but the kernel's last row to finish
-// when its loads wait one by one: every load of a pass is issued before
-// any cell is computed, U float4 of row i with the matching cells of row j
-// and sizes (fewer where a block owns a row, to spare registers).
-template <int M, int T, int U>
-__device__ __forceinline__ void merged_row(float* row_i, const float* row_j, const float* sizes,
-                                           int n, const Merge& m, bool live_i,
-                                           const unsigned* bits, int lane, float& bv, int& bc) {
-    // row j's cell (j, i) belongs to row j's threads, which write it: never read
-    auto dkj = [&](int c) { return c != m.i ? row_j[c] : 0.0f; };
-    auto cell = [&](float dki, float dkj, float nk, int c) {
-        const bool keep = c != m.i && c != m.j && is_live(bits, c);
-        const float v = keep ? lance_williams<M>(dki, dkj, m.dij, m.ni, m.nj, nk) : 0.0f;
-        if (live_i && keep && v < bv) { bv = v; bc = c; }
-        return v;
-    };
-    const int head = head_columns(row_i, n);
-    const int body = head + ((n - head) & ~3);
-    if (lane < head) row_i[lane] = cell(row_i[lane], dkj(lane), sizes[lane], lane);
-    for (int c0 = head + 4 * lane; c0 < body; c0 += 4 * T * U) {
-        float4 x[U], y[U], nk[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const int c = c0 + 4 * T * u;
-            if (c < body) {
-                x[u] = *reinterpret_cast<const float4*>(row_i + c);
-                y[u] = make_float4(dkj(c), dkj(c + 1), dkj(c + 2), dkj(c + 3));
-                nk[u] = make_float4(sizes[c], sizes[c + 1], sizes[c + 2], sizes[c + 3]);
-            }
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const int c = c0 + 4 * T * u;
-            if (c < body) {
-                float4 v;  // one statement a cell: the columns are visited in order
-                v.x = cell(x[u].x, y[u].x, nk[u].x, c);
-                v.y = cell(x[u].y, y[u].y, nk[u].y, c + 1);
-                v.z = cell(x[u].z, y[u].z, nk[u].z, c + 2);
-                v.w = cell(x[u].w, y[u].w, nk[u].w, c + 3);
-                *reinterpret_cast<float4*>(row_i + c) = v;
-            }
-        }
-    }
-    const int c = body + lane;
-    if (c < n) row_i[c] = cell(row_i[c], dkj(c), sizes[c], c);
 }
 
 // Reduce the row's (v, c) over its G warps; the result is valid in the
@@ -315,7 +190,7 @@ __device__ __forceinline__ void finish_merge(const Operands& a, const Merge& m,
 }
 
 // One merge; G warps own a row, kThreads / (32 G) rows a block, `rb` the
-// block's row block within its lane and `blocks` the lane's blocks.
+// block's row block and `blocks` the launch's blocks.
 template <int M, int G, bool kResident>
 __device__ __forceinline__ void step(const Operands& a, int rb, unsigned blocks) {
     constexpr int T = 32 * G;
@@ -377,19 +252,6 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) lw_merge_kernel(const 
     step<M, G, true>(a, blockIdx.x, gridDim.x);
 }
 
-// The batch: block x is row block x % lane_blocks of lane x / lane_blocks.
-template <int M, int G>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-lw_merge_batch_kernel(const Operands a0) {
-    const int b = blockIdx.x / a0.lane_blocks, rb = blockIdx.x - b * a0.lane_blocks;
-    const Operands a = a0.lane(b);
-    if (*a.count >= *a.limit) {   // the lane made its merges: a no-op, counted
-        if (rb == 0 && threadIdx.x == 0) *a.count += 1;
-        return;
-    }
-    step<M, G, true>(a, rb, a0.lane_blocks);
-}
-
 // alive as a bitmask: bit c % 32 of word c / 32.
 __global__ void __launch_bounds__(kThreads)
 pack_alive_kernel(const unsigned char* __restrict__ alive, int n, unsigned* __restrict__ bits) {
@@ -401,61 +263,51 @@ pack_alive_kernel(const unsigned char* __restrict__ alive, int n, unsigned* __re
 size_t shared_bytes(int n) { return (size_t)((n + 31) / 32) * sizeof(unsigned); }
 
 // Which entry a launch is.
-enum Entry { kStep, kMerge, kMergeBatch };
+enum Entry { kStep, kMerge };
 
-// One launch of `lanes` problems: G warps own a row, by the row's length.
+// One launch of a single-problem entry: G warps own a row, by the row's length.
 template <int M, Entry E>
 struct Launch {
     template <int G>
-    static void go(Operands a, long long lanes, cudaStream_t stream) {
+    static void go(const Operands& a, cudaStream_t stream) {
         constexpr int R = kWarps / G;
         const unsigned blocks = (unsigned)((a.n + R - 1) / R);
-        if constexpr (E == kMergeBatch) {
-            a.lane_blocks = (int)blocks;
-            lw_merge_batch_kernel<M, G>
-                <<<(unsigned)(lanes * blocks), kThreads, shared_bytes(a.n), stream>>>(a);
-        } else if constexpr (E == kMerge) {
+        if constexpr (E == kMerge) {
             lw_merge_kernel<M, G><<<blocks, kThreads, shared_bytes(a.n), stream>>>(a);
         } else {
             lw_step_kernel<M, G><<<blocks, kThreads, shared_bytes(a.n), stream>>>(a);
         }
     }
 
-    static void run(const Operands& a, long long lanes, cudaStream_t stream) {
-        if (a.n <= kWarpRowMaxN) go<1>(a, lanes, stream);
-        else if (a.n <= kPairRowMaxN) go<2>(a, lanes, stream);
-        else go<kWarps>(a, lanes, stream);
+    static void run(const Operands& a, cudaStream_t stream) {
+        if (a.n <= kWarpRowMaxN) go<1>(a, stream);
+        else if (a.n <= kPairRowMaxN) go<2>(a, stream);
+        else go<kWarps>(a, stream);
     }
 
     template <int G>
     static const void* kernel() {
-        if constexpr (E == kMergeBatch) return (const void*)lw_merge_batch_kernel<M, G>;
-        else return (const void*)lw_merge_kernel<M, G>;
+        if constexpr (E == kMerge) return (const void*)lw_merge_kernel<M, G>;
+        else return (const void*)lw_step_kernel<M, G>;
     }
 
-    static cudaError_t load(long long n) {
-        cudaFuncAttributes attr;
+    static cudaError_t load(long long n, cudaFuncAttributes* attr) {
         const void* fn = n <= kWarpRowMaxN   ? kernel<1>()
                          : n <= kPairRowMaxN ? kernel<2>()
                                              : kernel<kWarps>();
-        return cudaFuncGetAttributes(&attr, fn);
+        return cudaFuncGetAttributes(attr, fn);
     }
 };
 
 template <int M>
-void launch_step(const Operands& a, cudaStream_t stream) { Launch<M, kStep>::run(a, 1, stream); }
+void launch_step(const Operands& a, cudaStream_t stream) { Launch<M, kStep>::run(a, stream); }
 
 template <int M>
-void launch_merge(const Operands& a, cudaStream_t stream) { Launch<M, kMerge>::run(a, 1, stream); }
+void launch_merge(const Operands& a, cudaStream_t stream) { Launch<M, kMerge>::run(a, stream); }
 
 template <int M>
-void launch_merge_batch(const Operands& a, long long lanes, cudaStream_t stream) {
-    Launch<M, kMergeBatch>::run(a, lanes, stream);
-}
-
-template <int M>
-void load_merge(long long n, bool batch, cudaError_t* err) {
-    *err = batch ? Launch<M, kMergeBatch>::load(n) : Launch<M, kMerge>::load(n);
+void load_entry(long long n, int entry, cudaFuncAttributes* attr, cudaError_t* err) {
+    *err = entry == kMerge ? Launch<M, kMerge>::load(n, attr) : Launch<M, kStep>::load(n, attr);
 }
 
 }  // namespace
@@ -534,33 +386,18 @@ extern "C" int lw_merge(int device, int method, float* D, unsigned char* alive, 
     return (int)cudaGetLastError();
 }
 
-// One lockstep merge of B stacked problems, in place, each lane as lw_merge
-// on its own slices: D (B, n, n), alive and sizes (B, n), bits (B,
-// ceil(n/32)), merges (B, cap, 4), cand (B, 2), dmin (B,), count (B,), rmin
-// and rarg (B, n), sync (B, 2); limit (B,) int64, the merges a lane makes (a
-// lane whose count reached it only adds one to its count).  Same stream and
-// return as lw_merge.
-extern "C" int lw_merge_batch(int device, int method, float* D, unsigned char* alive,
-                              unsigned* bits, float* sizes, float* merges, long long cap,
-                              long long* cand, float* dmin, long long* count, float* rmin,
-                              long long* rarg, unsigned long long* sync, long long n,
-                              const long long* limit, long long B, cudaStream_t stream) {
-    const cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    Operands a = merge_operands(D, alive, bits, sizes, merges, cap, cand, dmin, count, rmin, rarg,
-                                sync, n);
-    a.limit = limit;
-    LW_DISPATCH_METHOD(method, launch_merge_batch, a, B, stream)
-    return (int)cudaGetLastError();
-}
-
-// Load the lw_merge (batch: lw_merge_batch) kernel a launch at this n
+// Load the kernel a launch of `entry` (0 lw_step, 1 lw_merge) at this n
 // takes, before a stream capture: CUDA loads kernels lazily, at their first
-// launch, and a first load must not fall inside a capture.  Returns the
-// CUDA error.
-extern "C" int lw_merge_load(int device, int method, long long n, int batch) {
+// launch, and a first load must not fall inside a capture.  Writes the
+// kernel's registers a thread and local (spilled) bytes a thread; returns
+// the CUDA error.
+extern "C" int lw_merge_load(int device, int method, long long n, int entry, int* regs,
+                             int* local_bytes) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    LW_DISPATCH_METHOD(method, load_merge, n, batch != 0, &err)
+    cudaFuncAttributes attr{};
+    LW_DISPATCH_METHOD(method, load_entry, n, entry, &attr, &err)
+    *regs = attr.numRegs;
+    *local_bytes = (int)attr.localSizeBytes;
     return (int)err;
 }

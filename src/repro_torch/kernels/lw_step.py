@@ -1,7 +1,8 @@
 """Fused one-pass Lance-Williams merge step.
 
 Replaces the Pallas TPU kernel :func:`repro.kernels.lw_step.lw_step_pallas`
-with the hand-written CUDA kernel ``csrc/lw_step.cu``.  For the merge of
+with the hand-written CUDA kernels ``csrc/lw_step.cu`` (the single-problem
+entries) and ``csrc/lw_merge_batch.cu`` (the batch form).  For the merge of
 slots ``i < j`` it evaluates the LW recurrence for the merged row, commits
 it into row ``i`` and column ``i`` of ``D`` (row/column ``j`` stay as
 garbage), and finds each row's ``(min, first-column argmin)`` of the
@@ -26,9 +27,10 @@ loads, ``4·L·n`` bytes, so dead columns are its gap to the bound.
 kernel engine's merge: one launch merges every lane of ``B`` stacked
 problems in lockstep, on :class:`MergeBatchBuffers` (the same buffers with
 a leading lane axis, and each lane's merge limit: a lane that made its
-merges, or is padding, is a no-op).  The TPU package batches the same
-kernel through ``pallas_call``'s ``vmap`` rule.  Bound: bytes, the sum of
-each active lane's ``4·L'²`` and bookkeeping.
+merges, or is padding, is a no-op).  A block or a thread-block cluster owns
+a lane, as :func:`merge_batch_plan` lays it out.  The TPU package batches
+the same kernel through ``pallas_call``'s ``vmap`` rule.  Bound: bytes, the
+sum of each active lane's ``4·L'²`` and bookkeeping.
 """
 
 from __future__ import annotations
@@ -66,6 +68,9 @@ def lw_step_plain(method, D, d_ki, d_kj, d_ij, n_i, n_j, sizes, alive, i, j):
     return D, rmin, rarg
 
 
+_INT_OUT = ctypes.POINTER(ctypes.c_int)
+
+
 @functools.cache
 def _lib():
     lib = _build.load("lw_step")
@@ -73,10 +78,24 @@ def _lib():
                             *[ctypes.c_void_p] * 4]
     lib.lw_merge.argtypes = [ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 5, ctypes.c_longlong,
                              *[ctypes.c_void_p] * 6, ctypes.c_longlong, ctypes.c_void_p]
-    lib.lw_merge_batch.argtypes = [*lib.lw_merge.argtypes[:-1], ctypes.c_void_p,
-                                   ctypes.c_longlong, ctypes.c_void_p]
-    lib.lw_merge_load.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-    for fn in (lib.lw_step, lib.lw_merge, lib.lw_merge_batch, lib.lw_merge_load):
+    lib.lw_merge_load.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                  _INT_OUT, _INT_OUT]
+    for fn in (lib.lw_step, lib.lw_merge, lib.lw_merge_load):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _batch_lib():
+    """The batch form's library, ``csrc/lw_merge_batch.cu``."""
+    lib = _build.load("lw_merge_batch")
+    lib.lw_merge_batch.argtypes = [ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 5,
+                                   ctypes.c_longlong, *[ctypes.c_void_p] * 5, ctypes.c_longlong,
+                                   ctypes.c_void_p, ctypes.c_longlong, *[ctypes.c_int] * 4,
+                                   ctypes.c_void_p]
+    lib.lw_merge_batch_load.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                                        *[ctypes.c_int] * 4, _INT_OUT, _INT_OUT, _INT_OUT]
+    for fn in (lib.lw_merge_batch, lib.lw_merge_batch_load):
         fn.restype = ctypes.c_int
     return lib
 
@@ -270,11 +289,37 @@ def lw_merge(method: str, b: MergeBuffers) -> MergeBuffers:
     return b
 
 
-def _load_merge(method: str, b: MergeBuffers) -> None:
-    err = _lib().lw_merge_load(b.D.device.index, METHODS.index(method),
-                               _check_buffers(method, b), 0)
+#: The kernel's entries, in the order ``lw_merge_load`` numbers them.
+ENTRIES = ("lw_step", "lw_merge", "lw_merge_batch")
+
+
+def kernel_resources(method: str, n: int, entry: str, device=None, lanes: int = 1,
+                     aligned: bool = True) -> dict:
+    """Load the kernel that a launch of ``entry`` at ``n`` slots (of
+    ``lanes`` lanes, for the batch form, on matrices that start on a 16-byte
+    boundary where ``aligned``) takes, on CUDA device ``device`` (default:
+    the current one), and return its registers a thread, local (spilled)
+    bytes a thread and, for the batch form, the blocks an SM holds (0 for
+    the other entries)."""
+    if method not in METHODS or entry not in ENTRIES:
+        raise ValueError(f"unknown method {method!r} or entry {entry!r}")
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    regs, local, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if entry == "lw_merge_batch":
+        err = _batch_lib().lw_merge_batch_load(
+            index, METHODS.index(method), n,
+            *merge_batch_plan(lanes, n, _sm_count(index), aligned=aligned),
+            ctypes.byref(regs), ctypes.byref(local), ctypes.byref(per_sm))
+    else:
+        err = _lib().lw_merge_load(index, METHODS.index(method), n, ENTRIES.index(entry),
+                                   ctypes.byref(regs), ctypes.byref(local))
     if err:
-        raise RuntimeError(f"lw_merge kernel load failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} kernel load failed: CUDA error {err}")
+    return dict(regs=regs.value, local_bytes=local.value, blocks_per_sm=per_sm.value)
+
+
+def _load_merge(method: str, b: MergeBuffers) -> None:
+    kernel_resources(method, _check_buffers(method, b), "lw_merge", b.D.device)
 
 
 lw_merge.launches = 0
@@ -288,7 +333,10 @@ class MergeBatchBuffers(NamedTuple):
     cap, 4)``, ``cand`` ``(B, 2)``, ``dmin`` and ``count`` ``(B,)``, ``sync``
     ``(B, 2)``, ...), and ``limit`` ``(B,)`` int64, the merges each lane
     makes: a lane whose ``count`` reached it only adds one to ``count``,
-    which then counts the lockstep merges (records stay where they are)."""
+    which then counts the lockstep merges (records stay where they are).
+    The batch kernel keeps its running minimum in shared memory, not in
+    ``sync``: the engine's stages still reset the field, and no launch
+    writes it."""
 
     D: torch.Tensor
     alive: torch.Tensor
@@ -322,6 +370,70 @@ def merge_batch_buffers(D, alive, sizes, merges, cand, start: int, limit) -> Mer
         sync=device_words((_KEY_INIT, 0), dev, lanes=B),
         limit=limit.to(torch.int64),
     )
+
+
+#: The most blocks of a cluster that owns a lane (the portable cluster size).
+MAX_CLUSTER = 8
+#: Rows a cluster's block takes at the least (a bitmask word).
+_MIN_BLOCK_ROWS = 32
+
+
+class BatchPlan(NamedTuple):
+    """How :func:`lw_merge_batch` lays a launch out: ``group`` threads scan
+    a row; ``unroll`` float4 loads a thread at a time into registers, or 0
+    where the Tensor Memory Accelerator copies whole rows into each warp's
+    shared-memory buffers; ``threads`` make a block; and ``blocks`` blocks
+    own a lane (one block, or a thread-block cluster when more than one)."""
+
+    group: int
+    unroll: int
+    threads: int
+    blocks: int
+
+    def __str__(self) -> str:
+        owner = "a block" if self.blocks == 1 else f"a cluster of {self.blocks}"
+        rows = ("bulk copies" if self.unroll == 0
+                else f"{self.unroll} float4 a thread in registers")
+        return f"{owner} a lane, {self.group} threads a row, {rows}, {self.threads} a block"
+
+
+@functools.cache
+def merge_batch_plan(lanes: int, n: int, sms: int = 132, aligned: bool = True) -> BatchPlan:
+    """The layout of a lockstep merge of ``lanes`` lanes of ``n`` slots on
+    a card of ``sms`` multiprocessors (``aligned``: the matrices start on a
+    16-byte boundary).  Rows of at least 128 slots that are 16-byte aligned
+    (``n % 4 == 0``: every bucket) are bulk-copied into shared memory, in
+    units of 4 KiB: a group of ``n / 32`` threads (4 at the least) scans a
+    row, 32 scan a longer row in chunks of 1024 columns.  Shorter rows go
+    into registers, 4 threads a row in one pass, and longer unaligned rows a
+    warp a row.  A block has 256 threads (512 where rows go in chunks, 32 or
+    128 for rows of 16 or 32 slots).  Up to ``n = 128`` a block owns a lane;
+    above, a cluster of the fewest blocks (a power of two up to
+    :data:`MAX_CLUSTER`, each at least a bitmask word of rows) whose warps
+    give each of the card's schedulers one, ``lanes · blocks · warps >= 4 ·
+    sms``: at 132 SMs, one 256-thread block a lane from 66 lanes on."""
+    if lanes < 1 or n < 1:
+        raise ValueError(f"a batch plan needs lanes and slots, got {lanes} and {n}")
+    bulk = aligned and n % 4 == 0 and n >= 128
+    if n <= 128 and not bulk:   # a block a lane, a row in one pass: 4 threads of n / 16 float4
+        return (BatchPlan(4, 1, 32, 1) if n <= 16 else BatchPlan(4, 2, 128, 1) if n <= 32
+                else BatchPlan(4, 4, 256, 1) if n <= 64 else BatchPlan(4, 8, 256, 1))
+    if not bulk:
+        group, unroll, threads = 32, 8, 256
+    elif n > 1024:   # rows in chunks: 16 warps a block
+        group, unroll, threads = 32, 0, 512
+    else:
+        group, unroll, threads = max(4, 1 << (-(-n // 32) - 1).bit_length()), 0, 256
+    blocks = 1
+    while (n > 128 and blocks < MAX_CLUSTER and lanes * blocks * threads < 128 * sms
+           and 2 * blocks * _MIN_BLOCK_ROWS <= n):
+        blocks *= 2
+    return BatchPlan(group, unroll, threads, blocks)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def lw_merge_batch_plain(method: str, b: MergeBatchBuffers) -> MergeBatchBuffers:
@@ -394,12 +506,14 @@ def lw_merge_batch(method: str, b: MergeBatchBuffers) -> MergeBatchBuffers:
     if b.D.device.type == "cpu":
         return lw_merge_batch_plain(method, b)
     _build.check_cuda(b.D, torch.float32, *b[1:])
-    err = _lib().lw_merge_batch(
-        b.D.device.index, METHODS.index(method), b.D.data_ptr(), b.alive.data_ptr(),
-        b.bits.data_ptr(), b.sizes.data_ptr(), b.merges.data_ptr(), b.merges.shape[1],
-        b.cand.data_ptr(), b.dmin.data_ptr(), b.count.data_ptr(), b.rmin.data_ptr(),
-        b.rarg.data_ptr(), b.sync.data_ptr(), n, b.limit.data_ptr(), B,
-        _build.raw_stream(b.D.device.index),
+    index = b.D.device.index
+    err = _batch_lib().lw_merge_batch(
+        index, METHODS.index(method), b.D.data_ptr(), b.alive.data_ptr(), b.bits.data_ptr(),
+        b.sizes.data_ptr(), b.merges.data_ptr(), b.merges.shape[1], b.cand.data_ptr(),
+        b.dmin.data_ptr(), b.count.data_ptr(), b.rmin.data_ptr(), b.rarg.data_ptr(), n,
+        b.limit.data_ptr(), B,
+        *merge_batch_plan(B, n, _sm_count(index), aligned=b.D.data_ptr() % 16 == 0),
+        _build.raw_stream(index),
     )
     if err:
         raise RuntimeError(f"lw_merge_batch kernel launch failed: CUDA error {err}")
@@ -408,10 +522,9 @@ def lw_merge_batch(method: str, b: MergeBatchBuffers) -> MergeBatchBuffers:
 
 
 def _load_merge_batch(method: str, b: MergeBatchBuffers) -> None:
-    err = _lib().lw_merge_load(b.D.device.index, METHODS.index(method),
-                               _check_batch_buffers(method, b)[1], 1)
-    if err:
-        raise RuntimeError(f"lw_merge_batch kernel load failed: CUDA error {err}")
+    B, n = _check_batch_buffers(method, b)
+    kernel_resources(method, n, "lw_merge_batch", b.D.device, lanes=B,
+                     aligned=b.D.data_ptr() % 16 == 0)
 
 
 lw_merge_batch.launches = 0

@@ -967,27 +967,38 @@ def test_cuda_staged_loop_reads_nothing_back(variant, cuda):
 # ---------------------------------------------------------------------------
 
 BATCH_BUCKETS = (8, 64, 1024)
+# B2's batch form: 7 lanes at every row width it plans for, on each side of each cut of
+# merge_batch_plan (rows in registers, 4 threads and 1, 2, 4 or 8 float4 a thread; bulk-copied
+# rows, 4, 8, 16 or 32 threads a row; a warp a row in registers where n % 4 != 0; clusters of
+# 4 and 8 blocks), and rows copied in 1024-column chunks (2048, 4096)
+MERGE_BATCH_BUCKETS = (8, 16, 17, 32, 33, 64, 65, 127, 128, 129, 256, 512, 1023, 1024, 2048,
+                       4096)
+# (lanes, n): one lane; a block a lane on the bulk path (B >= 66); clusters of 2 (rows in
+# registers, n % 4 != 0) and 4 (odd B); 3 lanes of chunked rows
+MERGE_BATCH_LANES = ((1, 16), (1, 256), (133, 256), (133, 1024), (67, 300), (33, 301), (17, 300),
+                     (3, 2048))
 
 
-def batch_lanes(n):
+def batch_lanes(n, lanes=7):
     """Each bucket's real sizes: an empty lane, one slot, two, the full
-    bucket, and a few in between."""
-    return (0, 1, 2, n, max(n // 2, 3), n - 1, 3)
+    bucket, and a few in between, repeated to ``lanes`` lanes."""
+    sizes = (0, 1, 2, n, max(n // 2, 3), n - 1, 3)
+    return tuple(sizes[b % len(sizes)] for b in range(lanes))
 
 
-def batch_state(rng, n, method, device):
+def batch_state(rng, n, method, device, lanes=7):
     """A bucket as the batched engine holds it after its seed: stacked
     symmetric matrices (padding zero), liveness, sizes, every lane's masked
     first minimum, and each lane's merge limit (its real merges)."""
     from repro_torch.core.batch_engine import cached_cand_batch, masked_row_mins_batch
 
-    n_real = batch_lanes(n)
+    n_real = batch_lanes(n, lanes)
     B = len(n_real)
-    D = np.zeros((B, n, n), np.float32)
-    for b, k in enumerate(n_real):
-        D[b, :k, :k] = random_distance_matrix(rng, k, squared=method in ("centroid", "median",
-                                                                             "ward"))
-    D = torch.tensor(D, device=device)
+    D = torch.zeros((B, n, n), device=device)
+    for b, k in enumerate(n_real):      # random_distance_matrix's, built on the card
+        X = torch.tensor(rng.normal(size=(k, 4)), device=device)
+        Dk = ((X[:, None, :] - X[None, :, :]) ** 2).sum(-1)
+        D[b, :k, :k] = Dk if method in ("centroid", "median", "ward") else Dk.sqrt()
     alive = torch.arange(n, device=device) < torch.tensor(n_real, device=device)[:, None]
     sizes = alive.to(torch.float32)
     limit = torch.tensor([max(k - 1, 0) for k in n_real], device=device)
@@ -1032,23 +1043,23 @@ def test_cuda_masked_argmin_batch_matches_plain_and_single(n, cuda, rng):
         assert (float(vs), int(fs)) == (float(v[b]), int(flat[b])), b
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("method", METHODS)
-@pytest.mark.parametrize("n", BATCH_BUCKETS)
-def test_cuda_lw_merge_batch_matches_plain_and_single(method, n, cuda, rng):
+def check_merge_batch(rng, n, method, cuda, lanes=7):
     """B2's batch merge entry over lockstep merges past every lane's limit:
     against its plain twin (every buffer, bit for bit) and against the
     single-problem merge entry launched on each lane alone as many times as
     its limit (the lanes of 0, 1 and 2 slots and the full bucket among
-    them); the key and the tickets end as they began."""
-    state = batch_state(rng, n, method, cuda)
+    them); the key and the tickets end as they began, and each launch adds
+    one to the counter."""
+    state = batch_state(rng, n, method, cuda, lanes)
     steps = min(n + 1, 40)
+    launches = lw_step.lw_merge_batch.launches
     bk, bp = fused_batch(state, cuda, n), fused_batch(state, cuda, n)
     sync = bk.sync.clone()
     for _ in range(steps):
         lw_step.lw_merge_batch(method, bk)
         lw_step.lw_merge_batch_plain(method, bp)
     torch.cuda.synchronize()
+    assert lw_step.lw_merge_batch.launches == launches + steps
     assert_batch_equal(bk, bp)
     assert torch.equal(bk.sync, sync)
     assert bk.count.tolist() == [steps] * len(state[-1])
@@ -1062,6 +1073,40 @@ def test_cuda_lw_merge_batch_matches_plain_and_single(method, n, cuda, rng):
         for name in ("D", "alive", "bits", "sizes", "merges", "cand", "dmin", "rmin", "rarg"):
             assert torch.equal(getattr(single, name).reshape(-1),
                                getattr(bk, name)[b].reshape(-1)), (b, n_real[b], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("n", MERGE_BATCH_BUCKETS)
+def test_cuda_lw_merge_batch_matches_plain_and_single(method, n, cuda, rng):
+    """B2's batch form on 7 lanes (an empty, one-slot and two-slot lane, the
+    full bucket, ...) at every ownership path and on each side of each cut:
+    see :func:`check_merge_batch`."""
+    check_merge_batch(rng, n, method, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("lanes,n", MERGE_BATCH_LANES)
+def test_cuda_lw_merge_batch_lane_counts(method, lanes, n, cuda, rng):
+    """B2's batch form at lane counts that change its plan (one lane; a
+    block a lane from 132 lanes on; clusters of 2 and 4 blocks), finished
+    and padding lanes among them: see :func:`check_merge_batch`."""
+    check_merge_batch(rng, n, method, cuda, lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("lanes,n", ((4096, 16), (1024, 32), (256, 64), (256, 127), (256, 128),
+                                     (256, 256), (256, 512), (256, 1024), (64, 256), (64, 512),
+                                     (16, 1024), (256, 2048), (16, 2048), (256, 1023),
+                                     (16, 1023)))
+def test_cuda_lw_merge_batch_spills_nothing(method, lanes, n, cuda):
+    """Every instantiation of B2's batch form that a plan takes (rows in
+    registers or bulk-copied, each row group, a block or a cluster a lane)
+    spills nothing: no local bytes."""
+    got = lw_step.kernel_resources(method, n, "lw_merge_batch", lanes=lanes)
+    assert got["local_bytes"] == 0, (str(lw_step.merge_batch_plan(lanes, n)), got)
 
 
 @pytest.mark.cuda
@@ -1098,16 +1143,22 @@ def test_cuda_lazy_merge_batch_matches_plain_and_single(method, n, cuda, rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ("baseline", "lazy"))
-def test_cuda_batch_graph_replays_eager_merges(variant, cuda, rng):
+@pytest.mark.parametrize("variant,lanes,n", (
+    *(("baseline", 7, n) for n in (16, 32, 64, 97, 128, 257, 300, 2048)), ("baseline", 133, 256),
+    ("baseline", 33, 256), ("baseline", 17, 300), ("lazy", 7, 300)))
+def test_cuda_batch_graph_replays_eager_merges(variant, lanes, n, cuda, rng):
     """A captured graph of lockstep batch merges gives the eager launches'
-    buffers, and each replay adds its merges to the entries' counters."""
+    buffers, and each replay adds its merges to the entries' counters; for
+    B2's batch form on each path of its plan (rows in registers with 1, 2,
+    4 and 8 float4 a thread and a warp a row, bulk-copied rows whole and in
+    chunks, a block a lane and clusters of 2, 4 and 8 blocks: the cluster
+    launch is captured too)."""
     from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS as k
 
-    state = batch_state(rng, 300, "ward", cuda)
+    state = batch_state(rng, n, "ward", cuda, lanes)
     make, merge = ((fused_batch, lw_step.lw_merge_batch) if variant == "baseline"
                    else (lazy_batch, lw_update.lazy_merge_batch))
-    eager, replayed = make(state, cuda, 300), make(state, cuda, 300)
+    eager, replayed = make(state, cuda, n), make(state, cuda, n)
     for _ in range(2 * k):
         merge("ward", eager)
     graph = lw_step.MergeGraph("ward", replayed, k, merge=merge)

@@ -24,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import engine as jengine  # noqa: E402
 from repro.core.linkage import METHODS  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
+from repro_torch.core.batched import BUCKETS  # noqa: E402
 from repro_torch.kernels import lw_step, minscan  # noqa: E402
 from tests.conftest import random_distance_matrix  # noqa: E402
 from tests.test_torch_cuda import merge_problem  # noqa: E402
@@ -229,3 +230,69 @@ def test_lw_merge_rejects_bad_operands(rng):
     before = lw_step.lw_merge.launches
     lw_step.lw_merge("complete", b)
     assert lw_step.lw_merge.launches == before        # no kernel on the CPU
+
+
+# ---------------------------------------------------------------------------
+# the batch form's launch plan (kernels/lw_step.py merge_batch_plan)
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("lanes", (1, 3, 64, 256, 4096))
+@pytest.mark.parametrize("n", BUCKETS)
+def test_merge_batch_plan_owns_every_lane_once(lanes, n):
+    """Every bucket's plan: each lane owned by one block or one cluster of
+    at most 8 blocks (block x is rank x % k of lane x // k), each of a
+    cluster's blocks given at least a bitmask word of rows, the fewest
+    blocks that cover the card's SMs, a grid within CUDA's limits; rows of
+    128 slots and more bulk-copied, whole into a 4 KiB buffer a warp or in
+    chunks that fill it, and shorter rows in one pass of registers, every
+    thread of a row group on a float4 from bucket 16 on."""
+    plan = lw_step.merge_batch_plan(lanes, n, H100_SMS)
+    k = plan.blocks
+    assert 1 <= k <= lw_step.MAX_CLUSTER and k & (k - 1) == 0
+    assert lanes * k <= 2**31 - 1
+    assert plan.group in (4, 8, 16, 32) and plan.threads % plan.group == 0
+    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    owners = {}
+    for block in range(lanes * k):
+        owners.setdefault(block // k, []).append(block % k)
+    assert sorted(owners) == list(range(lanes))
+    assert all(ranks == list(range(k)) for ranks in owners.values())
+    if n >= 128:
+        assert plan.unroll == 0 and plan.threads == (512 if n > 1024 else 256)
+        assert 32 * plan.group >= min(n, 1024)               # a row, or a chunk, a group
+        assert 32 * plan.group <= max(2 * n, 128)            # no thread without a float4
+    else:
+        assert k == 1 and plan.group == 4 and 4 * plan.group * plan.unroll >= n
+        assert plan.group * plan.unroll * 4 <= max(2 * n, 16)
+        assert plan.threads <= max(plan.group * n, 32)
+    if n <= 128:
+        assert k == 1
+    else:   # the fewest blocks whose warps give each scheduler (4 an SM) one
+        warps = plan.threads // 32
+        assert 32 * k <= n
+        assert k == 1 or lanes * (k // 2) * warps < 4 * H100_SMS
+        assert k == lw_step.MAX_CLUSTER or lanes * k * warps >= 4 * H100_SMS or 64 * k > n
+
+
+@pytest.mark.parametrize("n", (97, 129, 1023, 4094))
+def test_merge_batch_plan_keeps_unaligned_rows_in_registers(n):
+    """Rows that are not 16-byte aligned (n % 4 != 0, or a matrix that
+    starts off a 16-byte boundary) cannot be bulk-copied: they are read
+    into registers, a warp a row where they are long."""
+    plan = lw_step.merge_batch_plan(8, n, H100_SMS)
+    assert plan.unroll > 0 and plan.group == (4 if n <= 128 else 32)
+    assert (lw_step.merge_batch_plan(8, 1024, H100_SMS, aligned=False)
+            == lw_step.BatchPlan(32, 8, 256, 8))
+
+
+def test_merge_batch_plan_follows_the_card():
+    """The cluster grows as lanes fall, and on a card of fewer SMs sooner."""
+    assert [lw_step.merge_batch_plan(b, 1024, H100_SMS).blocks
+            for b in (256, 66, 65, 33, 32, 17, 16, 1)] == [1, 1, 2, 2, 4, 4, 8, 8]
+    assert lw_step.merge_batch_plan(64, 512, 114).blocks == 1
+    assert lw_step.merge_batch_plan(64, 512, H100_SMS).blocks == 2
+    with pytest.raises(ValueError, match="lanes and slots"):
+        lw_step.merge_batch_plan(0, 16)
