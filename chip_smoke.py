@@ -6,7 +6,9 @@
 Phases, in order; a failing phase raises and the script exits non-zero:
 
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, started together) and print the card's name and power limit.
+   source, started together) and print the card's name and power limit;
+   the registers and local bytes of every instantiation of B2's entries
+   and of B3's batch form (none may spill).
 2. Hold each kernel against its plain torch version on the card, and time
    both: the LW kernels on a mid-run state with dead slots at n = 1968 and
    n = 16384 (the step kernel through both its entries, the per-row step
@@ -23,14 +25,18 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    n = 1968 and 8192 for all 7 methods, timed over 20 merges and over a
    graph replay of 128, with the host's time to enqueue one call of the row
    update, its lazy merge, the row kernel and the pairwise kernel.  Then the
-   batch-grid forms of B1, B2's merge entry and B3's lazy merge on a mid-run
-   bucket of (B, n) = (256, 1024) and (4096, 16) lanes: each against its
-   plain twin and against one single-problem launch a lane (20 and 8
-   lockstep merges against each lane's own), bit for bit, and timed with
-   its bound summed over the lanes.  A kernel whose operands
-   fit in half the L2 is timed on L2-resident data, as its caller finds
-   them; its bound then takes the L2 read rate measured here (two torch
-   reductions over a 16 MiB buffer), else the HBM rate.
+   batch-grid forms of B1, B2's merge entry and B3's lazy merge on mid-run
+   buckets (BATCH_KERNEL_SHAPES: (B, n) = (256, 1024) and (4096, 16) for
+   all three, the service card mix's (64, 128), (64, 256) and (64, 512)
+   for B2 and B3, phase 13's (64, 1024) for B3, (16, 2048) for B2 and B3,
+   (2, 4096) for B3): each against its plain twin and against one
+   single-problem launch a lane (20 or 8 lockstep merges against each
+   lane's own), bit for bit, and timed with its bound summed over the
+   lanes; B2's and B3's rows with the plan they took, B3's with its
+   registers and local bytes.  A kernel whose operands fit in half the L2
+   is timed on L2-resident data, as its caller finds them; its bound then
+   takes the L2 read rate measured here (two torch reductions over a
+   16 MiB buffer), else the HBM rate.
 3. The paper's configuration: n = 1968 points in 64 dimensions, complete
    linkage, through ``cluster(..., algorithm="lw", backend="kernel")``,
    which stages the run by default (compaction: 1968, 984 and 492
@@ -109,8 +115,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     sets of n = 256 with default knobs, which go to the batched chain and
     give the LW batch's dendrograms.  Each run's wall, busy time, idle
     share, problems per second and launches (one B1 batch seed a stage,
-    one B2 batch launch a lockstep merge, graph replays of 128), checked
-    against the kernel plan of each bucket.
+    one B2 batch launch a lockstep merge; ``lazy``: one B3 batch launch a
+    lockstep merge, the update and the rescan; graph replays of 128),
+    checked against the kernel plan of each bucket.
 14. The clustering service (``repro_torch.service``) under three traffic
     mixes (SERVICE_MIXES): the reference load driver's defaults (complete,
     serial engine, buckets 8/16/32, sizes 5-27, 200 req/s for 3 s); card
@@ -192,11 +199,17 @@ BATCH_LAZY_B = 64              # the full bucket's first problems through kernel
 BATCH_RAGGED = (4096, 16, 512, 16)   # problems, n from 16 to 512 uniform, d (batch_dedup's traffic)
 BATCH_SAMPLE = 64              # ragged lanes held against single-problem runs
 BATCH_POINTS = (256, 256, DIM)  # (B, n, d) ward points: default knobs send them to the chain
-# (B, n, timed merges, B1 and B3 too): the full-width and ragged buckets, the service card mix's
-# (64 lanes of 128, 256 and 512), and B2's batch form at n = 2048 (a row in several passes)
-BATCH_KERNEL_SHAPES = ((256, 1024, MERGE_REPS, True), (4096, 16, 8, True),
-                       (64, 128, MERGE_REPS, False), (64, 256, MERGE_REPS, False),
-                       (64, 512, MERGE_REPS, False), (16, 2048, MERGE_REPS, False))
+# (B, n, timed merges, the batch forms timed there: B1 "argmin", B2 "merge", B3 "lazy"): the
+# full-width and ragged buckets (all three), the service card mix's (64 lanes of 128, 256 and
+# 512: B2 and B3), phase 13's kernel lazy bucket (B3), and few lanes of long rows, which a
+# cluster owns: n = 2048 (B2 and B3, a row in passes) and n = 4096 (B3)
+BATCH_ALL = ("argmin", "merge", "lazy")
+BATCH_KERNEL_SHAPES = ((256, 1024, MERGE_REPS, BATCH_ALL), (4096, 16, 8, BATCH_ALL),
+                       (64, 128, MERGE_REPS, ("merge", "lazy")),
+                       (64, 256, MERGE_REPS, ("merge", "lazy")),
+                       (64, 512, MERGE_REPS, ("merge", "lazy")),
+                       (BATCH_LAZY_B, 1024, MERGE_REPS, ("lazy",)),
+                       (16, 2048, MERGE_REPS, ("merge", "lazy")), (2, 4096, MERGE_REPS, ("lazy",)))
 # the (lanes, n) at which B2's entries are loaded for the register and spill report: the
 # single-problem entries on each row width, the batch form on each ownership path
 RESOURCE_SHAPES = {"lw_step": ((1, 1024), (1, 4096), (1, 16384)),
@@ -204,7 +217,9 @@ RESOURCE_SHAPES = {"lw_step": ((1, 1024), (1, 4096), (1, 16384)),
                    "lw_merge_batch": ((4096, 16), (1024, 32), (256, 64), (256, 127), (256, 128),
                                       (256, 256), (256, 512), (256, 1024), (64, 256), (64, 512),
                                       (16, 1024), (256, 2048), (16, 2048), (256, 1023),
-                                      (16, 1023))}
+                                      (16, 1023)),
+                  "lazy_merge_batch": ((4096, 16), (1024, 32), (256, 64), (256, 128),
+                                       (256, 1024), (66, 2048), (17, 2048), (2, 4096))}
 RTOL, ATOL = 1e-4, 1e-5        # height tolerance of the JAX package's kernel tests
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once a launch
@@ -212,7 +227,6 @@ KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once
     "masked_argmin_batch": ("batch_row_min", "batch_first_min"),
     "lw_merge_batch": ("lw_merge_batch_kernel",),
     "lazy_merge_batch": ("lazy_merge_batch_kernel",),
-    "lazy_rescan_batch": ("lazy_rescan_batch_kernel",),
     "lw_step": ("lw_step_kernel", "pack_alive_kernel"),
     "lw_merge": ("lw_merge_kernel",),
     "lw_update": ("lw_update_kernel",),
@@ -223,7 +237,8 @@ KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once
     "pairwise_sq_euclidean": ("pairwise_sq_kernel",),
 }
 NO_LAUNCHES = dict.fromkeys(KERNEL_SYMBOLS, 0)
-ENTRY_SOURCES = {"lw_merge_batch": "src/repro_torch/csrc/lw_merge_batch.cu"}
+ENTRY_SOURCES = {"lw_merge_batch": "src/repro_torch/csrc/lw_merge_batch.cu",
+                 "lazy_merge_batch": "src/repro_torch/csrc/lazy_merge_batch.cu"}
 
 
 def gpu_line() -> str:
@@ -524,12 +539,31 @@ def lazy_state(torch, n: int, method: str):
                                   (rmin, rarg), 0)
 
 
-def lazy_merge_bytes(n: int, stale: float) -> float:
+def lazy_merge_bytes(n: int, stale, changed):
     """The bytes one resident lazy merge must move with ``stale`` rows to
-    rescan: rows i and j, alive, sizes and both caches read once (25 n),
-    row and column i and both caches written (20 n); each stale row read
-    (4 n), listed, read from the list and its cache written (20)."""
-    return 45 * n + stale * (4 * n + 20)
+    rescan and ``changed`` cache entries rewritten by its update (the
+    columns whose cached minimum the invalidation lowers, and row i): rows
+    i and j, alive, sizes and both caches read once (25 n), row and column
+    i written (8 n), both caches written for each changed entry and each
+    stale row (12 each), and each stale row read (4 n).  Where a kernel
+    lists its stale rows is its own choice, and not counted.  Numbers, or
+    tensors of a lane's."""
+    return 33 * n + 12 * changed + stale * (4 * n + 12)
+
+
+def lazy_cache_changes(torch, method: str, b, update, rescan, reps: int):
+    """The cache entries that a lazy merge's update rewrites, a merge on
+    average (a lane's, for batch buffers): the plain twin's ``update`` and
+    ``rescan`` made ``reps`` times on a copy of the buffers ``b``, counting
+    the entries of (rmin, rarg) that each update changes."""
+    bp = type(b)(*(t.clone() for t in b))
+    changed = 0
+    for _ in range(reps):
+        rmin, rarg = bp.rmin.clone(), bp.rarg.clone()
+        update(method, bp)
+        changed = changed + ((bp.rmin != rmin) | (bp.rarg != rarg)).sum(-1)
+        rescan(bp)
+    return changed.to(torch.float64) / reps
 
 
 def phase_lazy_merge(torch, n: int, l2_rate: float) -> dict:
@@ -571,15 +605,18 @@ def phase_lazy_merge(torch, n: int, l2_rate: float) -> dict:
     for _ in range(MERGE_REPS):
         lw_update.lazy_merge("complete", b)
     stale = (int(b.rescanned) - int(lw_update.LazyBuffers(*b0).rescanned)) / MERGE_REPS
+    changed = float(lazy_cache_changes(torch, "complete", lw_update.LazyBuffers(*b0),
+                                       lw_update._lazy_update_plain, lw_update.lazy_rescan_plain,
+                                       MERGE_REPS))
     for dst, src in zip(b, b0):
         dst.copy_(src)
     graph = lw_step.MergeGraph("complete", b, THRESHOLD_CHECK_TRIPS, merge=lw_update.lazy_merge)
     replay_ms = time_merges(torch, lambda _: graph.replay(), b0, b, reps=1)
-    n_bytes = lazy_merge_bytes(n, stale)
+    n_bytes = lazy_merge_bytes(n, stale, changed)
     return dict(n=n, live=live, methods_checked=len(METHODS), checked_merges=LAZY_CHECKS,
                 max_abs_err=err, bit_equal=True, ms=ms, plain_ms=plain_ms,
                 graph_ms_per_merge=replay_ms / THRESHOLD_CHECK_TRIPS,
-                stale_rows_per_merge=stale, library_ms=None,
+                stale_rows_per_merge=stale, changed_entries_per_merge=changed, library_ms=None,
                 host_us=host_us(torch, lambda: lw_update.lazy_merge("complete", b)),
                 **bound(torch, n_bytes, 12 * live + 2 * stale * n, 4 * n * n, l2_rate))
 
@@ -625,39 +662,49 @@ def check_against_single(torch, bk, single_buffers, single_merge, method, reps: 
 
 def resource_report(torch) -> dict:
     """Registers and local (spilled) bytes a thread of every instantiation
-    of B2's entries, for each method, and the batch form's blocks an SM:
-    ``{entry: {"B=.. n=..": {method: [regs, local_bytes, blocks_per_sm]}}}``,
-    the batch form's keys with its plan."""
+    of B2's entries and B3's batch form, for each method, and the batch
+    forms' blocks an SM: ``{entry: {"B=.. n=..": {method: [regs,
+    local_bytes, blocks_per_sm]}}}``, the batch forms' keys with their
+    plan."""
     from repro_torch.core.linkage import METHODS
-    from repro_torch.kernels import lw_step
+    from repro_torch.kernels import lw_step, lw_update
 
-    plan = getattr(lw_step, "merge_batch_plan", None)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = {"lw_merge_batch": lw_step.merge_batch_plan,
+             "lazy_merge_batch": lw_update.lazy_batch_plan}
+
+    def resources(method, n, entry, B):
+        if entry == "lazy_merge_batch":
+            return lw_update.lazy_batch_resources(method, n, lanes=B)
+        return lw_step.kernel_resources(method, n, entry, lanes=B)
+
     out = {}
     for entry, shapes in RESOURCE_SHAPES.items():
         for B, n in shapes:
-            key = f"B={B} n={n}" + (f" {plan(B, n)}" if plan and entry == "lw_merge_batch" else "")
+            key = f"B={B} n={n}" + (f" {plans[entry](B, n, sms)}" if entry in plans else "")
             out.setdefault(entry, {})[key] = {
-                m: list(lw_step.kernel_resources(m, n, entry, lanes=B).values()) for m in METHODS}
+                m: list(resources(m, n, entry, B).values()) for m in METHODS}
     return out
 
 
 def phase_batch_kernels(torch, B: int, n: int, reps: int, l2_rate: float,
-                        all_kernels: bool = True) -> dict:
-    """The batch-grid forms of B1, B2's merge entry and B3's lazy merge on a
-    mid-run bucket of B lanes (B2 alone unless ``all_kernels``): each
-    against its plain twin and against one single-problem launch a lane
-    (per merge entry: ``reps`` lockstep merges against each lane's own
+                        kernels=BATCH_ALL) -> dict:
+    """The batch-grid forms named in ``kernels`` (B1 "argmin", B2's merge
+    entry "merge", B3's lazy merge "lazy") on a mid-run bucket of B lanes:
+    each against its plain twin and against one single-problem launch a
+    lane (per merge entry: ``reps`` lockstep merges against each lane's own
     merges), bit for bit; then timed as phase 2 times the single-problem
     entries, with their bounds summed over the lanes."""
     out, method = {}, "complete"
     D, alive, sizes, limit, cand = batch_mid_state(torch, B, n, reps, seed=11)
     live = alive.sum(1).to(torch.float64)
     resident = 4 * B * n * n
-    if all_kernels:
+    if "argmin" in kernels:
         out["masked_argmin_batch"] = batch_argmin_row(torch, D, alive, live, resident, l2_rate)
-    out["lw_merge_batch/complete"] = batch_merge_row(torch, method, D, alive, sizes, limit, cand,
-                                                     live, reps, resident, l2_rate)
-    if all_kernels:
+    if "merge" in kernels:
+        out["lw_merge_batch/complete"] = batch_merge_row(torch, method, D, alive, sizes, limit,
+                                                         cand, live, reps, resident, l2_rate)
+    if "lazy" in kernels:
         out["lazy_merge_batch/complete"] = batch_lazy_row(torch, method, D, alive, sizes, limit,
                                                           live, reps, resident, l2_rate)
     return out
@@ -718,9 +765,9 @@ def batch_merge_row(torch, method: str, D, alive, sizes, limit, cand, live, reps
                            reps=reps)
     live_mean = live - 1 - (reps - 1) / 2          # a timed merge kills one slot a lane
     read = float((4 * live_mean * n).sum())        # each lane's live rows, read whole
-    plan = getattr(lw_step, "merge_batch_plan", None)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     return dict(
-        B=B, n=n, path=str(plan(B, n)) if plan else "row blocks, a ticket a lane",
+        B=B, n=n, path=str(lw_step.merge_batch_plan(B, n, sms)),
         live_mean=float(live_mean.mean()), max_abs_err=err, bit_equal=True,
         single_checked=B, merges_checked=reps, ms=ms, plain_ms=plain_ms, library_ms=None,
         read_bytes=read, read_bytes_per_s=read / (ms * 1e-3),
@@ -730,8 +777,10 @@ def batch_merge_row(torch, method: str, D, alive, sizes, limit, cand, live, reps
 
 def batch_lazy_row(torch, method: str, D, alive, sizes, limit, live, reps: int,
                    resident: float, l2_rate: float) -> dict:
-    """B3's batch lazy merge and rescan against their plain twins and the
-    single lazy merge, bit for bit, timed."""
+    """B3's batch lazy merge against its plain twin and the single lazy
+    merge, bit for bit, timed; with the plan it took, its kernel's
+    registers, local bytes and blocks an SM, and the bytes a merge must move
+    at the rate it reached."""
     from repro_torch.core.batch_engine import cached_cand_batch, masked_row_mins_batch
     from repro_torch.kernels import lw_update
 
@@ -746,9 +795,7 @@ def batch_lazy_row(torch, method: str, D, alive, sizes, limit, live, reps: int,
         lw_update.lazy_merge_batch(method, bk)
         lw_update.lazy_merge_batch_plain(method, bp)
     torch.cuda.synchronize()
-    check_batch_buffers(torch, bk, bp, f"lazy_merge_batch B={B} n={n}", skip=("stale", "sync"))
-    if not torch.equal(bk.sync, b0.sync):
-        raise AssertionError(f"lazy_merge_batch B={B} n={n}: keys/tickets left at {bk.sync}")
+    check_batch_buffers(torch, bk, bp, f"lazy_merge_batch B={B} n={n}")
     check_against_single(
         torch, bk, lambda b: lw_update.lazy_buffers(
             b0.D[b].clone(), b0.alive[b].clone(), b0.sizes[b].clone(),
@@ -760,15 +807,21 @@ def batch_lazy_row(torch, method: str, D, alive, sizes, limit, live, reps: int,
     err = float((bk.rmin - bp.rmin).abs().nan_to_num().max())
     stale = (bk.rescanned - b0.rescanned).to(torch.float64) / reps     # a lane's rows a merge
     del bp
+    changed = lazy_cache_changes(torch, method, b0, lw_update._lazy_update_batch_plain,
+                                 lw_update.lazy_rescan_batch_plain, reps)
     ms = time_merges(torch, lambda b: lw_update.lazy_merge_batch(method, b), b0, bk, reps=reps)
     plain_ms = time_merges(torch, lambda b: lw_update.lazy_merge_batch_plain(method, b), b0, bk,
                            reps=reps)
+    n_bytes = float(lazy_merge_bytes(n, stale, changed).sum())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     return dict(
-        B=B, n=n, live_mean=float(live_mean.mean()), max_abs_err=err, bit_equal=True,
-        single_checked=B, merges_checked=reps, stale_rows_per_merge=float(stale.mean()), ms=ms,
-        plain_ms=plain_ms, library_ms=None,
-        **bound(torch, float((45 * n + stale * (4 * n + 20)).sum()),
-                float((12 * live_mean + 2 * stale * n).sum()), resident, l2_rate))
+        B=B, n=n, path=str(lw_update.lazy_batch_plan(B, n, sms)),
+        live_mean=float(live_mean.mean()), max_abs_err=err, bit_equal=True, single_checked=B,
+        merges_checked=reps, stale_rows_per_merge=float(stale.mean()),
+        changed_entries_per_merge=float(changed.mean()), ms=ms, plain_ms=plain_ms,
+        library_ms=None, bytes_per_s=n_bytes / (ms * 1e-3),
+        **lw_update.lazy_batch_resources(method, n, lanes=B),
+        **bound(torch, n_bytes, float((12 * live_mean + 2 * stale * n).sum()), resident, l2_rate))
 
 
 def lw_update_bytes(method: str, n: int, live: int) -> int:
@@ -934,7 +987,7 @@ def reset_counters() -> None:
     lw_step.lw_merge_batch.launches = 0
     lw_update.lw_update.launches = 0
     lw_update.lazy_merge.launches = lw_update.lazy_rescan.launches = 0
-    lw_update.lazy_merge_batch.launches = lw_update.lazy_rescan_batch.launches = 0
+    lw_update.lazy_merge_batch.launches = 0
     pairwise.row_sq_euclidean.launches = 0
     pairwise.chain_trip.launches = pairwise.TripGraph.replays = 0
     pairwise.pairwise_sq_euclidean.launches = 0
@@ -950,7 +1003,6 @@ def read_counters() -> dict:
             "masked_argmin_batch": minscan.masked_argmin_batch.launches,
             "lw_merge_batch": lw_step.lw_merge_batch.launches,
             "lazy_merge_batch": lw_update.lazy_merge_batch.launches,
-            "lazy_rescan_batch": lw_update.lazy_rescan_batch.launches,
             "row_sq_euclidean": pairwise.row_sq_euclidean.launches,
             "chain_trip": pairwise.chain_trip.launches,
             "pairwise_sq_euclidean": pairwise.pairwise_sq_euclidean.launches}
@@ -1700,8 +1752,9 @@ def batch_launches(backend: str, variant: str, buckets, compaction=True) -> dict
     ``backend``: for each bucket of ``bucket_n`` slots, its kernel plan's
     stages (``stop_at_k`` = 1), each seeding once (B1's batch form;
     ``lazy``: the masked row minima in torch) and making its steps as
-    lockstep merges (one B2 batch launch each; ``lazy``: one B3 batch merge
-    and one rescan), whole chunks of THRESHOLD_CHECK_TRIPS from its graph.
+    lockstep merges (one B2 batch launch each; ``lazy``: one B3 batch
+    launch each, the update and the rescan), whole chunks of
+    THRESHOLD_CHECK_TRIPS from its graph.
     The serial backend launches no kernel."""
     from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS
 
@@ -1713,8 +1766,7 @@ def batch_launches(backend: str, variant: str, buckets, compaction=True) -> dict
     if backend == "serial":
         return dict(launches={}, replays=0)
     if variant == "lazy":
-        return dict(launches={"lazy_merge_batch": merges, "lazy_rescan_batch": merges},
-                    replays=replays)
+        return dict(launches={"lazy_merge_batch": merges}, replays=replays)
     return dict(launches={"masked_argmin_batch": seeds, "lw_merge_batch": merges}, replays=replays)
 
 
@@ -2318,13 +2370,11 @@ def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assign
                                         ("pairwise_sq_euclidean", QUERY_N),
                                         assigned["centroid"]["kernel"])])):
         listed = [dict(entry=entry, **numbers(key, path, entry)) for entry, key, path in entries]
-        for row in listed:                        # the lazy merges' second launch, the rescan
+        for row in listed:                        # the single lazy merge's second launch
             if row["entry"] in service["card"]["launches"] and row["entry"].endswith("_batch"):
                 row["service_launches"] = service["card"]["launches"][row["entry"]]
             if row["entry"] == "lazy_merge":
                 row["rescan_launches"] = lazy["launches"]["lazy_rescan"]
-            elif row["entry"] == "lazy_merge_batch":
-                row["rescan_launches"] = b_lazy["launches"]["lazy_rescan_batch"]
         for row in listed[1:]:                    # an entry in a source of its own
             row["source"] = ENTRY_SOURCES.get(row["entry"], src[name][0])
         inventory.append(dict(name=name, route="cuda", source=src[name][0],
@@ -2362,11 +2412,12 @@ def main() -> int:
     say(f"phase 1 build: {build_s:.2f} s; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)}; {card}")
     resources = resource_report(torch)
-    say("phase 1 B2 registers and local bytes a thread: " + json.dumps(resources))
-    spilled = {shape: row for shape, row in resources["lw_merge_batch"].items()
-               if any(numbers[1] for numbers in row.values())}
-    if spilled:
-        raise AssertionError(f"lw_merge_batch spills: {spilled}")
+    say("phase 1 B2 and B3 batch registers and local bytes a thread: " + json.dumps(resources))
+    for entry in ("lw_merge_batch", "lazy_merge_batch"):
+        spilled = {shape: row for shape, row in resources[entry].items()
+                   if any(numbers[1] for numbers in row.values())}
+        if spilled:
+            raise AssertionError(f"{entry} spills: {spilled}")
 
     # 2. kernels against their plain versions
     l2_rate = l2_read_rate(torch)
@@ -2397,8 +2448,8 @@ def main() -> int:
         say(f"phase 2 lazy_merge n={n}: " + json.dumps(row))
         kernels[("lazy_merge/complete", n)] = row
         torch.cuda.empty_cache()
-    for B, n, reps, all_kernels in BATCH_KERNEL_SHAPES:
-        for name, row in phase_batch_kernels(torch, B, n, reps, l2_rate, all_kernels).items():
+    for B, n, reps, at in BATCH_KERNEL_SHAPES:
+        for name, row in phase_batch_kernels(torch, B, n, reps, l2_rate, at).items():
             say(f"phase 2 {name} B={B} n={n}: " + json.dumps(row))
             kernels[(name, (B, n))] = row
         torch.cuda.empty_cache()
@@ -2502,10 +2553,14 @@ BATCH_TIMES_FLAG = "--batch-kernel-times"
 
 def batch_kernel_times(src: str | None) -> int:
     """``python3 chip_smoke.py --batch-kernel-times [SRC]``: the register and
-    spill report and phase 2's rows of B2's batch form at every
-    BATCH_KERNEL_SHAPES bucket (checks included) for the ``repro_torch``
-    under ``SRC``, one JSON line.  Run it for two trees in one call, in
-    the order A, B, B, A, to compare their batch forms on one card."""
+    spill report, and phase 2's rows of B2's and B3's batch forms at every
+    BATCH_KERNEL_SHAPES bucket that times them (checks included), with their
+    plan sweeps, for the ``repro_torch`` under ``SRC``; one JSON line.  B2's
+    rows add a torch reduction's read rate over the bucket and an all-live
+    bucket; B3's the device µs a lockstep merge of each kernel it launches
+    (the profiler's records) and torch's store yardsticks.  Run it for two
+    trees in one call, in the order A, B, B, A, to compare their batch forms
+    on one card."""
     import torch
 
     if src:
@@ -2515,21 +2570,38 @@ def batch_kernel_times(src: str | None) -> int:
         return 1
     import repro_torch
 
-    from repro_torch.kernels import _build, lw_step
+    from repro_torch.kernels import _build
 
     _build.build_all()
     l2_rate = l2_read_rate(torch)
-    rows, sweep = {}, {}
-    for B, n, reps, _ in BATCH_KERNEL_SHAPES:
+    rows = {"lw_merge_batch": {}, "lazy_merge_batch": {}}
+    sweep = {"lw_merge_batch": {}, "lazy_merge_batch": {}}
+    for B, n, reps, at in BATCH_KERNEL_SHAPES:
+        key = f"B={B} n={n}"
         D, alive, sizes, limit, cand = batch_mid_state(torch, B, n, reps, seed=11)
-        row = batch_merge_row(torch, "complete", D, alive, sizes, limit, cand,
-                              alive.sum(1).to(torch.float64), reps, 4 * B * n * n, l2_rate)
-        rows[f"B={B} n={n}"] = {k: row[k] for k in ("path", "ms", "bound_ms", "read_bytes_per_s")}
-        # a yardstick of the card's read rate: one torch reduction over the whole bucket
-        rows[f"B={B} n={n}"]["amin_bucket_bytes_per_s"] = (
-            4 * B * n * n / (time_ms(torch, lambda: torch.amin(D, dim=-1)) * 1e-3))
-        if hasattr(lw_step, "merge_batch_plan") and n > 128:
-            sweep[f"B={B} n={n}"] = plan_sweep(torch, D, alive, sizes, limit, cand, reps)
+        live, resident = alive.sum(1).to(torch.float64), 4 * B * n * n
+        if "merge" in at:
+            row = batch_merge_row(torch, "complete", D, alive, sizes, limit, cand, live, reps,
+                                  resident, l2_rate)
+            rows["lw_merge_batch"][key] = {k: row[k] for k in ("path", "ms", "bound_ms",
+                                                               "read_bytes_per_s")}
+            # a yardstick of the card's read rate: one torch reduction over the whole bucket
+            rows["lw_merge_batch"][key]["amin_bucket_bytes_per_s"] = (
+                resident / (time_ms(torch, lambda: torch.amin(D, dim=-1)) * 1e-3))
+            if n > 128:
+                sweep["lw_merge_batch"][key] = plan_sweep(torch, D, alive, sizes, limit, cand,
+                                                          reps)
+        if "lazy" in at:
+            row = batch_lazy_row(torch, "complete", D, alive, sizes, limit, live, reps,
+                                 resident, l2_rate)
+            rows["lazy_merge_batch"][key] = dict(
+                {k: row[k] for k in ("path", "stale_rows_per_merge", "ms", "bound_ms",
+                                     "bytes_per_s", "regs", "local_bytes")},
+                kernel_us=lazy_kernel_split(torch, D, alive, sizes, limit, reps))
+            if n > 128:
+                sweep["lazy_merge_batch"][key] = lazy_plan_sweep(torch, D, alive, sizes, limit,
+                                                                 reps)
+            rows["lazy_merge_batch"][key].update(store_yardsticks(torch, D, reps))   # writes D
         del D, alive, sizes, limit, cand
         torch.cuda.empty_cache()
     # the full-width bucket with every slot live: whole matrices read, no dead row skipped
@@ -2537,22 +2609,89 @@ def batch_kernel_times(src: str | None) -> int:
     D, alive, sizes, limit, cand = batch_mid_state(torch, B, n, reps, seed=11, dead=0.0)
     row = batch_merge_row(torch, "complete", D, alive, sizes, limit, cand,
                           alive.sum(1).to(torch.float64), reps, 4 * B * n * n, l2_rate)
-    rows[f"B={B} n={n} all live"] = {k: row[k] for k in ("path", "ms", "read_bytes_per_s")}
+    rows["lw_merge_batch"][f"B={B} n={n} all live"] = {k: row[k] for k in ("path", "ms",
+                                                                           "read_bytes_per_s")}
     del D, alive, sizes, limit, cand
     torch.cuda.empty_cache()
-    print(json.dumps({"src": str(Path(repro_torch.__file__).parents[1]), "lw_merge_batch": rows,
+    print(json.dumps({"src": str(Path(repro_torch.__file__).parents[1]), "rows": rows,
                       "plan_sweep_ms": sweep, "resources": resource_report(torch),
                       "card": gpu_line()}))
     return 0
+
+
+def store_yardsticks(torch, D, reps: int) -> dict:
+    """Yardsticks of a lockstep merge's stores over the bucket ``D`` (which
+    they overwrite), each one torch copy a call: into column c of every lane
+    (n scattered 4-byte stores a lane, each into another row), into columns
+    c … c + 7 (a whole 32-byte sector a row), and into row c; each call on
+    the next sector's columns or the next row."""
+    import itertools
+
+    B, n, _ = D.shape
+    src, src8 = torch.rand(B, n, device="cuda"), torch.rand(B, n, 8, device="cuda")
+    cols, rows = itertools.cycle(range(0, n, 8)), itertools.cycle(range(n))
+    sectors = itertools.cycle(range(0, n - 7, 8))
+    return dict(column_store_ms=time_ms(torch, lambda: D[:, :, next(cols)].copy_(src), reps=reps),
+                sector_store_ms=time_ms(
+                    torch, lambda: D[:, :, (c := next(sectors)):c + 8].copy_(src8), reps=reps),
+                row_store_ms=time_ms(torch, lambda: D[:, next(rows), :].copy_(src), reps=reps))
+
+
+def lazy_kernel_split(torch, D, alive, sizes, limit, reps: int) -> dict:
+    """Device µs a lockstep merge of each kernel that B3's batch form
+    launches, from the profiler's records of ``reps`` merges of a fresh
+    mid-run bucket."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.batch_engine import cached_cand_batch, masked_row_mins_batch
+    from repro_torch.kernels import lw_update
+
+    B, n = alive.shape
+    rmin, rarg = masked_row_mins_batch(D, alive)
+    b = lw_update.lazy_batch_buffers(D.clone(), alive.clone(), sizes.clone(),
+                                     torch.zeros((B, n, 4), device="cuda"),
+                                     cached_cand_batch(alive, rmin, rarg), (rmin, rarg), 0, limit)
+    lw_update.lazy_merge_batch("complete", b)     # loads the kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            lw_update.lazy_merge_batch("complete", b)
+        torch.cuda.synchronize()
+    ns = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA and "lazy" in name:
+            key = next(w for w in name.replace("(", " ").replace("<", " ").split()
+                       if "lazy" in w).split("::")[-1]
+            ns[key] = ns.get(key, 0) + e.duration_ns()
+    return {k: v / 1e3 / reps for k, v in ns.items()}
+
+
+def sweep_plans(torch, module, plan_fn: str, plans, merge, b0, bp, reps: int,
+                what: str) -> dict:
+    """``merge`` ("complete") under each of ``plans``, ``module``'s plan
+    function ``plan_fn`` patched to return it: each timed as phase 2 times
+    it over ``reps`` merges from the buffers ``b0``, then held against the
+    plain twin's buffers ``bp`` after as many (its stale list aside)."""
+    planned, out = getattr(module, plan_fn), {}
+    try:
+        for plan in plans:
+            setattr(module, plan_fn, lambda *args, plan=plan, **kwargs: plan)
+            bk = type(b0)(*(t.clone() for t in b0))
+            out[str(plan)] = time_merges(torch, lambda b: merge("complete", b), b0, bk, reps=reps)
+            check_batch_buffers(torch, bk, bp, f"{what} {plan}", skip=("stale", "sync"))
+    finally:
+        setattr(module, plan_fn, planned)
+    return out
 
 
 def plan_sweep(torch, D, alive, sizes, limit, cand, reps: int) -> dict:
     """B2's batch form with 1, 2, 4 and 8 blocks a lane (as many as give each
     block a bitmask word of rows); on the bulk-copy path with wider row
     groups, with rows in registers instead (a warp a row, 8 float4 a
-    thread) and, for rows in chunks, with 256 threads a block: each held
-    against its plain twin after ``reps`` merges and timed as phase 2 times
-    it, the measurement behind merge_batch_plan's cuts."""
+    thread) and, for rows in chunks, with 256 threads a block: the
+    measurement behind merge_batch_plan's cuts (:func:`sweep_plans`)."""
     from repro_torch.kernels import lw_step
 
     B, n = alive.shape
@@ -2561,26 +2700,38 @@ def plan_sweep(torch, D, alive, sizes, limit, cand, reps: int) -> dict:
     bp = lw_step.MergeBatchBuffers(*(t.clone() for t in b0))
     for _ in range(reps):
         lw_step.lw_merge_batch_plain("complete", bp)
-    plan_fn = lw_step.merge_batch_plan
-    planned = plan_fn(B, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    planned = lw_step.merge_batch_plan(B, n,
+                                       torch.cuda.get_device_properties(0).multi_processor_count)
     plans = [planned._replace(blocks=k) for k in (1, 2, 4, 8) if 32 * k <= n]
     if planned.unroll == 0:
         plans += [planned._replace(group=g) for g in (8, 16, 32) if g > planned.group]
         plans.append(lw_step.BatchPlan(32, 8, 256, planned.blocks))
         if n > 1024:
             plans.append(planned._replace(threads=256))
-    out = {}
-    try:
-        for plan in plans:
-            lw_step.merge_batch_plan = lambda lanes, n, sms, aligned=True, plan=plan: plan
-            bk = lw_step.MergeBatchBuffers(*(t.clone() for t in b0))
-            out[str(plan)] = time_merges(
-                torch, lambda b: lw_step.lw_merge_batch("complete", b), b0, bk, reps=reps)
-            check_batch_buffers(torch, bk, bp, f"lw_merge_batch B={B} n={n} {plan}",
-                                skip=("sync",))
-    finally:
-        lw_step.merge_batch_plan = plan_fn
-    return out
+    return sweep_plans(torch, lw_step, "merge_batch_plan", plans, lw_step.lw_merge_batch, b0, bp,
+                       reps, f"lw_merge_batch B={B} n={n}")
+
+
+def lazy_plan_sweep(torch, D, alive, sizes, limit, reps: int) -> dict:
+    """B3's batch form with 1, 2, 4 and 8 blocks a lane (as many as give
+    each block 32 columns or more): the measurement behind
+    lazy_batch_plan's cut (:func:`sweep_plans`)."""
+    from repro_torch.core.batch_engine import cached_cand_batch, masked_row_mins_batch
+    from repro_torch.kernels import lw_update
+
+    B, n = alive.shape
+    rmin, rarg = masked_row_mins_batch(D, alive)
+    b0 = lw_update.lazy_batch_buffers(D, alive, sizes, torch.zeros((B, n, 4), device="cuda"),
+                                      cached_cand_batch(alive, rmin, rarg), (rmin, rarg), 0,
+                                      limit)
+    bp = lw_update.LazyBatchBuffers(*(t.clone() for t in b0))
+    for _ in range(reps):
+        lw_update.lazy_merge_batch_plain("complete", bp)
+    planned = lw_update.lazy_batch_plan(B, n,
+                                        torch.cuda.get_device_properties(0).multi_processor_count)
+    plans = [planned._replace(blocks=k) for k in (1, 2, 4, 8) if 32 * k <= n]
+    return sweep_plans(torch, lw_update, "lazy_batch_plan", plans, lw_update.lazy_merge_batch,
+                       b0, bp, reps, f"lazy_merge_batch B={B} n={n}")
 
 
 if __name__ == "__main__":

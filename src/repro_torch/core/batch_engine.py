@@ -20,8 +20,8 @@ merges.  Two compositions:
 * **kernel** (:class:`KernelBatchLoop`, :func:`run_kernel_batch`): the
   batch-grid forms of the kernels on device-resident ``(B, …)`` buffers,
   static for a bucket shape: B1's batch seed once a stage, then one launch
-  of B2's batch merge a lockstep merge (``lazy``: B3's batch merge and
-  rescan), replayed from a CUDA graph of
+  of B2's batch merge a lockstep merge (``lazy``: one launch of B3's batch
+  merge, the update and the rescan), replayed from a CUDA graph of
   :data:`~repro_torch.core.engine.THRESHOLD_CHECK_TRIPS` merges captured
   once a stage when the loop is built; on the CPU their plain twins.  A
   lane that made its merges (or is padding) is a no-op in the kernels,
@@ -310,9 +310,9 @@ class KernelBatchLoop:
     :meth:`run` writes the lanes' liveness, sizes, limits and a cleared
     record, then runs :func:`run_batch_loop`; each stage's seed resets its
     buffers in place (the merge count at the stage's start, the per-row
-    minima, the kernels' sync words and tickets, and for ``lazy`` the stale
-    lists and the caches from the seed's scan) before it writes the
-    candidate.  The merges are a fresh loop's bit for bit.
+    minima, B2's sync words and tickets, and for ``lazy`` the caches from
+    the seed's scan) before it writes the candidate.  The merges are a
+    fresh loop's bit for bit.
     """
 
     def __init__(self, D: torch.Tensor, *, method: str, n_steps: int,
@@ -354,7 +354,7 @@ class KernelBatchLoop:
                      torch.zeros((B, size), dtype=torch.int64, device=dev))
             b = lw_update.lazy_batch_buffers(Ds, alive, sizes, self.merges, self._cand, cache,
                                              start, self.limit)
-            merge, sync = lw_update.lazy_merge_batch, lw_update._SYNC_INIT
+            merge, sync = lw_update.lazy_merge_batch, ()     # B3's batch form has none
         else:
             b = lw_step.merge_batch_buffers(Ds, alive, sizes, self.merges, self._cand, start,
                                             self.limit)
@@ -387,8 +387,6 @@ class KernelBatchLoop:
             for k, w in enumerate(sync):
                 b.sync[:, k].fill_(w)
             if lazy:
-                b.stale.zero_()
-                b.n_stale.zero_()
                 b.rescanned.zero_()
                 rmin, rarg = masked_row_mins_batch(s.D, s.alive)
                 r, c, m = cached_cand_batch(s.alive, rmin, rarg)

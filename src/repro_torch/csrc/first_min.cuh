@@ -38,6 +38,18 @@ __device__ __forceinline__ void warp_first_min(float& v, int& c) {
     }
 }
 
+// Reduce (v, c) over a row's group of T contiguous lanes of a warp (T a
+// power of two up to 32); valid in the group's first lane.  Every lane of
+// the warp takes part.
+template <int T>
+__device__ __forceinline__ void group_first_min(float& v, int& c) {
+    for (int off = T / 2; off > 0; off >>= 1) {
+        const float ov = __shfl_down_sync(0xffffffffu, v, off, T);
+        const int oc = __shfl_down_sync(0xffffffffu, c, off, T);
+        if (first_min_better(ov, oc, v, c)) { v = ov; c = oc; }
+    }
+}
+
 // Reduce one (v, c) per thread to the block's first minimum; the result
 // is valid in thread 0.  blockDim.x must be a multiple of 32, at most 1024.
 __device__ __forceinline__ void block_first_min(float& v, long long& c) {

@@ -49,6 +49,7 @@
 //     where they are used.
 #include <cooperative_groups.h>
 
+#include "batch_lanes.cuh"
 #include "first_min.cuh"
 #include "lance_williams.cuh"
 #include "last_block.cuh"
@@ -58,7 +59,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxCluster = 8;     // the portable cluster size
 constexpr int kChunk = 1024;       // rows listed at a time: one warp, a word a lane
 constexpr int kStages = 3;         // a warp's row buffers in flight (bulk copies)
 constexpr int kStageFloats = 1024; // a buffer: 32/T rows of up to 32 T floats, or a row's chunk
@@ -82,18 +82,6 @@ struct BatchOperands {
     long long cap;
     int n;
 };
-
-// Reduce (v, c) over a row's group of T contiguous lanes of a warp (T a
-// power of two up to 32); valid in the group's first lane.  Every lane of
-// the warp takes part.
-template <int T>
-__device__ __forceinline__ void group_first_min(float& v, int& c) {
-    for (int off = T / 2; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, v, off, T);
-        const int oc = __shfl_down_sync(0xffffffffu, c, off, T);
-        if (first_min_better(ov, oc, v, c)) { v = ov; c = oc; }
-    }
-}
 
 // The warp's least (key, column); valid in lane 0.  Keys are distinct (a
 // row each) or kKeyInit.
@@ -602,18 +590,6 @@ const void* batch_kernel(int group, int unroll, int threads, bool cluster) {
     if (unroll == 4 && threads == 256) return batch_fn<M, 4, 4, false>();
     if (unroll == 8 && threads == 256) return batch_fn<M, 4, 8, false>();
     return nullptr;
-}
-
-// Allow a bulk-copy kernel its buffers (above the 48 KiB default, with the
-// most of the SM's memory as shared memory, so that two blocks fit); outside
-// a stream capture, since the loader calls this before one.
-cudaError_t allow_shared(const void* fn, size_t bytes) {
-    if (bytes <= 48 * 1024) return cudaSuccess;
-    const cudaError_t err =
-        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    return cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                cudaSharedmemCarveoutMaxShared);
 }
 
 template <int M>

@@ -48,25 +48,15 @@
 //     (the first live row attaining the minimum of rmin, then its cached
 //     column) and empties the list.
 // Bound: bytes.  The merge reads rows i and j, alive, sizes, rmin and rarg
-// once and writes row and column i and the caches, about 45 n bytes, and
-// the rescan reads 4 n bytes a stale row: (45 + 4 s) n for s stale rows.
+// once and writes row and column i, 33 n bytes, the rescan reads 4 n bytes
+// a stale row, and each cache entry rewritten (a lowered column's, a stale
+// row's) takes 12: (33 + 4 s) n + 12 c for s stale rows and c entries.
 // The rows stream from HBM once D outgrows L2 (n = 8192: 256 MiB).  Both
 // launches are short; their time is latency: the launch, the ticket, and
 // the last block's few dependent round trips (last_block.cuh).
 //
-// lazy_merge_batch and lazy_rescan_batch are the two launches with a lane
-// index more: B stacked problems of n slots merge in lockstep (the batched
-// kernel engine's `lazy`).  Lane b's operands sit at b n^2 (D), b n (alive,
-// sizes, rmin, rarg, stale), b cap 4 (merges) and b times the width of each
-// per-lane word (count, cand, dmin, n_stale, rescanned, limit, and four
-// sync words); the grid's x axis is lane-major, ceil(n/256) blocks a lane
-// for the merge and max(1, 132 / B) for the rescan (a fixed grid again, so
-// that the graph stays valid); each ticket is a lane's, drawn by its
-// blocks.  A lane whose count has reached its limit is a no-op: the merge's
-// first block adds one to its count, which then counts the lockstep merges,
-// so the rescan that follows sees count > limit and leaves the lane alone
-// too (after a lane's last real merge count == limit, and it rescans).  The
-// single-problem entries are these bodies compiled without the lane index.
+// The batch form of this merge, one launch a lockstep merge of B stacked
+// problems, is a body of its own: lazy_merge_batch.cu.
 #include <climits>
 
 #include "first_min.cuh"
@@ -118,28 +108,6 @@ struct Lazy {
     unsigned long long* sync;  // row i's key, the merge's ticket, the next candidate's key,
                                // the rescan's ticket
     int n;
-    const long long* limit;    // batch: each lane's merge limit
-    int lane_blocks;           // batch: a lane's blocks in the launch
-
-    // Lane `b`'s state of a batch of stacked problems.
-    __device__ __forceinline__ Lazy lane(long long b) const {
-        Lazy l = *this;
-        l.D += b * n * n;
-        l.alive += b * n;
-        l.sizes += b * n;
-        l.merges += b * cap * 4;
-        l.count += b;
-        l.cand += 2 * b;
-        l.dmin += b;
-        l.rmin += b * n;
-        l.rarg += b * n;
-        l.stale += b * n;
-        l.n_stale += b;
-        l.rescanned += b;
-        l.sync += 4 * b;
-        l.limit += b;
-        return l;
-    }
 };
 
 __device__ __forceinline__ unsigned long long warp_min_key(unsigned long long key) {
@@ -242,18 +210,6 @@ __global__ void __launch_bounds__(kThreads) lazy_merge_kernel(const Lazy a) {
     lazy_merge_body<M>(a, blockIdx.x, gridDim.x);
 }
 
-// The batch: block x is block x % lane_blocks of lane x / lane_blocks.
-template <int M>
-__global__ void __launch_bounds__(kThreads) lazy_merge_batch_kernel(const Lazy a0) {
-    const int b = blockIdx.x / a0.lane_blocks, kb = blockIdx.x - b * a0.lane_blocks;
-    const Lazy a = a0.lane(b);
-    if (*a.count >= *a.limit) {   // the lane made its merges: a no-op, counted
-        if (kb == 0 && threadIdx.x == 0) *a.count += 1;
-        return;
-    }
-    lazy_merge_body<M>(a, kb, a0.lane_blocks);
-}
-
 // Row k's first minimum over its live columns but k; a thread visits its
 // columns in increasing order, kRescanUnroll float4 loads in flight.
 __device__ __forceinline__ void rescan_row(const float* row, const unsigned char* alive, int n,
@@ -335,18 +291,7 @@ __global__ void __launch_bounds__(kThreads) lazy_rescan_kernel(const Lazy a) {
     lazy_rescan_body(a, blockIdx.x, gridDim.x);
 }
 
-// The batch: block x is block x % lane_blocks of lane x / lane_blocks; a
-// lane whose merge launch was a no-op (count > limit) is left alone.
-__global__ void __launch_bounds__(kThreads) lazy_rescan_batch_kernel(const Lazy a0) {
-    const int b = blockIdx.x / a0.lane_blocks, p = blockIdx.x - b * a0.lane_blocks;
-    const Lazy a = a0.lane(b);
-    if (*a.count > *a.limit) return;
-    lazy_rescan_body(a, p, a0.lane_blocks);
-}
-
 int merge_blocks(int n) { return (n + kThreads - 1) / kThreads; }
-
-int rescan_blocks(long long lanes) { return (int)max(1ll, kRescanBlocks / lanes); }
 
 template <int M>
 void launch_merge(const Lazy& a, cudaStream_t stream) {
@@ -354,19 +299,10 @@ void launch_merge(const Lazy& a, cudaStream_t stream) {
 }
 
 template <int M>
-void launch_merge_batch(Lazy a, long long lanes, cudaStream_t stream) {
-    a.lane_blocks = merge_blocks(a.n);
-    lazy_merge_batch_kernel<M><<<(unsigned)(lanes * a.lane_blocks), kThreads, 0, stream>>>(a);
-}
-
-template <int M>
-void load_merge(bool batch, cudaError_t* err) {
+void load_merge(cudaError_t* err) {
     cudaFuncAttributes attr;
-    *err = cudaFuncGetAttributes(&attr, batch ? (const void*)lazy_merge_batch_kernel<M>
-                                              : (const void*)lazy_merge_kernel<M>);
-    if (*err == cudaSuccess)
-        *err = cudaFuncGetAttributes(&attr, batch ? (const void*)lazy_rescan_batch_kernel
-                                                  : (const void*)lazy_rescan_kernel);
+    *err = cudaFuncGetAttributes(&attr, (const void*)lazy_merge_kernel<M>);
+    if (*err == cudaSuccess) *err = cudaFuncGetAttributes(&attr, (const void*)lazy_rescan_kernel);
 }
 
 Lazy lazy_state(float* D, unsigned char* alive, float* sizes, float* merges, long long cap,
@@ -374,7 +310,7 @@ Lazy lazy_state(float* D, unsigned char* alive, float* sizes, float* merges, lon
                 int* stale, int* n_stale, long long* rescanned, unsigned long long* sync,
                 long long n) {
     return Lazy{D, alive, sizes, merges, cap, count, cand, dmin, rmin, rarg, stale, n_stale,
-                rescanned, sync, (int)n, nullptr, 0};
+                rescanned, sync, (int)n};
 }
 
 }  // namespace
@@ -414,49 +350,13 @@ extern "C" int lazy_rescan(int device, float* D, unsigned char* alive, float* si
     return (int)cudaGetLastError();
 }
 
-// The batch's two launches, in place on B stacked states, each lane as
-// lazy_merge/lazy_rescan on its own slices: D (B, n, n); alive, sizes, rmin,
-// rarg and stale (B, n); merges (B, cap, 4); count, dmin, n_stale and
-// rescanned (B,); cand (B, 2); sync (B, 4); limit (B,) int64, the merges a
-// lane makes.  Same stream and return as above.
-extern "C" int lazy_merge_batch(int device, int method, float* D, unsigned char* alive,
-                                float* sizes, float* merges, long long cap, long long* count,
-                                long long* cand, float* dmin, float* rmin, long long* rarg,
-                                int* stale, int* n_stale, long long* rescanned,
-                                unsigned long long* sync, long long n, const long long* limit,
-                                long long B, cudaStream_t stream) {
-    const cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    Lazy a = lazy_state(D, alive, sizes, merges, cap, count, cand, dmin, rmin, rarg, stale,
-                        n_stale, rescanned, sync, n);
-    a.limit = limit;
-    LW_DISPATCH_METHOD(method, launch_merge_batch, a, B, stream)
-    return (int)cudaGetLastError();
-}
-
-extern "C" int lazy_rescan_batch(int device, float* D, unsigned char* alive, float* sizes,
-                                 float* merges, long long cap, long long* count, long long* cand,
-                                 float* dmin, float* rmin, long long* rarg, int* stale,
-                                 int* n_stale, long long* rescanned, unsigned long long* sync,
-                                 long long n, const long long* limit, long long B,
-                                 cudaStream_t stream) {
-    const cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    Lazy a = lazy_state(D, alive, sizes, merges, cap, count, cand, dmin, rmin, rarg, stale,
-                        n_stale, rescanned, sync, n);
-    a.limit = limit;
-    a.lane_blocks = rescan_blocks(B);
-    lazy_rescan_batch_kernel<<<(unsigned)(B * a.lane_blocks), kThreads, 0, stream>>>(a);
-    return (int)cudaGetLastError();
-}
-
-// Load both kernels of a lazy merge (batch: of the batch's) before a stream
-// capture: CUDA loads kernels lazily, at their first launch, and a first
-// load must not fall inside a capture.  Returns the CUDA error.
-extern "C" int lazy_merge_load(int device, int method, int batch) {
+// Load both kernels of a lazy merge before a stream capture: CUDA loads
+// kernels lazily, at their first launch, and a first load must not fall
+// inside a capture.  Returns the CUDA error.
+extern "C" int lazy_merge_load(int device, int method) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    LW_DISPATCH_METHOD(method, load_merge, batch != 0, &err)
+    LW_DISPATCH_METHOD(method, load_merge, &err)
     return (int)err;
 }
 

@@ -11,6 +11,7 @@ module on a machine without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -19,12 +20,18 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("minscan", "lw_step", "lw_merge_batch", "lw_update", "row_sq", "pairwise")
+KERNELS = ("minscan", "lw_step", "lw_merge_batch", "lw_update", "lazy_merge_batch", "row_sq",
+           "pairwise")
 
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+#: The most blocks of a thread-block cluster that owns a batch lane (the portable cluster size).
+MAX_CLUSTER = 8
+#: A loader's ``int *`` out-parameter.
+INT_OUT = ctypes.POINTER(ctypes.c_int)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -111,3 +118,11 @@ def raw_stream(device_index: int) -> int:
     import torch
 
     return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """The multiprocessors of a CUDA device, which the batch plans follow."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count

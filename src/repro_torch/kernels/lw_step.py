@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.core.linkage import METHODS, update_row
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import INT_OUT, MAX_CLUSTER, sm_count
 
 #: Largest ``n`` the kernel takes: its liveness bitmask fits in 48 KiB of
 #: shared memory.
@@ -68,9 +69,6 @@ def lw_step_plain(method, D, d_ki, d_kj, d_ij, n_i, n_j, sizes, alive, i, j):
     return D, rmin, rarg
 
 
-_INT_OUT = ctypes.POINTER(ctypes.c_int)
-
-
 @functools.cache
 def _lib():
     lib = _build.load("lw_step")
@@ -79,7 +77,7 @@ def _lib():
     lib.lw_merge.argtypes = [ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 5, ctypes.c_longlong,
                              *[ctypes.c_void_p] * 6, ctypes.c_longlong, ctypes.c_void_p]
     lib.lw_merge_load.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                  _INT_OUT, _INT_OUT]
+                                  INT_OUT, INT_OUT]
     for fn in (lib.lw_step, lib.lw_merge, lib.lw_merge_load):
         fn.restype = ctypes.c_int
     return lib
@@ -94,7 +92,7 @@ def _batch_lib():
                                    ctypes.c_void_p, ctypes.c_longlong, *[ctypes.c_int] * 4,
                                    ctypes.c_void_p]
     lib.lw_merge_batch_load.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                                        *[ctypes.c_int] * 4, _INT_OUT, _INT_OUT, _INT_OUT]
+                                        *[ctypes.c_int] * 4, INT_OUT, INT_OUT, INT_OUT]
     for fn in (lib.lw_merge_batch, lib.lw_merge_batch_load):
         fn.restype = ctypes.c_int
     return lib
@@ -308,7 +306,7 @@ def kernel_resources(method: str, n: int, entry: str, device=None, lanes: int = 
     if entry == "lw_merge_batch":
         err = _batch_lib().lw_merge_batch_load(
             index, METHODS.index(method), n,
-            *merge_batch_plan(lanes, n, _sm_count(index), aligned=aligned),
+            *merge_batch_plan(lanes, n, sm_count(index), aligned=aligned),
             ctypes.byref(regs), ctypes.byref(local), ctypes.byref(per_sm))
     else:
         err = _lib().lw_merge_load(index, METHODS.index(method), n, ENTRIES.index(entry),
@@ -372,8 +370,6 @@ def merge_batch_buffers(D, alive, sizes, merges, cand, start: int, limit) -> Mer
     )
 
 
-#: The most blocks of a cluster that owns a lane (the portable cluster size).
-MAX_CLUSTER = 8
 #: Rows a cluster's block takes at the least (a bitmask word).
 _MIN_BLOCK_ROWS = 32
 
@@ -429,11 +425,6 @@ def merge_batch_plan(lanes: int, n: int, sms: int = 132, aligned: bool = True) -
            and 2 * blocks * _MIN_BLOCK_ROWS <= n):
         blocks *= 2
     return BatchPlan(group, unroll, threads, blocks)
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def lw_merge_batch_plain(method: str, b: MergeBatchBuffers) -> MergeBatchBuffers:
@@ -512,7 +503,7 @@ def lw_merge_batch(method: str, b: MergeBatchBuffers) -> MergeBatchBuffers:
         b.sizes.data_ptr(), b.merges.data_ptr(), b.merges.shape[1], b.cand.data_ptr(),
         b.dmin.data_ptr(), b.count.data_ptr(), b.rmin.data_ptr(), b.rarg.data_ptr(), n,
         b.limit.data_ptr(), B,
-        *merge_batch_plan(B, n, _sm_count(index), aligned=b.D.data_ptr() % 16 == 0),
+        *merge_batch_plan(B, n, sm_count(index), aligned=b.D.data_ptr() % 16 == 0),
         _build.raw_stream(index),
     )
     if err:

@@ -23,16 +23,21 @@ column ``i`` in place and the cached row minima's invalidation lane by
 lane, reduces row ``i``'s own minimum and lists the other stale rows; the
 second (:func:`lazy_rescan`) rescans the listed rows and leaves the next
 candidate on the device.  :class:`~repro_torch.kernels.lw_step.MergeGraph`
-captures a chunk of such merges as a CUDA graph.  Bound: bytes, about
-``(45 + 4·s)·n`` a merge with ``s`` stale rows, and latency in practice.
+captures a chunk of such merges as a CUDA graph.  Bound: bytes,
+``(33 + 4·s)·n + 12·c`` a merge with ``s`` stale rows and ``c`` cache
+entries rewritten (the stale rows' and the lowered ones'), and latency in
+practice.
 
-:func:`lazy_merge_batch` (with :func:`lazy_rescan_batch`) is that merge's
-batch-grid form, the batched kernel engine's ``lazy`` merge: two launches
-merge every lane of ``B`` stacked problems in lockstep, on
-:class:`LazyBatchBuffers` (a leading lane axis, and each lane's merge
-limit: a lane that made its merges, or is padding, is a no-op).  The TPU
-package batches the row-update kernel through ``pallas_call``'s ``vmap``
-rule.  Bound: bytes, the sum of each active lane's ``(45 + 4·s)·n``.
+:func:`lazy_merge_batch` is that merge's batch-grid form, the batched
+kernel engine's ``lazy`` merge, with a body of its own
+(``csrc/lazy_merge_batch.cu``): one launch merges every lane of ``B``
+stacked problems in lockstep, on :class:`LazyBatchBuffers` (a leading lane
+axis, and each lane's merge limit: a lane that made its merges, or is
+padding, is a no-op).  A block or a thread-block cluster owns a lane, as
+:func:`lazy_batch_plan` lays it out; the update and the rescan are two
+phases of the launch.  The TPU package batches the row-update kernel
+through ``pallas_call``'s ``vmap`` rule.  Bound: bytes, the sum of each
+active lane's ``(33 + 4·s)·n + 12·c``, and latency in practice.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 
 from repro_torch.core.linkage import METHODS, update_row
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import INT_OUT, MAX_CLUSTER, sm_count
 from repro_torch.kernels.lw_step import device_words
 
 
@@ -62,12 +68,23 @@ def _lib():
              ctypes.c_longlong, ctypes.c_void_p]
     lib.lazy_merge.argtypes = [ctypes.c_int, ctypes.c_int, *state]
     lib.lazy_rescan.argtypes = [ctypes.c_int, *state]
-    batch = [*state[:-1], ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-    lib.lazy_merge_batch.argtypes = [ctypes.c_int, ctypes.c_int, *batch]
-    lib.lazy_rescan_batch.argtypes = [ctypes.c_int, *batch]
-    lib.lazy_merge_load.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    for fn in (lib.lw_update, lib.lazy_merge, lib.lazy_rescan, lib.lazy_merge_batch,
-               lib.lazy_rescan_batch, lib.lazy_merge_load):
+    lib.lazy_merge_load.argtypes = [ctypes.c_int, ctypes.c_int]
+    for fn in (lib.lw_update, lib.lazy_merge, lib.lazy_rescan, lib.lazy_merge_load):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _batch_lib():
+    """The batch form's library, ``csrc/lazy_merge_batch.cu``."""
+    lib = _build.load("lazy_merge_batch")
+    lib.lazy_merge_batch.argtypes = [ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 4,
+                                     ctypes.c_longlong, *[ctypes.c_void_p] * 6,
+                                     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                                     *[ctypes.c_int] * 3, ctypes.c_void_p]
+    lib.lazy_merge_batch_load.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                                          *[ctypes.c_int] * 3, INT_OUT, INT_OUT, INT_OUT]
+    for fn in (lib.lazy_merge_batch, lib.lazy_merge_batch_load):
         fn.restype = ctypes.c_int
     return lib
 
@@ -304,7 +321,7 @@ def lazy_merge(method: str, b: LazyBuffers) -> LazyBuffers:
 
 
 def _load_lazy_merge(method: str, b: LazyBuffers) -> None:
-    err = _lib().lazy_merge_load(b.D.device.index, METHODS.index(method), 0)
+    err = _lib().lazy_merge_load(b.D.device.index, METHODS.index(method))
     if err:
         raise RuntimeError(f"lazy_merge kernel load failed: CUDA error {err}")
 
@@ -317,10 +334,13 @@ lazy_merge.counters = (lazy_merge, lazy_rescan)
 class LazyBatchBuffers(NamedTuple):
     """:class:`LazyBuffers` of ``B`` stacked problems in lockstep, each
     field with a leading lane axis (``D`` ``(B, n, n)``, ``merges`` ``(B,
-    cap, 4)``, ``cand`` ``(B, 2)``, ``sync`` ``(B, 4)``, ...), and ``limit``
+    cap, 4)``, ``cand`` ``(B, 2)``, ...), but no sync words, and ``limit``
     ``(B,)`` int64, the merges each lane makes: a lane whose ``count``
     reached it only adds one to ``count``, which then counts the lockstep
-    merges, and its rescan does nothing."""
+    merges, and its rescan does nothing.  The batch kernel lists stale rows
+    and keeps its running minima in shared memory: ``stale`` and
+    ``n_stale`` serve the plain twin, whose update writes them before its
+    rescan reads them, and no launch writes them."""
 
     D: torch.Tensor
     alive: torch.Tensor
@@ -334,7 +354,6 @@ class LazyBatchBuffers(NamedTuple):
     stale: torch.Tensor
     n_stale: torch.Tensor
     rescanned: torch.Tensor
-    sync: torch.Tensor
     limit: torch.Tensor
 
 
@@ -356,13 +375,12 @@ def lazy_batch_buffers(D, alive, sizes, merges, cand, cache, start: int, limit) 
         stale=torch.zeros((B, n), dtype=torch.int32, device=dev),
         n_stale=torch.zeros(B, dtype=torch.int32, device=dev),
         rescanned=torch.zeros(B, dtype=torch.int64, device=dev),
-        sync=device_words(_SYNC_INIT, dev, lanes=B),
         limit=limit.to(torch.int64),
     )
 
 
 def _lazy_update_batch_plain(method: str, b: LazyBatchBuffers) -> None:
-    """The batch merge launch's plain version: each active lane (``count <
+    """The batch update's plain version: each active lane (``count <
     limit``) as :func:`_lazy_update_plain`, the others unchanged; every
     lane's ``count`` advanced."""
     from repro_torch.core.engine import _INF, _cache_invalidate
@@ -406,9 +424,9 @@ def _lazy_update_batch_plain(method: str, b: LazyBatchBuffers) -> None:
 
 
 def lazy_rescan_batch_plain(b: LazyBatchBuffers) -> LazyBatchBuffers:
-    """The plain version of :func:`lazy_rescan_batch`, on any device, in
-    place: each lane whose merge launch was not a no-op (``count <=
-    limit``) as :func:`lazy_rescan_plain`, the others unchanged."""
+    """The batch rescan's plain version, on any device, in place: each
+    lane whose update was not a no-op (``count <= limit`` after it) as
+    :func:`lazy_rescan_plain`, the others unchanged."""
     from repro_torch.core.batch_engine import cached_cand_batch, masked_row_mins_batch
 
     B, n = b.alive.shape
@@ -432,7 +450,8 @@ def lazy_rescan_batch_plain(b: LazyBatchBuffers) -> LazyBatchBuffers:
 
 def lazy_merge_batch_plain(method: str, b: LazyBatchBuffers) -> LazyBatchBuffers:
     """The plain torch version of :func:`lazy_merge_batch`, on any device,
-    in place: the merge launch's work, then the rescan's."""
+    in place: the update (row and column ``i``, the caches' invalidation,
+    the stale list), then the rescan."""
     _lazy_update_batch_plain(method, b)
     return lazy_rescan_batch_plain(b)
 
@@ -452,49 +471,71 @@ def _check_lazy_batch(b: LazyBatchBuffers) -> tuple[int, int]:
                             (b.dmin, torch.float32, B), (b.rmin, torch.float32, B * n),
                             (b.rarg, torch.int64, B * n), (b.stale, torch.int32, B * n),
                             (b.n_stale, torch.int32, B), (b.rescanned, torch.int64, B),
-                            (b.sync, torch.int64, 4 * B), (b.limit, torch.int64, B)):
+                            (b.limit, torch.int64, B)):
         if t.dtype != dtype or t.numel() != numel:
             raise ValueError(f"lazy_merge_batch operand: expected {numel} x {dtype}, "
                              f"got {tuple(t.shape)} {t.dtype}")
     return B, n
 
 
-def _batch_args(b: LazyBatchBuffers, B: int, n: int) -> list:
-    return [b.D.data_ptr(), b.alive.data_ptr(), b.sizes.data_ptr(), b.merges.data_ptr(),
-            b.merges.shape[1], *(t.data_ptr() for t in b[4:13]), n, b.limit.data_ptr(), B,
-            _build.raw_stream(b.D.device.index)]
+#: Rows a block takes alone: it updates them in one pass, 4 columns a thread of 256, and a warp
+#: rescans one in one pass of 8 float4 a thread.
+_BLOCK_ROWS = 1024
 
 
-def lazy_rescan_batch(b: LazyBatchBuffers) -> LazyBatchBuffers:
-    """The second launch of a resident batch ``lazy`` merge, in place on
-    ``b``: each lane as :func:`lazy_rescan`, but the lanes whose merge
-    launch was a no-op.  A CUDA tensor launches the kernel (a fixed grid of
-    ``max(1, 132 // B)`` blocks a lane); a CPU tensor takes the plain
-    version."""
-    B, n = _check_lazy_batch(b)
-    if b.D.device.type == "cpu":
-        return lazy_rescan_batch_plain(b)
-    _build.check_cuda(b.D, torch.float32, *b[1:])
-    err = _lib().lazy_rescan_batch(b.D.device.index, *_batch_args(b, B, n))
-    if err:
-        raise RuntimeError(f"lazy_rescan_batch kernel launch failed: CUDA error {err}")
-    lazy_rescan_batch.launches += 1
-    return b
+class LazyPlan(NamedTuple):
+    """How :func:`lazy_merge_batch` lays a launch out: ``group`` threads
+    rescan a stale row, ``threads`` make a block, and ``blocks`` blocks own
+    a lane (one block, or a thread-block cluster when more than one)."""
+
+    group: int
+    threads: int
+    blocks: int
+
+    def __str__(self) -> str:
+        owner = "a block" if self.blocks == 1 else f"a cluster of {self.blocks}"
+        return f"{owner} a lane, {self.group} threads a stale row, {self.threads} a block"
 
 
-lazy_rescan_batch.launches = 0
+@functools.cache
+def lazy_batch_plan(lanes: int, n: int, sms: int = 132) -> LazyPlan:
+    """The layout of a lockstep ``lazy`` merge of ``lanes`` lanes of ``n``
+    slots on a card of ``sms`` multiprocessors.  A row group of ``n / 4``
+    threads rescans a stale row in one pass of a float4 a thread (4, 8 or 16
+    threads up to n = 64), a warp a longer one (8 float4 a thread a pass,
+    1024 columns); a block has a warp up to n = 32, 64 threads at 64, 128 at
+    128 and 256 above, a thread updating up to 4 columns a pass.  A block
+    owns a lane up to n = 1024, where it updates and rescans rows in one
+    pass: a cluster's two barriers and its distributed shared memory cost
+    more than they save there.  Longer rows go to the largest cluster (a
+    power of two up to :data:`~repro_torch.kernels._build.MAX_CLUSTER`)
+    whose blocks each have an SM of their own (``2 · lanes · blocks <=
+    sms`` before doubling): its blocks update the row in fewer passes, and
+    each rescans its few stale rows with all its warps, a pass a row
+    (chip_smoke ``--batch-kernel-times`` sweeps the cluster).  Rows
+    need no alignment: the rescan reads an unaligned row's head one by
+    one."""
+    if lanes < 1 or n < 1:
+        raise ValueError(f"a batch plan needs lanes and slots, got {lanes} and {n}")
+    if n <= 128:
+        return (LazyPlan(4, 32, 1) if n <= 16 else LazyPlan(8, 32, 1) if n <= 32
+                else LazyPlan(16, 64, 1) if n <= 64 else LazyPlan(32, 128, 1))
+    blocks = 1
+    while n > _BLOCK_ROWS and blocks < MAX_CLUSTER and 2 * lanes * blocks <= sms:
+        blocks *= 2
+    return LazyPlan(32, 256, blocks)
 
 
 def lazy_merge_batch(method: str, b: LazyBatchBuffers) -> LazyBatchBuffers:
     """One lockstep ``lazy`` merge of every lane, in place on ``b``: each
     lane whose ``count`` is below its ``limit`` makes the merge
-    :func:`lazy_merge` makes on its slices; the others only advance
-    ``count``.
+    :func:`lazy_merge` makes on its slices (the update, then the rescan);
+    the others only advance ``count``.
 
-    On a CUDA tensor two launches that read nothing back and allocate
-    nothing: the merge kernel (counted here), then
-    :func:`lazy_rescan_batch` (counted there); a run of lockstep merges can
-    be captured as a CUDA graph
+    On a CUDA tensor one launch that reads nothing back and allocates
+    nothing, laid out by :func:`lazy_batch_plan`; it leaves ``stale`` and
+    ``n_stale`` as they were.  A run of lockstep merges can be
+    captured as a CUDA graph
     (:class:`~repro_torch.kernels.lw_step.MergeGraph`,
     ``merge=lazy_merge_batch``).  A CPU tensor takes the plain version.
     """
@@ -504,20 +545,41 @@ def lazy_merge_batch(method: str, b: LazyBatchBuffers) -> LazyBatchBuffers:
     if b.D.device.type == "cpu":
         return lazy_merge_batch_plain(method, b)
     _build.check_cuda(b.D, torch.float32, *b[1:])
-    err = _lib().lazy_merge_batch(b.D.device.index, METHODS.index(method),
-                                  *_batch_args(b, B, n))
+    index = b.D.device.index
+    err = _batch_lib().lazy_merge_batch(
+        index, METHODS.index(method), b.D.data_ptr(), b.alive.data_ptr(), b.sizes.data_ptr(),
+        b.merges.data_ptr(), b.merges.shape[1], b.count.data_ptr(), b.cand.data_ptr(),
+        b.dmin.data_ptr(), b.rmin.data_ptr(), b.rarg.data_ptr(), b.rescanned.data_ptr(), n,
+        b.limit.data_ptr(), B, *lazy_batch_plan(B, n, sm_count(index)),
+        _build.raw_stream(index))
     if err:
         raise RuntimeError(f"lazy_merge_batch kernel launch failed: CUDA error {err}")
     lazy_merge_batch.launches += 1
-    return lazy_rescan_batch(b)
+    return b
 
 
 def _load_lazy_merge_batch(method: str, b: LazyBatchBuffers) -> None:
-    err = _lib().lazy_merge_load(b.D.device.index, METHODS.index(method), 1)
+    B, n = _check_lazy_batch(b)
+    lazy_batch_resources(method, n, B, b.D.device)
+
+
+def lazy_batch_resources(method: str, n: int, lanes: int = 1, device=None) -> dict:
+    """Load the kernel that a :func:`lazy_merge_batch` launch on ``lanes``
+    lanes of ``n`` slots takes on CUDA device ``device`` (default: the
+    current one), and return its registers a thread, local (spilled) bytes
+    a thread and the blocks an SM holds."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    index = torch.cuda.current_device() if device is None else torch.device(device).index
+    regs, local, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _batch_lib().lazy_merge_batch_load(
+        index, METHODS.index(method), n, *lazy_batch_plan(lanes, n, sm_count(index)),
+        ctypes.byref(regs), ctypes.byref(local), ctypes.byref(per_sm))
     if err:
         raise RuntimeError(f"lazy_merge_batch kernel load failed: CUDA error {err}")
+    return dict(regs=regs.value, local_bytes=local.value, blocks_per_sm=per_sm.value)
 
 
 lazy_merge_batch.launches = 0
 lazy_merge_batch.load = _load_lazy_merge_batch
-lazy_merge_batch.counters = (lazy_merge_batch, lazy_rescan_batch)
+lazy_merge_batch.counters = (lazy_merge_batch,)

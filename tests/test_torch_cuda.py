@@ -1109,26 +1109,32 @@ def test_cuda_lw_merge_batch_spills_nothing(method, lanes, n, cuda):
     assert got["local_bytes"] == 0, (str(lw_step.merge_batch_plan(lanes, n)), got)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("method", METHODS)
-@pytest.mark.parametrize("n", BATCH_BUCKETS)
-def test_cuda_lazy_merge_batch_matches_plain_and_single(method, n, cuda, rng):
-    """B3's batch merge and rescan over lockstep merges past every lane's
-    limit: against their plain twins and against the single-problem lazy
-    merge launched on each lane alone as many times as its limit."""
-    state = batch_state(rng, n, method, cuda)
-    steps = min(n + 1, 40)
+# B3's batch form: every path of lazy_batch_plan (a block a lane with 4, 8, 16 and 32
+# threads a stale row and blocks of 32, 64, 128 and 256 threads, at 300 unaligned; rows past
+# 1024 slots by clusters of 2 (66 lanes), 4 (17 lanes, 2044 unaligned) and 8 (7 lanes), and
+# by one block of 256 a lane (67 lanes) or a cluster of 2 (34 lanes of 4096) whose blocks
+# update 2048 columns each in passes; a stale row to a warp or, where a block has few, to
+# the block)
+LAZY_BATCH_SHAPES = ((7, 8), (7, 16), (7, 32), (7, 64), (7, 128), (7, 300), (7, 512),
+                     (7, 1024), (66, 2048), (17, 2044), (7, 2048), (7, 4096), (67, 2048),
+                     (34, 4096))
+
+def check_lazy_batch(state, method, cuda, steps):
+    """B3's batch merge over ``steps`` lockstep merges: against its plain
+    twin (every buffer but the stale list, bit for bit) and against the
+    single-problem lazy merge launched on each lane alone as many times as
+    its limit allows; one launch a lockstep merge, n_stale as it began (0).
+    Returns the batch buffers."""
+    n = state[0].shape[-1]
     bk, bp = lazy_batch(state, cuda, n), lazy_batch(state, cuda, n)
-    sync = bk.sync.clone()
-    merges, rescans = lw_update.lazy_merge_batch.launches, lw_update.lazy_rescan_batch.launches
+    merges = lw_update.lazy_merge_batch.launches
     for _ in range(steps):
         lw_update.lazy_merge_batch(method, bk)
         lw_update.lazy_merge_batch_plain(method, bp)
     torch.cuda.synchronize()
     assert lw_update.lazy_merge_batch.launches == merges + steps
-    assert lw_update.lazy_rescan_batch.launches == rescans + steps
     assert_batch_equal(bk, bp)
-    assert torch.equal(bk.sync, sync)
+    assert not bk.n_stale.any()
     D, alive, sizes, limit, (rmin, rarg), (r, c, v), n_real = state
     for b in range(D.shape[0]):
         single = lw_update.lazy_buffers(D[b].clone(), alive[b].clone(), sizes[b].clone(),
@@ -1140,19 +1146,82 @@ def test_cuda_lazy_merge_batch_matches_plain_and_single(method, n, cuda, rng):
                      "rescanned"):
             assert torch.equal(getattr(single, name).reshape(-1),
                                getattr(bk, name)[b].reshape(-1)), (b, n_real[b], name)
+    return bk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("lanes,n", LAZY_BATCH_SHAPES)
+def test_cuda_lazy_merge_batch_matches_plain_and_single(method, lanes, n, cuda, rng):
+    """B3's batch merge (the update and the rescan in one launch) over
+    lockstep merges past the limit of every lane of up to 39 slots (the
+    empty, one-slot, two-slot and three-slot lanes everywhere), on every
+    path of its plan: see :func:`check_lazy_batch`."""
+    check_lazy_batch(batch_state(rng, n, method, cuda, lanes), method, cuda, min(n + 1, 40))
+
+
+def star_state(rng, n, method, device, lanes=7):
+    """:func:`batch_state` with its full lane (lane 3) replaced by a star:
+    slots 0 and 1 the closest pair (0.1), every other slot nearest to slot
+    0 (1.0; 1.5 to slot 1; 2 and up to the others), so that the first merge
+    leaves every other live row's cache stale for every method."""
+    from repro_torch.core.batch_engine import cached_cand_batch, masked_row_mins_batch
+
+    D, alive, sizes, limit, _, _, n_real = batch_state(rng, n, method, device, lanes)
+    far = torch.tensor(2 + rng.random((n, n)), dtype=torch.float32, device=device)
+    star = torch.triu(far, 1) + torch.triu(far, 1).T
+    star[0, 2:] = star[2:, 0] = 1.0
+    star[1, 2:] = star[2:, 1] = 1.5
+    star[0, 1] = star[1, 0] = 0.1
+    D[3] = star
+    rmin, rarg = masked_row_mins_batch(D, alive)
+    return D, alive, sizes, limit, (rmin, rarg), cached_cand_batch(alive, rmin, rarg), n_real
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("lanes,n", ((7, 16), (7, 64), (7, 300), (7, 1024), (7, 2048),
+                                     (7, 4096), (67, 2048), (34, 4096)))
+def test_cuda_lazy_merge_batch_every_row_stale(method, lanes, n, cuda, rng):
+    """A merge that leaves every live row but i and j stale (n - 2 rows to
+    rescan in one lockstep merge, dealt out over a block's or a cluster's
+    row groups): its lane rescans them all, and the batch equals its plain
+    twin and the single lazy merge, then and over the merges that follow."""
+    state = star_state(rng, n, method, cuda, lanes)
+    bk = check_lazy_batch(state, method, cuda, 1)
+    assert int(bk.rescanned[3]) == n - 2
+    check_lazy_batch(state, method, cuda, min(n + 1, 12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("lanes,n", ((4096, 16), (1024, 32), (256, 64), (256, 128), (256, 300),
+                                     (256, 1024), (66, 2048), (17, 2048), (7, 4096)))
+def test_cuda_lazy_merge_batch_spills_nothing(method, lanes, n, cuda):
+    """Every instantiation of B3's batch form that a plan takes (4, 8, 16
+    and 32 threads a stale row; blocks of 32, 64, 128 and 256 threads; a
+    block or a cluster of 2, 4 or 8 a lane) spills nothing: no local
+    bytes; and at least one block fits an SM."""
+    got = lw_update.lazy_batch_resources(method, n, lanes=lanes)
+    assert got["local_bytes"] == 0, (str(lw_update.lazy_batch_plan(lanes, n)), got)
+    assert got["blocks_per_sm"] >= 1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant,lanes,n", (
     *(("baseline", 7, n) for n in (16, 32, 64, 97, 128, 257, 300, 2048)), ("baseline", 133, 256),
-    ("baseline", 33, 256), ("baseline", 17, 300), ("lazy", 7, 300)))
+    ("baseline", 33, 256), ("baseline", 17, 300),
+    *(("lazy", 7, n) for n in (16, 128, 300, 1024, 4096)), ("lazy", 66, 2048),
+    ("lazy", 17, 2044)))
 def test_cuda_batch_graph_replays_eager_merges(variant, lanes, n, cuda, rng):
     """A captured graph of lockstep batch merges gives the eager launches'
     buffers, and each replay adds its merges to the entries' counters; for
     B2's batch form on each path of its plan (rows in registers with 1, 2,
     4 and 8 float4 a thread and a warp a row, bulk-copied rows whole and in
     chunks, a block a lane and clusters of 2, 4 and 8 blocks: the cluster
-    launch is captured too)."""
+    launch is captured too), and for B3's (a block a lane with 4 and 32
+    threads a stale row, 300 unaligned; clusters of 2, 4 (2044 unaligned)
+    and 8)."""
     from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS as k
 
     state = batch_state(rng, n, "ward", cuda, lanes)

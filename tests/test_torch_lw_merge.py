@@ -25,7 +25,7 @@ from repro.core import engine as jengine  # noqa: E402
 from repro.core.linkage import METHODS  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.core.batched import BUCKETS  # noqa: E402
-from repro_torch.kernels import lw_step, minscan  # noqa: E402
+from repro_torch.kernels import lw_step, lw_update, minscan  # noqa: E402
 from tests.conftest import random_distance_matrix  # noqa: E402
 from tests.test_torch_cuda import merge_problem  # noqa: E402
 from tests.test_torch_engine import assert_merges_match  # noqa: E402
@@ -296,3 +296,57 @@ def test_merge_batch_plan_follows_the_card():
     assert lw_step.merge_batch_plan(64, 512, H100_SMS).blocks == 2
     with pytest.raises(ValueError, match="lanes and slots"):
         lw_step.merge_batch_plan(0, 16)
+
+
+# ---------------------------------------------------------------------------
+# B3's batch form's launch plan (kernels/lw_update.py lazy_batch_plan)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("lanes", (1, 3, 64, 256, 4096))
+@pytest.mark.parametrize("n", (*BUCKETS, 300, 8192))
+def test_lazy_batch_plan_owns_every_lane_once(lanes, n):
+    """Every bucket's plan (and an unaligned n, and rows longer than any
+    bucket): each lane owned by one block or one cluster of at most 8 blocks
+    (block x is rank x % k of lane x // k), a grid within CUDA's limits; a
+    stale row rescanned in one pass of a float4 a thread by n / 4 threads up
+    to n = 64, by a warp above; a block a lane up to n = 1024, and above the
+    largest cluster whose blocks each have an SM of their own."""
+    plan = lw_update.lazy_batch_plan(lanes, n, H100_SMS)
+    k = plan.blocks
+    assert 1 <= k <= lw_step.MAX_CLUSTER and k & (k - 1) == 0
+    assert lanes * k <= 2**31 - 1
+    assert plan.group in (4, 8, 16, 32) and plan.threads % plan.group == 0
+    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    owners = {}
+    for block in range(lanes * k):
+        owners.setdefault(block // k, []).append(block % k)
+    assert sorted(owners) == list(range(lanes))
+    assert all(ranks == list(range(k)) for ranks in owners.values())
+    if plan.group < 32:
+        assert 4 * plan.group >= n and (plan.group == 4 or 2 * plan.group < n)   # one pass
+    else:
+        assert n > 64
+    if n <= 128:
+        assert plan.threads <= max(n, 32)
+    else:
+        assert plan.threads == 256
+    if n <= 1024:
+        assert k == 1 and 4 * plan.threads >= n           # one pass of the update
+    else:
+        assert k == 1 or lanes * k <= H100_SMS              # doubled from k / 2
+        assert k == lw_step.MAX_CLUSTER or 2 * lanes * k > H100_SMS
+
+
+def test_lazy_batch_plan_follows_the_card():
+    """The cluster grows as lanes fall, for rows past 1024 slots only, and
+    on a card of fewer SMs it stops sooner."""
+    assert [lw_update.lazy_batch_plan(b, 2048, H100_SMS).blocks
+            for b in (256, 67, 66, 33, 17, 16, 1)] == [1, 1, 2, 4, 4, 8, 8]
+    assert lw_update.lazy_batch_plan(1, 1024, H100_SMS).blocks == 1
+    assert lw_update.lazy_batch_plan(64, 2048, 114).blocks == 1
+    assert lw_update.lazy_batch_plan(64, 2048, H100_SMS).blocks == 2
+    assert str(lw_update.lazy_batch_plan(16, 2048, H100_SMS)) == (
+        "a cluster of 8 a lane, 32 threads a stale row, 256 a block")
+    with pytest.raises(ValueError, match="lanes and slots"):
+        lw_update.lazy_batch_plan(3, 0)
