@@ -8,7 +8,7 @@ Phases, in order; a failing phase raises and the script exits non-zero:
 1. Build the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, started together) and print the card's name and power limit;
    the registers and local bytes of every instantiation of B2's entries
-   and of B3's batch form (none may spill).
+   and of B1's and B3's batch forms (none may spill).
 2. Hold each kernel against its plain torch version on the card, and time
    both: the LW kernels on a mid-run state with dead slots at n = 1968 and
    n = 16384 (the step kernel through both its entries, the per-row step
@@ -26,14 +26,18 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    graph replay of 128, with the host's time to enqueue one call of the row
    update, its lazy merge, the row kernel and the pairwise kernel.  Then the
    batch-grid forms of B1, B2's merge entry and B3's lazy merge on mid-run
-   buckets (BATCH_KERNEL_SHAPES: (B, n) = (256, 1024) and (4096, 16) for
-   all three, the service card mix's (64, 128), (64, 256) and (64, 512)
-   for B2 and B3, phase 13's (64, 1024) for B3, (16, 2048) for B2 and B3,
-   (2, 4096) for B3): each against its plain twin and against one
-   single-problem launch a lane (20 or 8 lockstep merges against each
-   lane's own), bit for bit, and timed with its bound summed over the
-   lanes; B2's and B3's rows with the plan they took, B3's with its
-   registers and local bytes.  A kernel whose operands fit in half the L2
+   buckets (BATCH_KERNEL_SHAPES: (B, n) = (256, 1024), (4096, 16), the
+   service card mix's (64, 128), (64, 256) and (64, 512) and (16, 2048)
+   for all three, phase 13's (64, 1024) for B3, (2, 4096) for B1 and B3):
+   each against its plain twin and against one single-problem launch a
+   lane (20 or 8 lockstep merges against each lane's own), bit for bit,
+   and timed with its bound summed over the lanes, with the plan it took;
+   B1's rows with the matrix bytes it reads and its rate on them, B3's
+   with its registers and local bytes.  B1's batch form also on the seed
+   states the main path gives it (ARGMIN_SEED_SHAPES: each lane's live
+   slots a prefix; full at (256, 1024), (256, 512) and (256, 256), ragged
+   at the card mix's buckets and (4096, 16)), held and timed the same
+   way.  A kernel whose operands fit in half the L2
    is timed on L2-resident data, as its caller finds them; its bound then
    takes the L2 read rate measured here (two torch reductions over a
    16 MiB buffer), else the HBM rate.
@@ -200,18 +204,24 @@ BATCH_RAGGED = (4096, 16, 512, 16)   # problems, n from 16 to 512 uniform, d (ba
 BATCH_SAMPLE = 64              # ragged lanes held against single-problem runs
 BATCH_POINTS = (256, 256, DIM)  # (B, n, d) ward points: default knobs send them to the chain
 # (B, n, timed merges, the batch forms timed there: B1 "argmin", B2 "merge", B3 "lazy"): the
-# full-width and ragged buckets (all three), the service card mix's (64 lanes of 128, 256 and
-# 512: B2 and B3), phase 13's kernel lazy bucket (B3), and few lanes of long rows, which a
-# cluster owns: n = 2048 (B2 and B3, a row in passes) and n = 4096 (B3)
+# full-width and ragged buckets, the service card mix's (64 lanes of 128, 256 and 512) and few
+# lanes of long rows, which a cluster owns: n = 2048 (a row in passes; B1, B2 and B3) and
+# n = 4096 (B1 and B3); phase 13's kernel lazy bucket (B3)
 BATCH_ALL = ("argmin", "merge", "lazy")
 BATCH_KERNEL_SHAPES = ((256, 1024, MERGE_REPS, BATCH_ALL), (4096, 16, 8, BATCH_ALL),
-                       (64, 128, MERGE_REPS, ("merge", "lazy")),
-                       (64, 256, MERGE_REPS, ("merge", "lazy")),
-                       (64, 512, MERGE_REPS, ("merge", "lazy")),
+                       (64, 128, MERGE_REPS, BATCH_ALL), (64, 256, MERGE_REPS, BATCH_ALL),
+                       (64, 512, MERGE_REPS, BATCH_ALL),
                        (BATCH_LAZY_B, 1024, MERGE_REPS, ("lazy",)),
-                       (16, 2048, MERGE_REPS, ("merge", "lazy")), (2, 4096, MERGE_REPS, ("lazy",)))
-# the (lanes, n) at which B2's entries are loaded for the register and spill report: the
-# single-problem entries on each row width, the batch form on each ownership path
+                       (16, 2048, MERGE_REPS, BATCH_ALL), (2, 4096, MERGE_REPS, ("argmin", "lazy")))
+# (B, n, ragged): B1's batch form on a stage's seed state, each lane's live slots a prefix as
+# compact_batch leaves them: the full-width stages (every slot live) and ragged prefixes (n/2 + 1
+# to n live, the sizes a bucket of n holds) at the card mix's buckets and at (4096, 16)
+ARGMIN_SEED_SHAPES = ((256, 1024, False), (256, 512, False), (256, 256, False),
+                      (64, 128, True), (64, 256, True), (64, 512, True), (4096, 16, True))
+# (B, n) at which B1's batch form runs with two live slots a lane: the fixed cost of a lane
+ARGMIN_FLOOR_SHAPES = ((64, 128), (64, 256))
+# the (lanes, n) at which B2's entries and B1's and B3's batch forms are loaded for the register
+# and spill report: the single-problem entries on each row width, the batch forms on each path
 RESOURCE_SHAPES = {"lw_step": ((1, 1024), (1, 4096), (1, 16384)),
                    "lw_merge": ((1, 1024), (1, 4096), (1, 16384)),
                    "lw_merge_batch": ((4096, 16), (1024, 32), (256, 64), (256, 127), (256, 128),
@@ -219,12 +229,16 @@ RESOURCE_SHAPES = {"lw_step": ((1, 1024), (1, 4096), (1, 16384)),
                                       (16, 1024), (256, 2048), (16, 2048), (256, 1023),
                                       (16, 1023)),
                   "lazy_merge_batch": ((4096, 16), (1024, 32), (256, 64), (256, 128),
-                                       (256, 1024), (66, 2048), (17, 2048), (2, 4096))}
+                                       (256, 1024), (66, 2048), (17, 2048), (2, 4096)),
+                  "masked_argmin_batch": ((4096, 16), (4096, 17), (256, 64), (256, 127),
+                                          (256, 128), (256, 255), (33, 256), (256, 256),
+                                          (256, 512), (256, 1024), (64, 512), (16, 1024),
+                                          (16, 2048), (2, 4096), (256, 1023), (16, 1023))}
 RTOL, ATOL = 1e-4, 1e-5        # height tolerance of the JAX package's kernel tests
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once a launch
     "masked_argmin": ("masked_row_min", "first_min_over_rows"),
-    "masked_argmin_batch": ("batch_row_min", "batch_first_min"),
+    "masked_argmin_batch": ("argmin_batch_kernel",),
     "lw_merge_batch": ("lw_merge_batch_kernel",),
     "lazy_merge_batch": ("lazy_merge_batch_kernel",),
     "lw_step": ("lw_step_kernel", "pack_alive_kernel"),
@@ -237,7 +251,8 @@ KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once
     "pairwise_sq_euclidean": ("pairwise_sq_kernel",),
 }
 NO_LAUNCHES = dict.fromkeys(KERNEL_SYMBOLS, 0)
-ENTRY_SOURCES = {"lw_merge_batch": "src/repro_torch/csrc/lw_merge_batch.cu",
+ENTRY_SOURCES = {"masked_argmin_batch": "src/repro_torch/csrc/argmin_batch.cu",
+                 "lw_merge_batch": "src/repro_torch/csrc/lw_merge_batch.cu",
                  "lazy_merge_batch": "src/repro_torch/csrc/lazy_merge_batch.cu"}
 
 
@@ -640,6 +655,46 @@ def batch_mid_state(torch, B: int, n: int, reps: int, seed: int, dead: float = 0
     return D, alive, sizes.to(torch.float32), alive.sum(1) - 1, cand
 
 
+def batch_seed_state(torch, B: int, n: int, ragged: bool, seed: int):
+    """A bucket of B lanes as a stage's seed finds it: each lane a
+    symmetric matrix of random points whose live slots are a prefix (the
+    live rows and columns packed ascending into the front, as compact_batch
+    leaves them): all n, or with ``ragged`` n/2 + 1 to n at random (the
+    sizes that a bucket of n holds)."""
+    from repro_torch.core.engine import symmetrize
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.randn(B, n, 8, generator=gen, device="cuda")
+    D = symmetrize(torch.cdist(X, X))
+    live = (torch.randint(n // 2 + 1, n + 1, (B,), generator=gen, device="cuda") if ragged
+            else torch.full((B,), n, device="cuda"))
+    return D, torch.arange(n, device="cuda") < live[:, None]
+
+
+def argmin_read_bytes(torch, alive, plan) -> float:
+    """The matrix bytes B1's batch form reads on the liveness ``alive``
+    under ``plan`` (None: a tree whose batch form reads every live row
+    whole): each lane's live rows over its live span, from its first live
+    slot to one past its last; a warp-owned lane reads the span's rows
+    whole, the bulk copies read the span rounded out to 16 bytes where that
+    is 128 columns or more, and rows in registers read it from the first
+    live slot's bitmask word (a multiple of 32 columns) on."""
+    B, n = alive.shape
+    live = alive.sum(1).to(torch.float64)
+    if plan is None:
+        return float((4 * live * n).sum())
+    ks = torch.arange(n, device=alive.device)
+    lo = torch.where(alive, ks, n).amin(1)
+    hi = torch.where(alive, ks + 1, 0).amax(1)
+    width = (hi - lo).clamp_min(0).to(torch.float64)
+    if plan.group == 0:
+        return float((4 * width * n).sum())
+    width4 = ((hi + 3) // 4 * 4 - lo // 4 * 4).to(torch.float64)
+    width32 = (hi - lo // 32 * 32).clamp_min(0).to(torch.float64)
+    bulk = (width4 >= 128) & (hi > lo) & (plan.unroll == 0)
+    return float((4 * live * torch.where(bulk, width4, width32)).sum())
+
+
 def check_batch_buffers(torch, got, want, what: str, skip=("stale",)) -> None:
     for name, a, b in zip(type(got)._fields, got, want):
         if name not in skip and not torch.equal(a, b):
@@ -662,28 +717,36 @@ def check_against_single(torch, bk, single_buffers, single_merge, method, reps: 
 
 def resource_report(torch) -> dict:
     """Registers and local (spilled) bytes a thread of every instantiation
-    of B2's entries and B3's batch form, for each method, and the batch
-    forms' blocks an SM: ``{entry: {"B=.. n=..": {method: [regs,
-    local_bytes, blocks_per_sm]}}}``, the batch forms' keys with their
-    plan."""
+    of B2's entries and B3's batch form, for each method, and of B1's batch
+    form, and the batch forms' blocks an SM: ``{entry: {"B=.. n=..": {method:
+    [regs, local_bytes, blocks_per_sm]}}}`` (B1's keyed by "-"), the batch
+    forms' keys with their plan.  A tree whose B1 batch form has no plan
+    reports none for it."""
     from repro_torch.core.linkage import METHODS
-    from repro_torch.kernels import lw_step, lw_update
+    from repro_torch.kernels import lw_step, lw_update, minscan
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plans = {"lw_merge_batch": lw_step.merge_batch_plan,
-             "lazy_merge_batch": lw_update.lazy_batch_plan}
+             "lazy_merge_batch": lw_update.lazy_batch_plan,
+             "masked_argmin_batch": getattr(minscan, "argmin_batch_plan", None)}
 
     def resources(method, n, entry, B):
         if entry == "lazy_merge_batch":
             return lw_update.lazy_batch_resources(method, n, lanes=B)
+        if entry == "masked_argmin_batch":
+            return minscan.argmin_batch_resources(n, lanes=B, aligned=n % 4 == 0)
         return lw_step.kernel_resources(method, n, entry, lanes=B)
 
     out = {}
     for entry, shapes in RESOURCE_SHAPES.items():
+        if entry in plans and plans[entry] is None:
+            continue
+        methods = ("-",) if entry == "masked_argmin_batch" else METHODS
         for B, n in shapes:
-            key = f"B={B} n={n}" + (f" {plans[entry](B, n, sms)}" if entry in plans else "")
+            plan = plans[entry](B, n, sms) if entry in plans else None
+            key = f"B={B} n={n}" + (f" {plan}" if plan is not None else "")
             out.setdefault(entry, {})[key] = {
-                m: list(resources(m, n, entry, B).values()) for m in METHODS}
+                m: list(resources(m, n, entry, B).values()) for m in methods}
     return out
 
 
@@ -710,11 +773,24 @@ def phase_batch_kernels(torch, B: int, n: int, reps: int, l2_rate: float,
     return out
 
 
+def argmin_plan(torch, B: int, n: int):
+    """The plan B1's batch form takes over B lanes of n slots (None for a
+    tree whose batch form has no plan)."""
+    from repro_torch.kernels import minscan
+
+    plan_fn = getattr(minscan, "argmin_batch_plan", None)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return None if plan_fn is None else plan_fn(B, n, sms)
+
+
 def batch_argmin_row(torch, D, alive, live, resident: float, l2_rate: float) -> dict:
-    """B1's batch form against its plain twin and its single entry, timed."""
+    """B1's batch form against its plain twin and its single entry, bit for
+    bit, timed; with the plan it took, the matrix bytes it reads
+    (:func:`argmin_read_bytes`) and its rate on them."""
     from repro_torch.kernels import minscan
 
     B, n = alive.shape
+    plan = argmin_plan(torch, B, n)
     v, flat = minscan.masked_argmin_batch(D, alive)
     vp, flatp = minscan.masked_argmin_batch_plain(D, alive)
     if not (torch.equal(v, vp) and torch.equal(flat, flatp)):
@@ -723,14 +799,24 @@ def batch_argmin_row(torch, D, alive, live, resident: float, l2_rate: float) -> 
     if not (torch.equal(torch.stack([s[0] for s in single]), v)
             and torch.equal(torch.stack([s[1] for s in single]), flat)):
         raise AssertionError(f"masked_argmin_batch B={B} n={n}: differs from single launches")
+    ms = time_ms(torch, lambda: minscan.masked_argmin_batch(D, alive))
+    read = argmin_read_bytes(torch, alive, plan)
     return dict(
-        B=B, n=n, live_mean=float(live.mean()), max_abs_err=float((v - vp).abs().nan_to_num().max()),
-        bit_equal=True, single_checked=B,
-        ms=time_ms(torch, lambda: minscan.masked_argmin_batch(D, alive)),
+        B=B, n=n, path=str(plan) if plan else "row blocks and a reduction pass",
+        live_mean=float(live.mean()), max_abs_err=float((v - vp).abs().nan_to_num().max()),
+        bit_equal=True, single_checked=B, ms=ms,
         plain_ms=time_ms(torch, lambda: minscan.masked_argmin_batch_plain(D, alive)),
-        library_ms=None,
+        library_ms=None, read_bytes=read, read_bytes_per_s=read / (ms * 1e-3),
         **bound(torch, float((4 * live * live + n + 12).sum()), float((live * live).sum()),
                 resident, l2_rate))
+
+
+def phase_argmin_seed(torch, B: int, n: int, ragged: bool, l2_rate: float) -> dict:
+    """B1's batch form on a seed state (:func:`batch_seed_state`), as
+    :func:`batch_argmin_row` holds and times it."""
+    D, alive = batch_seed_state(torch, B, n, ragged, seed=13)
+    return dict(batch_argmin_row(torch, D, alive, alive.sum(1).to(torch.float64), 4 * B * n * n,
+                                 l2_rate), ragged=ragged)
 
 
 def batch_merge_row(torch, method: str, D, alive, sizes, limit, cand, live, reps: int,
@@ -1735,7 +1821,9 @@ def phase_rmsd(torch, np) -> dict:
     stats["card_build_s"] = s["wall_s"]
     err = float((D_card - D_cpu).abs().max())
     if not torch.allclose(D_card, D_cpu, rtol=RTOL, atol=RMSD_ATOL):
-        raise AssertionError(f"rmsd matrix on the card differs from the CPU's by {err}")
+        r, c = divmod(int((D_card - D_cpu).abs().argmax()), n)
+        raise AssertionError(f"rmsd matrix on the card differs from the CPU's by {err} at ({r}, "
+                             f"{c}): {float(D_card[r, c])} against {float(D_cpu[r, c])}")
     serial, s = timed(torch, lambda: cluster(D_card.numpy(), "complete", algorithm="lw",
                                              backend="serial", keep_inputs=False))
     check_equivalent(np, res.merges, serial.merges, n, "rmsd chain vs serial LW, one matrix")
@@ -2355,7 +2443,7 @@ def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assign
     inventory = []
     for name, entries in (
             ("masked_argmin", [("masked_argmin", ("masked_argmin", FULL_N), full),
-                               ("masked_argmin_batch", ("masked_argmin_batch", full_b),
+                               ("masked_argmin_batch", ("masked_argmin_batch/seed", full_b),
                                 b_kernel)]),
             ("lw_step", [("lw_merge", ("lw_merge/complete", FULL_N), full),
                          ("lw_step", ("lw_step/complete", FULL_N), full),
@@ -2412,8 +2500,9 @@ def main() -> int:
     say(f"phase 1 build: {build_s:.2f} s; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)}; {card}")
     resources = resource_report(torch)
-    say("phase 1 B2 and B3 batch registers and local bytes a thread: " + json.dumps(resources))
-    for entry in ("lw_merge_batch", "lazy_merge_batch"):
+    say("phase 1 B1, B2 and B3 batch registers and local bytes a thread: "
+        + json.dumps(resources))
+    for entry in ("masked_argmin_batch", "lw_merge_batch", "lazy_merge_batch"):
         spilled = {shape: row for shape, row in resources[entry].items()
                    if any(numbers[1] for numbers in row.values())}
         if spilled:
@@ -2452,6 +2541,11 @@ def main() -> int:
         for name, row in phase_batch_kernels(torch, B, n, reps, l2_rate, at).items():
             say(f"phase 2 {name} B={B} n={n}: " + json.dumps(row))
             kernels[(name, (B, n))] = row
+        torch.cuda.empty_cache()
+    for B, n, ragged in ARGMIN_SEED_SHAPES:
+        row = phase_argmin_seed(torch, B, n, ragged, l2_rate)
+        say(f"phase 2 masked_argmin_batch seed B={B} n={n}: " + json.dumps(row))
+        kernels[("masked_argmin_batch/seed", (B, n))] = row
         torch.cuda.empty_cache()
 
     # 3. the paper's configuration
@@ -2553,14 +2647,16 @@ BATCH_TIMES_FLAG = "--batch-kernel-times"
 
 def batch_kernel_times(src: str | None) -> int:
     """``python3 chip_smoke.py --batch-kernel-times [SRC]``: the register and
-    spill report, and phase 2's rows of B2's and B3's batch forms at every
-    BATCH_KERNEL_SHAPES bucket that times them (checks included), with their
-    plan sweeps, for the ``repro_torch`` under ``SRC``; one JSON line.  B2's
-    rows add a torch reduction's read rate over the bucket and an all-live
-    bucket; B3's the device µs a lockstep merge of each kernel it launches
-    (the profiler's records) and torch's store yardsticks.  Run it for two
-    trees in one call, in the order A, B, B, A, to compare their batch forms
-    on one card."""
+    spill report (with ptxas's lines for B1's kernels), and phase 2's rows
+    of B1's, B2's and B3's batch forms at every BATCH_KERNEL_SHAPES bucket
+    that times them (checks included), with their plan sweeps, for the
+    ``repro_torch`` under ``SRC``; one JSON line.  B1's rows add its seed
+    states (ARGMIN_SEED_SHAPES), lanes of two live slots
+    (ARGMIN_FLOOR_SHAPES) and, like B2's, a torch reduction's read rate over
+    the bucket; B2's an all-live bucket; B3's the device µs a lockstep merge
+    of each kernel it launches (the profiler's records) and torch's store
+    yardsticks.  Run it for two trees in one call, in the order A, B, B, A,
+    to compare their batch forms on one card."""
     import torch
 
     if src:
@@ -2572,14 +2668,30 @@ def batch_kernel_times(src: str | None) -> int:
 
     from repro_torch.kernels import _build
 
-    _build.build_all()
+    logs = _build.build_all()
+    ptxas = [line.strip() for name in ("minscan", "argmin_batch") for line in
+             logs.get(name, "").splitlines() if "registers" in line or "spill" in line]
     l2_rate = l2_read_rate(torch)
-    rows = {"lw_merge_batch": {}, "lazy_merge_batch": {}}
-    sweep = {"lw_merge_batch": {}, "lazy_merge_batch": {}}
+    rows = {"masked_argmin_batch": {}, "lw_merge_batch": {}, "lazy_merge_batch": {}}
+    sweep = {"masked_argmin_batch": {}, "lw_merge_batch": {}, "lazy_merge_batch": {}}
+
+    def argmin_rows(key, D, alive, resident):
+        row = batch_argmin_row(torch, D, alive, alive.sum(1).to(torch.float64), resident,
+                               l2_rate)
+        rows["masked_argmin_batch"][key] = {k: row[k] for k in (
+            "path", "live_mean", "ms", "bound_ms", "read_bytes", "read_bytes_per_s")}
+        rows["masked_argmin_batch"][key]["amin_bucket_bytes_per_s"] = (
+            resident / (time_ms(torch, lambda: torch.amin(D, dim=-1)) * 1e-3))
+        B, n = alive.shape
+        if argmin_plan(torch, B, n) is not None and (n > 64 or n <= 32):
+            sweep["masked_argmin_batch"][key] = argmin_plan_sweep(torch, D, alive)
+
     for B, n, reps, at in BATCH_KERNEL_SHAPES:
         key = f"B={B} n={n}"
         D, alive, sizes, limit, cand = batch_mid_state(torch, B, n, reps, seed=11)
         live, resident = alive.sum(1).to(torch.float64), 4 * B * n * n
+        if "argmin" in at:
+            argmin_rows(key, D, alive, resident)
         if "merge" in at:
             row = batch_merge_row(torch, "complete", D, alive, sizes, limit, cand, live, reps,
                                   resident, l2_rate)
@@ -2604,18 +2716,29 @@ def batch_kernel_times(src: str | None) -> int:
             rows["lazy_merge_batch"][key].update(store_yardsticks(torch, D, reps))   # writes D
         del D, alive, sizes, limit, cand
         torch.cuda.empty_cache()
-    # the full-width bucket with every slot live: whole matrices read, no dead row skipped
+    # the full-width bucket all live: whole matrices, no dead row skipped
     B, n, reps, _ = BATCH_KERNEL_SHAPES[0]
     D, alive, sizes, limit, cand = batch_mid_state(torch, B, n, reps, seed=11, dead=0.0)
     row = batch_merge_row(torch, "complete", D, alive, sizes, limit, cand,
                           alive.sum(1).to(torch.float64), reps, 4 * B * n * n, l2_rate)
-    rows["lw_merge_batch"][f"B={B} n={n} all live"] = {k: row[k] for k in ("path", "ms",
-                                                                           "read_bytes_per_s")}
+    rows["lw_merge_batch"][f"B={B} n={n} all live"] = {
+        k: row[k] for k in ("path", "ms", "read_bytes_per_s")}
     del D, alive, sizes, limit, cand
     torch.cuda.empty_cache()
+    for B, n, ragged in ARGMIN_SEED_SHAPES:    # B1 on the seed states the main path gives it
+        D, alive = batch_seed_state(torch, B, n, ragged, seed=13)
+        argmin_rows(f"B={B} n={n} seed" + (" ragged" if ragged else ""), D, alive,
+                    4 * B * n * n)
+        del D, alive
+        torch.cuda.empty_cache()
+    for B, n in ARGMIN_FLOOR_SHAPES:           # a lane's fixed cost
+        D, alive = batch_seed_state(torch, B, n, False, seed=13)
+        alive[:, 2:] = False
+        argmin_rows(f"B={B} n={n} two live", D, alive, 4 * B * n * n)
+        del D, alive
     print(json.dumps({"src": str(Path(repro_torch.__file__).parents[1]), "rows": rows,
                       "plan_sweep_ms": sweep, "resources": resource_report(torch),
-                      "card": gpu_line()}))
+                      "ptxas_b1": ptxas, "card": gpu_line()}))
     return 0
 
 
@@ -2668,22 +2791,31 @@ def lazy_kernel_split(torch, D, alive, sizes, limit, reps: int) -> dict:
     return {k: v / 1e3 / reps for k, v in ns.items()}
 
 
-def sweep_plans(torch, module, plan_fn: str, plans, merge, b0, bp, reps: int,
-                what: str) -> dict:
-    """``merge`` ("complete") under each of ``plans``, ``module``'s plan
-    function ``plan_fn`` patched to return it: each timed as phase 2 times
-    it over ``reps`` merges from the buffers ``b0``, then held against the
-    plain twin's buffers ``bp`` after as many (its stale list aside)."""
+def sweep_plans(module, plan_fn: str, plans, measure) -> dict:
+    """``measure(plan)``, the ms of a batch form with its checks, under each
+    of ``plans``, ``module``'s plan function ``plan_fn`` patched to return
+    it."""
     planned, out = getattr(module, plan_fn), {}
     try:
         for plan in plans:
             setattr(module, plan_fn, lambda *args, plan=plan, **kwargs: plan)
-            bk = type(b0)(*(t.clone() for t in b0))
-            out[str(plan)] = time_merges(torch, lambda b: merge("complete", b), b0, bk, reps=reps)
-            check_batch_buffers(torch, bk, bp, f"{what} {plan}", skip=("stale", "sync"))
+            out[str(plan)] = measure(plan)
     finally:
         setattr(module, plan_fn, planned)
     return out
+
+
+def merge_measure(torch, merge, b0, bp, reps: int, what: str):
+    """:func:`sweep_plans`' ``measure`` of a batch merge entry: ``merge``
+    ("complete") timed as phase 2 times it over ``reps`` merges from the
+    buffers ``b0``, then held against the plain twin's buffers ``bp`` after
+    as many (its stale list and sync words aside)."""
+    def measure(plan):
+        bk = type(b0)(*(t.clone() for t in b0))
+        ms = time_merges(torch, lambda b: merge("complete", b), b0, bk, reps=reps)
+        check_batch_buffers(torch, bk, bp, f"{what} {plan}", skip=("stale", "sync"))
+        return ms
+    return measure
 
 
 def plan_sweep(torch, D, alive, sizes, limit, cand, reps: int) -> dict:
@@ -2708,8 +2840,9 @@ def plan_sweep(torch, D, alive, sizes, limit, cand, reps: int) -> dict:
         plans.append(lw_step.BatchPlan(32, 8, 256, planned.blocks))
         if n > 1024:
             plans.append(planned._replace(threads=256))
-    return sweep_plans(torch, lw_step, "merge_batch_plan", plans, lw_step.lw_merge_batch, b0, bp,
-                       reps, f"lw_merge_batch B={B} n={n}")
+    return sweep_plans(lw_step, "merge_batch_plan", plans,
+                       merge_measure(torch, lw_step.lw_merge_batch, b0, bp, reps,
+                                     f"lw_merge_batch B={B} n={n}"))
 
 
 def lazy_plan_sweep(torch, D, alive, sizes, limit, reps: int) -> dict:
@@ -2730,8 +2863,45 @@ def lazy_plan_sweep(torch, D, alive, sizes, limit, reps: int) -> dict:
     planned = lw_update.lazy_batch_plan(B, n,
                                         torch.cuda.get_device_properties(0).multi_processor_count)
     plans = [planned._replace(blocks=k) for k in (1, 2, 4, 8) if 32 * k <= n]
-    return sweep_plans(torch, lw_update, "lazy_batch_plan", plans, lw_update.lazy_merge_batch,
-                       b0, bp, reps, f"lazy_merge_batch B={B} n={n}")
+    return sweep_plans(lw_update, "lazy_batch_plan", plans,
+                       merge_measure(torch, lw_update.lazy_merge_batch, b0, bp, reps,
+                                     f"lazy_merge_batch B={B} n={n}"))
+
+
+def argmin_plan_sweep(torch, D, alive) -> dict:
+    """B1's batch form under the plans around the one it takes, each held
+    against its plain twin bit for bit (:func:`sweep_plans`): on the warp
+    path a block a lane in registers instead; else 1, 2, 4 and 8 blocks a
+    lane (as many as give each block a bitmask word of rows); from 65 to 256 slots
+    one pass in registers against bulk copies; on the bulk-copy path wider
+    row groups, rows in registers instead (a warp a row, 8 float4 a thread)
+    and, for rows in chunks, 256 threads a block: the measurement behind
+    argmin_batch_plan's cuts."""
+    from repro_torch.kernels import minscan
+
+    B, n = alive.shape
+    want = minscan.masked_argmin_batch_plain(D, alive)
+    planned = argmin_plan(torch, B, n)
+    if planned.group == 0:
+        plans = [planned, minscan.ArgminPlan(4, 4, 256, 1)]
+    else:
+        plans = [planned._replace(blocks=k) for k in (1, 2, 4, 8) if 32 * k <= n]
+        if 64 < n <= 256 and n % 4 == 0:
+            group = 4 if n <= 128 else 8
+            plans += [minscan.ArgminPlan(group, 8, 512, planned.blocks),
+                      minscan.ArgminPlan(group, 0, 256, planned.blocks)]
+        if planned.unroll == 0:
+            plans += [planned._replace(group=g) for g in (8, 16, 32) if g > planned.group]
+            plans.append(minscan.ArgminPlan(32, 8, 256, planned.blocks))
+            if n > 1024:
+                plans.append(planned._replace(threads=256))
+
+    def measure(plan):
+        got = minscan.masked_argmin_batch(D, alive)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"masked_argmin_batch B={B} n={n} {plan}: differs from plain")
+        return time_ms(torch, lambda: minscan.masked_argmin_batch(D, alive))
+    return sweep_plans(minscan, "argmin_batch_plan", plans, measure)
 
 
 if __name__ == "__main__":

@@ -468,30 +468,8 @@ void launch_lazy_batch(const LazyOperands& a, long long lanes, int group, int th
         *err = cudaErrorInvalidValue;
         return;
     }
-    const size_t smem = lazy_shared_bytes(a.n, blocks);
-    cudaStreamCaptureStatus capturing = cudaStreamCaptureStatusNone;
-    if (cudaStreamIsCapturing(stream, &capturing) != cudaSuccess) {
-        (void)cudaGetLastError();   // unknown: leave the attribute to the loader
-        capturing = cudaStreamCaptureStatusActive;
-    }
-    if (capturing == cudaStreamCaptureStatusNone) {
-        *err = allow_shared(fn, smem);
-        if (*err != cudaSuccess) return;
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(lanes * blocks));
-    cfg.blockDim = dim3((unsigned)threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1] = {};
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = (unsigned)blocks;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = blocks > 1 ? 1 : 0;
-    void* args[] = {const_cast<LazyOperands*>(&a)};
-    *err = cudaLaunchKernelExC(&cfg, fn, args);
+    *err = launch_lanes(fn, a, (unsigned)(lanes * blocks), threads, blocks,
+                        lazy_shared_bytes(a.n, blocks), stream);
 }
 
 template <int M>

@@ -37,7 +37,9 @@
 //     first lane deals itself the next rows and has the Tensor Memory
 //     Accelerator copy them in (cp.async.bulk, one copy a row or a row's
 //     1024-column chunk, completion counted by an mbarrier a buffer), while
-//     the warp scans the buffer that has landed.  Short or unaligned rows
+//     the warp scans the buffer that has landed (batch_rows.cuh, shared with
+//     B1's batch form, which also shares the row listing and the keys'
+//     reduction).  Short or unaligned rows
 //     are loaded into registers instead, every float4 of a pass issued
 //     before any compare (scan_row).
 //   - A finished or padding lane's blocks read count and limit, the first
@@ -50,6 +52,7 @@
 #include <cooperative_groups.h>
 
 #include "batch_lanes.cuh"
+#include "batch_rows.cuh"
 #include "first_min.cuh"
 #include "lance_williams.cuh"
 #include "last_block.cuh"
@@ -59,9 +62,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kChunk = 1024;       // rows listed at a time: one warp, a word a lane
-constexpr int kStages = 3;         // a warp's row buffers in flight (bulk copies)
-constexpr int kStageFloats = 1024; // a buffer: 32/T rows of up to 32 T floats, or a row's chunk
 constexpr int kBatchThreads = 256;
 
 // The batch buffers' base pointers: lane b's slices sit at b n^2 (D), b n
@@ -82,60 +82,6 @@ struct BatchOperands {
     long long cap;
     int n;
 };
-
-// The warp's least (key, column); valid in lane 0.  Keys are distinct (a
-// row each) or kKeyInit.
-__device__ __forceinline__ void warp_min_key(unsigned long long& key, int& col) {
-    for (int off = 16; off > 0; off >>= 1) {
-        const unsigned long long ok = __shfl_down_sync(0xffffffffu, key, off);
-        const int oc = __shfl_down_sync(0xffffffffu, col, off);
-        if (ok < key) { key = ok; col = oc; }
-    }
-}
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" : : : "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-    asm volatile("barrier.cluster.wait.aligned;\n" : : : "memory");
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-    return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" : : "r"(smem_addr(bar)) : "memory");
-}
-
-// Arrive on the buffer's barrier and expect `bytes` of copies to land.
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 : : "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Wait for the barrier's phase `parity` to complete.
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
-    asm volatile(
-        "{\n\t.reg .pred P1;\n\t"
-        "LAB_WAIT:\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
-        "@P1 bra DONE;\n\t"
-        "bra LAB_WAIT;\n\t"
-        "DONE:\n\t}\n"
-        : : "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// `bytes` (a multiple of 16, both ends 16-byte aligned) from global `src`
-// to this block's shared `dst` by the Tensor Memory Accelerator,
-// completion counted on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
-                                          unsigned long long* bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-        : : "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
 
 // A row group's last step on row r: fold column i's new value into the
 // row's reduced minimum (first thread), write D(r, i), rmin[r] and rarg[r],
@@ -160,41 +106,6 @@ __device__ __forceinline__ void finish_row(float* D, float* rmin, long long* rar
     }
 }
 
-// The live rows of the bitmask (n rows, `words` words), by one warp (`wl`
-// its lane); valid in every lane.
-__device__ __forceinline__ int live_before(const unsigned* bits, int words, int n, int wl) {
-    int live = 0;
-    for (int w0 = 0; w0 < words; w0 += 32) {
-        int c = w0 + wl < words ? __popc(bits[w0 + wl]) : 0;
-        for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(0xffffffffu, c, off);
-        live += c;
-    }
-    return live;
-}
-
-// The row of the live row of rank `t` (from 0; n past the last), by one warp;
-// valid in every lane.
-__device__ __forceinline__ int row_of_live(const unsigned* bits, int words, int n, int wl, int t) {
-    int before = 0;
-    for (int w0 = 0; w0 < words; w0 += 32) {
-        const unsigned word = w0 + wl < words ? bits[w0 + wl] : 0u;
-        int upto = __popc(word);
-        for (int off = 1; off < 32; off <<= 1) {
-            const int o = __shfl_up_sync(0xffffffffu, upto, off);
-            if (wl >= off) upto += o;
-        }
-        const unsigned holds = __ballot_sync(0xffffffffu, before + upto > t);
-        if (holds) {
-            const int w = __ffs(holds) - 1;
-            const int k = t - before - (__shfl_sync(0xffffffffu, upto, w) -
-                                        __popc(__shfl_sync(0xffffffffu, word, w)));
-            return min(n, 32 * (w0 + w) + (int)__fns(__shfl_sync(0xffffffffu, word, w), 0, k + 1));
-        }
-        before += __shfl_sync(0xffffffffu, upto, 31);
-    }
-    return n;
-}
-
 // What a block's warps share while they scan one lane's rows.
 struct Lane {
     float* D;
@@ -207,6 +118,8 @@ struct Lane {
     int n, listed;
     Merge m;
     bool live_i;
+    __device__ const float* row(int r) const { return D + (size_t)r * n; }   // read whole
+    __device__ int span_cols() const { return n; }
 };
 
 // Row r (a listed row: live, not i and not j) in registers, by a group of T
@@ -233,58 +146,11 @@ __device__ __forceinline__ void register_rows(const Lane& x, int wl, unsigned lo
                                               int& col) {
     const int l = wl % T, group = wl / T;
     for (;;) {
-        int first = 0;
-        if (wl == 0) first = atomicAdd(x.next, 32 / T);
-        first = __shfl_sync(0xffffffffu, first, 0);
+        const int first = deal_rows<T>(x, wl);
         if (first >= x.listed) break;
         const int s = first + group;
         register_row<M, T, U>(x, s < x.listed ? x.list[s] : -1, l, key, col);
     }
-}
-
-// A warp's bulk-copy pipeline: kStages buffers, each holding one unit (32/T
-// rows of up to 32 T floats, or one 32 T-column chunk of a row when T is 32
-// and rows are longer), each with an mbarrier and the unit's first list
-// place and chunk.  Its first lane is the producer.
-struct Pipe {
-    float* buf;                  // kStages * kStageFloats floats
-    unsigned long long* full;    // kStages barriers
-    int* place;                  // kStages: the unit's first list place (>= listed: none)
-    int* chunk;                  // kStages: the unit's column chunk
-    int stage;                   // the next buffer to scan
-    unsigned phases;             // bit s: the parity of buffer s's next completion
-    int deal, deal_chunk;        // the producer's current unit
-};
-
-// The producer's next unit into buffer s (first lane only): the next chunk
-// of its current row, or the next rows dealt out; none past the list.
-template <int T>
-__device__ __forceinline__ void issue(const Lane& x, Pipe& p, int s) {
-    constexpr int kRows = 32 / T, kCols = 32 * T;
-    const int chunks = (x.n + kCols - 1) / kCols;
-    if (p.deal < x.listed && p.deal_chunk + 1 < chunks) {
-        ++p.deal_chunk;
-    } else {
-        p.deal = atomicAdd(x.next, kRows);
-        p.deal_chunk = 0;
-    }
-    p.place[s] = p.deal;
-    p.chunk[s] = p.deal_chunk;
-    if (p.deal >= x.listed) return;
-    const int c0 = p.deal_chunk * kCols, cols = min(kCols, x.n - c0);
-    const int rows = min(kRows, x.listed - p.deal);
-    mbar_expect(&p.full[s], (unsigned)(rows * cols) * 4u);
-    float* dst = p.buf + s * kStageFloats;
-    for (int g = 0; g < rows; ++g)
-        bulk_copy(dst + g * kCols, x.D + (size_t)x.list[p.deal + g] * x.n + c0,
-                  (unsigned)cols * 4u, &p.full[s]);
-}
-
-// The producer's first kStages units (first lane only).
-template <int T>
-__device__ __forceinline__ void start_pipe(const Lane& x, Pipe& p) {
-    p.deal = x.listed;   // deal out rows from the first unit on
-    for (int k = 0; k < kStages; ++k) issue<T>(x, p, (p.stage + k) % kStages);
 }
 
 // The warp's share of the chunk's rows through its bulk-copy pipeline,
@@ -349,19 +215,6 @@ __device__ __forceinline__ void bulk_rows(const Lane& x, Pipe& p, int wl,
     }
 }
 
-// The dynamic shared memory of a launch: the bitmask, the list, and with
-// bulk copies each warp's buffers (128-byte aligned).
-__host__ __device__ __forceinline__ size_t batch_list_bytes(int n) {
-    const int words = (n + 31) / 32;
-    const int list = 32 * words < kChunk ? 32 * words : kChunk;
-    return ((size_t)(words + list) * sizeof(unsigned) + 127) / 128 * 128;
-}
-
-size_t batch_shared_bytes(int n, bool bulk, int threads) {
-    return batch_list_bytes(n) +
-           (bulk ? (size_t)(threads / 32) * kStages * kStageFloats * sizeof(float) : 0);
-}
-
 // One lockstep merge.  A block owns a lane (a launch without a cluster:
 // block x is lane x) or a cluster of k blocks does (block x is rank x % k of
 // lane x / k).  A row group
@@ -399,18 +252,7 @@ lw_merge_batch_kernel(const __grid_constant__ BatchOperands a) {
     if (blocks > 1) cluster_arrive_relaxed();   // paired with the wait before the keys
     const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
     Pipe pipe{};
-    if constexpr (kBulk) {
-        pipe.buf = reinterpret_cast<float*>(reinterpret_cast<char*>(s_bits) +
-                                            batch_list_bytes(n)) +
-                   warp * kStages * kStageFloats;
-        pipe.full = s_full + warp * kStages;
-        pipe.place = s_place + warp * kStages;
-        pipe.chunk = s_chunk + warp * kStages;
-        if (wl == 0) {
-            for (int k = 0; k < kStages; ++k) mbar_init(&pipe.full[k]);
-            asm volatile("fence.mbarrier_init.release.cluster;\n" : : : "memory");
-        }
-    }
+    if constexpr (kBulk) pipe = make_pipe(s_bits, n, s_full, s_place, s_chunk, warp, wl);
     Merge m{(int)min(cr, cc), (int)max(cr, cc), dij, 0.0f, 0.0f};
     float* sizes = a.sizes + (size_t)lane * n;
     m.ni = sizes[m.i];
@@ -514,29 +356,11 @@ lw_merge_batch_kernel(const __grid_constant__ BatchOperands a) {
     }
 
     // the block's (key, column), then the cluster's in block 0
-    warp_min_key(key, col);
-    if (wl == 0) {
-        s_key[warp] = key;
-        s_col[warp] = col;
-    }
-    __syncthreads();   // also: every read of the lane's state is done
-    if (threadIdx.x == 0) {
-        for (int w = 1; w < kBlockWarps; ++w)
-            if (s_key[w] < key) { key = s_key[w]; col = s_col[w]; }
-    }
+    block_min_key<kBlockWarps>(key, col, s_key, s_col);
     if (blocks > 1) {
-        cg::cluster_group cluster = cg::this_cluster();
-        cluster_wait();   // every block of the cluster has started: block 0's memory is there
-        if (threadIdx.x == 0) {
-            *cluster.map_shared_rank(&c_key[rank], 0) = key;
-            *cluster.map_shared_rank(&c_col[rank], 0) = col;
-        }
-        cluster.sync();   // releases the keys to block 0; every block has read the state
+        cluster_keys(key, col, rank, c_key, c_col);
         if (rank != 0) return;
-        if (threadIdx.x == 0) {
-            for (unsigned q = 1; q < blocks; ++q)
-                if (c_key[q] < key) { key = c_key[q]; col = c_col[q]; }
-        }
+        cluster_min_key(key, col, blocks, c_key, c_col);
     }
     if (threadIdx.x != 0) return;
 
@@ -602,30 +426,8 @@ void launch_merge_batch(const BatchOperands& a, long long lanes, int group, int 
         *err = cudaErrorInvalidValue;
         return;
     }
-    const size_t smem = batch_shared_bytes(a.n, unroll == 0, threads);
-    cudaStreamCaptureStatus capturing = cudaStreamCaptureStatusNone;
-    if (cudaStreamIsCapturing(stream, &capturing) != cudaSuccess) {
-        (void)cudaGetLastError();   // unknown: leave the attribute to the loader
-        capturing = cudaStreamCaptureStatusActive;
-    }
-    if (capturing == cudaStreamCaptureStatusNone) {
-        *err = allow_shared(fn, smem);
-        if (*err != cudaSuccess) return;
-    }
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(lanes * blocks));
-    cfg.blockDim = dim3((unsigned)threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1] = {};
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = (unsigned)blocks;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = blocks > 1 ? 1 : 0;
-    void* args[] = {const_cast<BatchOperands*>(&a)};
-    *err = cudaLaunchKernelExC(&cfg, fn, args);
+    *err = launch_lanes(fn, a, (unsigned)(lanes * blocks), threads, blocks,
+                        batch_shared_bytes(a.n, unroll == 0, threads), stream);
 }
 
 template <int M>

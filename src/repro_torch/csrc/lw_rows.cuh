@@ -1,5 +1,6 @@
 // The row primitives of kernel B2 that its single-problem entries
-// (lw_step.cu) and its batch form (lw_merge_batch.cu) share: the merge, a
+// (lw_step.cu) and its batch form (lw_merge_batch.cu) share, with the batch
+// forms of B1 and B3 (argmin_batch.cu, lazy_merge_batch.cu): the merge, a
 // row's liveness test, a live row's first minimum and the merged row.
 #pragma once
 

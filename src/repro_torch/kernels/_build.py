@@ -20,8 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("minscan", "lw_step", "lw_merge_batch", "lw_update", "lazy_merge_batch", "row_sq",
-           "pairwise")
+KERNELS = ("minscan", "argmin_batch", "lw_step", "lw_merge_batch", "lw_update",
+           "lazy_merge_batch", "row_sq", "pairwise")
 
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1043,6 +1043,106 @@ def test_cuda_masked_argmin_batch_matches_plain_and_single(n, cuda, rng):
         assert (float(vs), int(fs)) == (float(v[b]), int(flat[b])), b
 
 
+# B1's batch form on each path of argmin_batch_plan, (lanes, n): a warp a lane (float4 loads,
+# and single floats where n % 4 != 0); a block a lane with rows in registers (4 threads a row
+# and 4 float4 at n = 64; one pass of 512 threads at 127, 128 and, unaligned, 255); a block a
+# lane on the bulk-copy path (B >= 66 at n = 256, 300; 1024-column chunks at (67, 2048));
+# clusters of 2 (rows in registers, one pass of 512 threads, at n = 256 and, a warp a row, at
+# n = 301), 4 and 8 (bulk copies); chunked rows in clusters at 2048 and 4096
+ARGMIN_BATCH_LANES = ((5, 8), (9, 16), (9, 17), (9, 32), (7, 64), (7, 127), (7, 128),
+                      (67, 255), (133, 256), (66, 256), (33, 256), (17, 512), (7, 1024),
+                      (67, 300), (17, 300), (33, 301), (17, 301), (67, 2048), (3, 2048),
+                      (2, 4096))
+ARGMIN_BATCH_STATES = ("prefix", "scattered", "span_lo", "last_slot", "row_tie", "column_tie")
+
+
+def argmin_batch_state(rng, lanes, n, state, device):
+    """A bucket of random distances and a liveness ``state``: each lane a
+    live prefix of batch_lanes' sizes (empty, padding and one-slot lanes
+    among them); dead slots at random; a live span from a slot that is not
+    a multiple of 4; only slot n - 1 live (no live cell); all live with the
+    minimum twice, in an early row and a late one (owned by different
+    blocks of a cluster), or twice in one row (the first column wins)."""
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(2**31)))
+    D = torch.rand((lanes, n, n), generator=gen, device=device) + 1.0
+    ks = torch.arange(n, device=device)
+    if state == "prefix":
+        alive = ks < torch.tensor(batch_lanes(n, lanes), device=device)[:, None]
+    elif state == "scattered":
+        alive = torch.tensor(rng.random((lanes, n)) > 0.4, device=device)
+        alive[0] = False                          # an empty lane
+    elif state == "span_lo":
+        lo = torch.tensor([1 + b % 3 for b in range(lanes)], device=device)[:, None]
+        hi = torch.tensor([n - b % 5 for b in range(lanes)], device=device)[:, None]
+        alive = (ks >= lo) & (ks < hi)
+    elif state == "last_slot":
+        alive = (ks == n - 1).expand(lanes, n).clone()
+    else:
+        alive = torch.ones((lanes, n), dtype=torch.bool, device=device)
+        if state == "row_tie":   # in row 2 and in row n - 3: the earlier row wins
+            D[:, 2, 5] = D[:, n - 3, 1] = -1.0
+        else:                    # in one row at columns 3 and n - 2: the first column wins
+            D[:, n // 2, 3] = D[:, n // 2, n - 2] = -1.0
+    return D, alive
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ARGMIN_BATCH_STATES)
+@pytest.mark.parametrize("lanes,n", ARGMIN_BATCH_LANES)
+def test_cuda_masked_argmin_batch_plan_paths(lanes, n, state, cuda, rng):
+    """B1's batch form on every plan path and liveness state against its
+    plain twin and one single-problem launch a lane, bit for bit, one
+    launch a call; ties go to the first row, then the first column, across
+    a cluster's blocks."""
+    D, alive = argmin_batch_state(rng, lanes, n, state, cuda)
+    launches = minscan.masked_argmin_batch.launches
+    v, flat = minscan.masked_argmin_batch(D, alive)
+    assert minscan.masked_argmin_batch.launches == launches + 1
+    vp, flatp = minscan.masked_argmin_batch_plain(D, alive)
+    assert torch.equal(v, vp) and torch.equal(flat, flatp)
+    single = [minscan.masked_argmin(D[b], alive[b]) for b in range(lanes)]
+    assert torch.equal(torch.stack([s[0] for s in single]), v)
+    assert torch.equal(torch.stack([s[1] for s in single]), flat)
+    if state in ("last_slot", "prefix"):        # no live cell: (+inf, 0)
+        none = alive.sum(1) < 2
+        assert torch.isinf(v[none]).all() and (flat[none] == 0).all()
+    if state == "row_tie":
+        assert (v == -1.0).all() and (flat == 2 * n + 5).all()
+    if state == "column_tie":
+        assert (v == -1.0).all() and (flat == n // 2 * n + 3).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n", ((4096, 16), (4096, 17), (256, 64), (256, 127), (256, 128),
+                                     (256, 255), (33, 256), (256, 256), (256, 1024), (64, 512),
+                                     (16, 1024), (16, 2048), (2, 4096), (16, 1023)))
+def test_cuda_masked_argmin_batch_no_spills(lanes, n, cuda):
+    """Every kernel B1's batch form launches keeps its registers: no local
+    (spilled) bytes, and at least one block an SM."""
+    res = minscan.argmin_batch_resources(n, lanes=lanes, aligned=n % 4 == 0)
+    assert res["local_bytes"] == 0 and res["blocks_per_sm"] >= 1, res
+
+
+@pytest.mark.cuda
+def test_cuda_masked_argmin_batch_refuses(cuda, monkeypatch):
+    """No fallback: a plan the kernel cannot take raises, and so do lanes
+    past 4096 slots; an empty batch launches nothing."""
+    D = torch.rand((3, 256, 256), device=cuda)
+    alive = torch.ones((3, 256), dtype=torch.bool, device=cuda)
+    warp_plan = minscan.ArgminPlan(0, 4, 128, 1)          # a warp a lane: rows of up to 32 only
+    monkeypatch.setattr(minscan, "argmin_batch_plan", lambda *a, **k: warp_plan)
+    launches = minscan.masked_argmin_batch.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        minscan.masked_argmin_batch(D, alive)
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="4096"):
+        minscan.masked_argmin_batch(torch.zeros((1, 4097, 4097), device=cuda),
+                                    torch.ones((1, 4097), dtype=torch.bool, device=cuda))
+    v, flat = minscan.masked_argmin_batch(D[:0], alive[:0])
+    assert v.shape == flat.shape == (0,)
+    assert minscan.masked_argmin_batch.launches == launches
+
+
 def check_merge_batch(rng, n, method, cuda, lanes=7):
     """B2's batch merge entry over lockstep merges past every lane's limit:
     against its plain twin (every buffer, bit for bit) and against the
