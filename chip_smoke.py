@@ -138,16 +138,31 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     equal ``cluster_batch`` of the same problems (LW bit for bit, the
     chain as dendrograms); on the kernel engine, the launches of the
     dispatched buckets' plans.
-15. One line ``{"kernels": [...]}`` with each kernel's numbers (the batch
+15. The paper's distributed LW loop (``repro_torch.core.distributed``) on a
+    world-size-1 NCCL group, the card's machine holding one GPU: at the
+    paper's configuration ``distributed_lance_williams`` for ``baseline``,
+    ``rowmin`` and ``lazy``, staged and unstaged, each equal bit for bit
+    to the serial backend's run on the card (whose slots are phase 3's),
+    with its wall, busy time, idle share, host and device ms a merge, the
+    collectives it launched (two a merge, one a stage's seed and one a
+    boundary) and its block at each stage; ``cluster(...,
+    backend="distributed")``; the born-sharded rmsd build of phase 12's
+    conformations against the CPU's; and ``cluster_batch(...,
+    backend="distributed")`` at the bench setting against the serial
+    batch.  It launches no kernel; the group is torn down at the end.
+    ``python3 chip_smoke.py --distributed-full`` runs the full size
+    (n = 16384, staged) alone: the wall, the peak memory and the block's
+    bytes at each stage, the slots the kernel backend's.
+16. One line ``{"kernels": [...]}`` with each kernel's numbers (the batch
     entries beside the others, with their launches in the service's card
     mix), the card's ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counters set to 0 just before it
 and read just after.  Phase 6's profiled chain run (``--profile-chain``),
-phases 10-12 (``--later-phases``), phase 13 (``--batch``) and phase 14
-(``--service``) run in child processes of this script, for the
-profiler's sake (``run_child``).
+phases 10-12 (``--later-phases``), phase 13 (``--batch``), phase 14
+(``--service``) and phase 15 (``--distributed``) run in child processes
+of this script, for the profiler's sake (``run_child``).
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.
 """
@@ -1539,7 +1554,7 @@ def timed_busy(torch, call, what: str, check) -> tuple:
     return res, stats
 
 
-def phase_serial(torch, np, X, paper_X, paper_merges) -> dict:
+def phase_serial(torch, np, X, paper_X, paper_merges) -> tuple:
     """``cluster(X, "centroid")`` with default knobs: the serial LW
     backend, staged, against the same call unstaged (bit for bit) and
     against the kernel backend; then the serial ``rowmin`` and ``lazy``
@@ -1568,6 +1583,7 @@ def phase_serial(torch, np, X, paper_X, paper_merges) -> dict:
     check_lw_run(kernel_stats, "kernel", "baseline", n, "kernel centroid run")
     check_merges(np, res.merges, kernel.merges, f"serial vs kernel backend, centroid n={n}")
     stats["kernel_wall_s"] = kernel_stats["wall_s"]
+    paper_serial = {}
     for variant in ("rowmin", "lazy"):
         r, s = timed(torch, lambda: cluster(paper_X, "complete", algorithm="lw", variant=variant,
                                             keep_inputs=False))
@@ -1576,7 +1592,10 @@ def phase_serial(torch, np, X, paper_X, paper_merges) -> dict:
             raise AssertionError(f"serial {variant} run reported {r.backend}")
         check_merges(np, r.merges, paper_merges, f"serial {variant} vs phase 3, n={PAPER_N}")
         stats[f"paper_{variant}_wall_s"] = s["wall_s"]
-    return stats
+        paper_serial[variant] = r.merges
+    # the cached variants find the serial baseline's candidates exactly: one record
+    check_bit_equal(np, paper_serial["rowmin"], paper_serial["lazy"], "serial rowmin vs lazy")
+    return stats, paper_serial["rowmin"]
 
 
 def phase_lazy(torch, np, X, lw_merges, paper_X, paper_merges) -> dict:
@@ -2247,9 +2266,146 @@ def phase_service(torch, np, spec: dict) -> dict:
     return out
 
 
+def sharded_collectives(stages: int, merges: int) -> int:
+    """The collectives a distributed LW run launches: two a merge (the
+    triples' ``all_gather``, the rows' ``all_reduce``), one ``all_gather``
+    a stage's seed, and one ``reduce_scatter`` a stage boundary."""
+    return 2 * merges + 2 * stages - 1
+
+
+def distributed_run(torch, np, ring, D, variant: str, compaction: bool, want, what: str,
+                    profile: bool = True) -> dict:
+    """One ``distributed_lance_williams`` run of ``D`` (complete) on
+    ``ring``, as phase 15 drives it: :func:`timed`, no kernel launched, the
+    collectives and the rank's block at each stage as the plan says, the
+    merges ``want`` bit for bit (``want`` None: not checked here); then,
+    with ``profile``, the busy time over a second, profiled run, and the
+    host's and the device's ms a merge.  Returns the result and the
+    numbers."""
+    from repro_torch.core import engine
+    from repro_torch.core.distributed import distributed_lance_williams, pad_to_mesh
+
+    def call():
+        return distributed_lance_williams(D, "complete", ring, variant, compaction=compaction)
+
+    res, stats = timed(torch, call)
+    check_launches(stats["launches"], {}, what)
+    n, p = D.shape[0], ring.size
+    n_pad = pad_to_mesh(n, p)
+    plan = engine.plan_stages(n_pad, n - 1, align=p) if compaction else ((n_pad, n - 1),)
+    blocks = tuple((size // p, size) for size, _ in plan)
+    if res.collectives != sharded_collectives(len(plan), n - 1) or res.blocks != blocks:
+        raise AssertionError(f"{what}: {res.collectives} collectives and blocks {res.blocks}, "
+                             f"want {sharded_collectives(len(plan), n - 1)} and {blocks}")
+    if want is not None:
+        check_bit_equal(np, res.merges.cpu().numpy(), want, f"{what} vs the serial backend")
+    if profile:
+        stats.update(device_busy(torch, call, stats["wall_s"], stats["launches"])[1])
+        stats.update(per_step(stats, n - 1, "merge"))
+    keep = ("wall_s", "device_busy_s", "idle_share", "host_ms_per_merge", "device_ms_per_merge",
+            "peak_gib", "profiler_tries")
+    return res, dict({k: stats[k] for k in keep if k in stats}, collectives=res.collectives,
+                     stage_sizes=[size for size, _ in plan],
+                     block_bytes=[rows * cols * 4 for rows, cols in res.blocks],
+                     reshard_bytes=res.reshard_bytes)
+
+
+def phase_distributed(torch, np, spec: dict) -> dict:
+    """Phase 15, in a process of its own: the paper's distributed LW loop on
+    a world-size-1 NCCL group (the card's machine holds one GPU).  At the
+    paper's configuration (after the host's µs to enqueue a merge's two
+    collectives and one small torch op) ``baseline``, ``rowmin`` and ``lazy``, staged and
+    unstaged, each bit for bit phase 7's serial run on the card (whose
+    slots are phase 3's; its ``rowmin`` and ``lazy`` runs are one record,
+    the serial ``baseline``'s), and ``cluster(..., backend="distributed")``;
+    the born-sharded rmsd build against the CPU's; ``cluster_batch`` on the
+    distributed engine at the bench setting against the serial batch.  No
+    kernel is launched; the group is torn down at the end.  The full-size
+    run is ``--distributed-full`` (:func:`distributed_full`): in the smoke
+    it took the phase past its time (~175 s with it)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import build_distance_matrix, cluster, cluster_batch
+    from repro_torch.core.distributed import distributed_pairwise, make_cluster_mesh
+    from repro_torch.data.synthetic import conformations, gaussian_mixture
+
+    ring = make_cluster_mesh()
+    backend = str(dist.get_backend())
+    if (ring.size, backend, ring.device.type) != (1, "nccl", "cuda"):
+        raise AssertionError(f"ring of {ring.size} on {backend}/{ring.device}, want 1 on nccl")
+    out = dict(backend=backend, world_size=ring.size)
+    try:
+        # the host's cost of a merge's two collectives, beside one small torch op's
+        trips, rows = (torch.zeros(3, dtype=torch.float64, device=ring.device),
+                       torch.zeros((2, PAPER_N), device=ring.device))
+        out["host_us"] = dict(all_gather=host_us(torch, lambda: ring.all_gather(trips)),
+                              all_reduce=host_us(torch, lambda: ring.all_reduce(rows)),
+                              torch_add=host_us(torch, lambda: rows + 1))
+        say("phase 15 host us a call: " + json.dumps(out["host_us"]))
+        X = gaussian_mixture(seed=0, n=PAPER_N, dim=DIM, return_labels=False)
+        D = build_distance_matrix(X, "euclidean")
+        serial, paper = spec["paper_serial"], {}
+        for variant in ("baseline", "rowmin", "lazy"):
+            for compaction in (True, False):
+                what = f"distributed {variant} n={PAPER_N}, compaction={compaction}"
+                key = variant if compaction else f"{variant}_unstaged"
+                paper[key] = distributed_run(torch, np, ring, D, variant, compaction, serial,
+                                             what)[1]
+                say(f"phase 15 {what}: " + json.dumps(paper[key]))
+        res, s = timed(torch, lambda: cluster(X, "complete", algorithm="lw",
+                                              backend="distributed", keep_inputs=False))
+        check_launches(s["launches"], {}, "cluster() on the distributed backend")
+        if res.backend != "distributed":
+            raise AssertionError(f"cluster(backend='distributed') reported {res.backend}")
+        check_bit_equal(np, res.merges, serial, "cluster() distributed vs serial")
+        out["paper"] = dict(paper, cluster_wall_s=s["wall_s"])
+        say(f"phase 15 cluster(backend='distributed') n={PAPER_N}: wall_s {s['wall_s']}")
+        del D
+        torch.cuda.empty_cache()
+
+        # the born-sharded rmsd build (the paper's parallel RMSD phase)
+        C, _ = conformations(seed=0, n=RMSD_N, atoms=RMSD_ATOMS)
+        built, s = timed(torch, lambda: distributed_pairwise(C, "rmsd", ring))
+        check_launches(s["launches"], {}, "distributed rmsd build")
+        D_card = built.gather().cpu()
+        D_cpu = build_distance_matrix(C, "rmsd", device="cpu")
+        err = float((D_card - D_cpu).abs().max())
+        if not torch.allclose(D_card, D_cpu, rtol=RTOL, atol=RMSD_ATOL):
+            r, c = divmod(int((D_card - D_cpu).abs().argmax()), RMSD_N)
+            raise AssertionError(f"born-sharded rmsd matrix differs from the CPU's by {err} at "
+                                 f"({r}, {c}): {float(D_card[r, c])} against "
+                                 f"{float(D_cpu[r, c])}")
+        single = build_distance_matrix(C, "rmsd").cpu()
+        out["rmsd"] = dict(build_wall_s=s["wall_s"], max_abs_err_vs_cpu=err,
+                           max_abs_diff_vs_single_device=float((D_card - single).abs().max()))
+        say(f"phase 15 distributed rmsd build n={RMSD_N}: " + json.dumps(out["rmsd"]))
+
+        # the distributed batch engine at the bench setting
+        B, n, d = BATCH_BENCH
+        pts = np.random.default_rng(0).normal(size=(B, n, d))
+        mats = [np.sqrt(((x[:, None] - x[None]) ** 2).sum(-1)).astype(np.float32) for x in pts]
+        def batch(backend):
+            return cluster_batch(mats, "complete", algorithm="lw", backend=backend)
+
+        batch("distributed")            # the first call of a process pays its set-up
+        want, sw = timed(torch, lambda: batch("serial"))
+        got, s = timed(torch, lambda: batch("distributed"))
+        check_launches(s["launches"], {}, "distributed batch")
+        if got.stats.engine != "distributed":
+            raise AssertionError(f"the batch ran on {got.stats.engine}")
+        check_lanes_equal(np, got, [w.merges for w in want], "distributed batch vs serial batch")
+        out["batch"] = dict(wall_s=s["wall_s"], serial_wall_s=sw["wall_s"],
+                            buckets=got.stats.buckets)
+        say(f"phase 15 distributed batch {B} x {n}: " + json.dumps(out["batch"]))
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 LATER_PHASES_FLAG, PROFILE_CHAIN_FLAG = "--later-phases", "--profile-chain"
 BATCH_FLAG = "--batch"
 SERVICE_FLAG = "--service"
+DISTRIBUTED_FLAG = "--distributed"
 
 
 def run_child(torch, flag: str, spec: dict) -> dict:
@@ -2315,7 +2471,8 @@ def phases_10_to_12(torch, np, spec: dict) -> dict:
 
 
 CHILDREN = {LATER_PHASES_FLAG: phases_10_to_12, PROFILE_CHAIN_FLAG: profile_chain,
-            BATCH_FLAG: phase_batch, SERVICE_FLAG: phase_service}
+            BATCH_FLAG: phase_batch, SERVICE_FLAG: phase_service,
+            DISTRIBUTED_FLAG: phase_distributed}
 
 
 def child(flag: str) -> int:
@@ -2334,7 +2491,7 @@ def child(flag: str) -> int:
 
 def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
             serial: dict, lazy: dict, assigned: dict, landmark: dict, rmsd: dict,
-            batch: dict, service: dict) -> str:
+            batch: dict, service: dict, distributed: dict) -> str:
     """The numbers a reader checks first, on one line near the end."""
     def g(x):
         return f"{x:.6g}"
@@ -2411,6 +2568,17 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
                      f"busy_s {g(s['device_busy_s'])} idle {g(s['idle_share'])} warmup "
                      f"{s['warmup_programs']} programs {s['warmup_captures']} graphs, steady "
                      f"{s['steady_builds']}/{s['steady_captures']} peak_gib {g(s['peak_gib'])}")
+    for variant in ("baseline", "rowmin", "lazy"):
+        s, u = distributed["paper"][variant], distributed["paper"][f"{variant}_unstaged"]
+        parts.append(f"distributed {variant} n={PAPER_N} wall_s {g(s['wall_s'])} busy_s "
+                     f"{g(s['device_busy_s'])} idle {g(s['idle_share'])} host/device ms per "
+                     f"merge {g(s['host_ms_per_merge'])}/{g(s['device_ms_per_merge'])} "
+                     f"collectives {s['collectives']}; unstaged wall_s {g(u['wall_s'])} busy_s "
+                     f"{g(u['device_busy_s'])}")
+    parts.append(f"distributed rmsd build wall_s {g(distributed['rmsd']['build_wall_s'])} err "
+                 f"{g(distributed['rmsd']['max_abs_err_vs_cpu'])}; batch wall_s "
+                 f"{g(distributed['batch']['wall_s'])} (serial "
+                 f"{g(distributed['batch']['serial_wall_s'])})")
     return "summary: " + "; ".join(parts)
 
 
@@ -2574,7 +2742,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. the serial LW backend
-    serial = phase_serial(torch, np, X_mid, X_paper, paper_merges)
+    serial, paper_serial = phase_serial(torch, np, X_mid, X_paper, paper_merges)
     say(f"phase 7 serial LW backend n={MID_N} centroid: " + json.dumps(serial))
     torch.cuda.empty_cache()
 
@@ -2594,16 +2762,58 @@ def main() -> int:
     del paper_chain, points_res
     batch = run_child(torch, BATCH_FLAG, {})
     service = run_child(torch, SERVICE_FLAG, {})
+    distributed = run_child(torch, DISTRIBUTED_FLAG, dict(paper_serial=paper_serial))
 
-    # 15. inventory, card, result
+    # 16. inventory, card, result
     inventory = kernel_inventory(kernels, full, lazy, points, assigned, batch, service)
     print(summary(kernels, paper, full, dense, points, serial, lazy, assigned, landmark, rmsd,
-                  batch, service))
+                  batch, service, distributed))
     print(json.dumps({"kernels": inventory}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+DISTRIBUTED_FULL_FLAG = "--distributed-full"
+
+
+def distributed_full() -> int:
+    """``python3 chip_smoke.py --distributed-full``: phase 15's full-size run,
+    out of the smoke for its time: the distributed ``baseline`` at n = 16384
+    (phase 4's points), staged, on a world-size-1 NCCL group, against the
+    slots of phase 4's kernel-backend run.  Prints the card's line and one
+    JSON line: the wall, the peak memory, the collectives and the rank's
+    block bytes at each stage."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import torch.distributed as dist
+
+    from repro_torch.core import build_distance_matrix, cluster
+    from repro_torch.core.distributed import make_cluster_mesh
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    X = gaussian_mixture(seed=0, n=FULL_N, dim=DIM, return_labels=False)
+    want = cluster(X, "complete", algorithm="lw", backend="kernel", keep_inputs=False).merges
+    torch.cuda.empty_cache()
+    ring = make_cluster_mesh()
+    try:
+        D = build_distance_matrix(X, "euclidean")
+        res, full = distributed_run(torch, np, ring, D, "baseline", True, None,
+                                    f"distributed baseline n={FULL_N}", profile=False)
+        check_merges(np, res.merges.cpu().numpy(), want,
+                     f"distributed n={FULL_N} vs the kernel backend")
+    finally:
+        dist.destroy_process_group()
+    print(gpu_line())
+    print(json.dumps(dict(n=FULL_N, **full)))
     return 0
 
 
@@ -2909,4 +3119,6 @@ if __name__ == "__main__":
         sys.exit(single_kernel_times((sys.argv[2:3] or [None])[0]))
     if sys.argv[1:2] == [BATCH_TIMES_FLAG]:
         sys.exit(batch_kernel_times((sys.argv[2:3] or [None])[0]))
+    if sys.argv[1:2] == [DISTRIBUTED_FULL_FLAG]:
+        sys.exit(distributed_full())
     sys.exit(child(sys.argv[1]) if sys.argv[1:2] and sys.argv[1] in CHILDREN else main())

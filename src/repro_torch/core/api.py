@@ -3,13 +3,16 @@
 Counterpart of :mod:`repro.core.api`, for the parts this port runs: the
 NN-chain engine (dense, and matrix-free on points) behind the default
 knobs, the Lance-Williams merge loop on the serial and kernel backends,
-the landmark tier, and :func:`cluster_batch` for many small problems at
-once (shape buckets on the serial and kernel backends).
+the landmark tier, the paper's distributed LW loop over the ranks of a
+``torch.distributed`` group (``backend="distributed"``), and
+:func:`cluster_batch` for many small problems at once (shape buckets on
+the serial and kernel backends, or whole problems dealt to the ranks).
 ``cluster(...)`` takes raw ``(n, d)`` points, ``(n, atoms, 3)``
 conformations (``metric="rmsd"``) or a pre-built ``(n, n)`` distance
 matrix, resolves ``algorithm``/``backend``/``matrix_free`` and the
-landmark knobs as the JAX package's ``cluster`` does on one device, and
-returns a :class:`ClusterResult`.  The knobs are documented once, in
+landmark knobs as the JAX package's ``cluster`` does (its device count
+read as the default process group's world size), and returns a
+:class:`ClusterResult`.  The knobs are documented once, in
 :func:`repro.core.api.cluster`.
 """
 
@@ -21,10 +24,12 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import dendrogram as dg
-from repro_torch.core.batched import BatchStats, bucket_n, cluster_batch_merges
+from repro_torch.core.batched import BatchStats, batch_ring, bucket_n, cluster_batch_merges
 from repro_torch.core.distance import pairwise_euclidean, pairwise_rmsd, pairwise_sq_euclidean
+from repro_torch.core.distributed import distributed_lance_williams, require_ring_mesh
 from repro_torch.core.engine import resolve_device, symmetrize
 from repro_torch.core.linkage import METHODS, default_metric
 from repro_torch.core.nnchain import (
@@ -36,14 +41,17 @@ from repro_torch.core.nnchain import (
     resolve_matrix_free,
 )
 
-#: Engines and backends of the JAX package that this port does not run yet,
-#: with the ROADMAP.md item that ports each.
+#: Engines of the JAX package that this port does not run yet, with the
+#: ROADMAP.md item that ports each.
 _NOT_PORTED_ALGORITHMS = {
-    "twophase": "A7 (distributed)",
+    "twophase": "A7.3 (the two-phase tier)",
 }
-_NOT_PORTED_BACKENDS = {
-    "distributed": "A7 (distributed)",
-}
+
+
+def _group_size() -> int:
+    """World size of the default process group, 1 when none is up: the
+    port's count of devices for ``backend="auto"``."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 @dataclass
@@ -212,14 +220,17 @@ def cluster(
     n_landmarks: int | None = None,
     seed: int = 0,
     refine: int = 0,
+    mesh=None,
     device=None,
 ) -> ClusterResult:
     """Hierarchically cluster *data*.
 
     ``data`` is an ``(n, n)`` distance matrix when square and ``metric is
     None``, else ``(n, d)`` points embedded via ``metric``.  The knobs
-    resolve as in :func:`repro.core.api.cluster` on one device:
-    ``backend="auto"`` is ``"serial"``, and ``algorithm="auto"`` runs the
+    resolve as in :func:`repro.core.api.cluster`: ``backend="auto"`` is
+    ``"distributed"`` when a default process group of more than one rank
+    is up (for the LW loop: an explicit ``algorithm="nnchain"`` or
+    ``"landmark"`` keeps ``"serial"``), else ``"serial"``; ``algorithm="auto"`` runs the
     NN-chain engine for reducible methods at ``n ≥ 256`` with default
     engine knobs, matrix-free (no ``(n, n)`` tensor) under
     ``matrix_free="auto"`` for ``(n, d)`` points of
@@ -227,8 +238,14 @@ def cluster(
     ``n ≥ 4096``.  The chain runs the full agglomeration; ``stop_at_k``
     and ``distance_threshold`` cut its canonical merge list afterwards.
     Otherwise the LW merge loop runs: in plain torch on the serial
-    backend, on the CUDA kernels on ``backend="kernel"``, each with every
-    ``variant``, ``stop_at_k``, ``distance_threshold`` and ``compaction``.
+    backend, on the CUDA kernels on ``backend="kernel"``, or row-sharded
+    over the ranks of ``mesh`` (:func:`repro_torch.core.distributed.require_ring_mesh`;
+    the default group's ring when ``None``, its device the ring's) on
+    ``backend="distributed"``
+    (:func:`repro_torch.core.distributed.distributed_lance_williams`: every
+    rank calls ``cluster`` with the same arguments and gets the serial
+    backend's merges), each with every ``variant``, ``stop_at_k``,
+    ``distance_threshold`` and ``compaction``.
     ``compaction`` (LW only) is the JAX package's stage schedule: pack the
     live rows into a half-size matrix each time the live count halves,
     merges unchanged bit for bit.  ``"auto"`` (the default), ``True`` and
@@ -243,7 +260,8 @@ def cluster(
     conformations, with ``n_landmarks``, ``seed`` and ``refine``; an
     explicit ``n_landmarks`` or ``refine`` makes ``"auto"`` mean it and
     contradicts any other explicit engine.  Engines not ported yet (the
-    distributed backend, the two-phase engine) raise
+    sharded matrix-free chain, ``backend="distributed"`` with
+    ``algorithm="nnchain"``, and the two-phase engine) raise
     ``NotImplementedError`` naming the ROADMAP.md item that ports them.
     ``device`` defaults to CUDA and raises without it; ``device="cpu"``
     runs the plain torch versions of the kernels.
@@ -255,6 +273,10 @@ def cluster(
 
     if method not in METHODS:
         raise ValueError(f"unknown linkage method {method!r}")
+    ring = None
+    if mesh is not None:
+        ring = require_ring_mesh(mesh, device)
+        device = ring.device
     dev = resolve_device(device)
     D, points, used_metric = _interpret_input(data, method, metric, is_distance)
     n = int((D if points is None else points).shape[0])
@@ -293,18 +315,32 @@ def cluster(
             f"algorithm={algorithm!r} is not ported yet: ROADMAP.md "
             f"{_NOT_PORTED_ALGORITHMS[algorithm]}"
         )
-    if backend in _NOT_PORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend={backend!r} is not ported yet: ROADMAP.md "
-            f"{_NOT_PORTED_BACKENDS[backend]}"
-        )
-    if backend not in ("auto", "serial", "kernel"):
+    if backend not in ("auto", "serial", "distributed", "kernel"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "auto":
-        backend = "serial"        # one device, as the JAX package resolves it
+        # an explicit nnchain request owns the backend choice: its default
+        # composition is the serial chain
+        backend = "distributed" if algorithm != "nnchain" and _group_size() > 1 else "serial"
     algorithm = resolve_algorithm(algorithm, method=method, backend=backend, n=n,
                                   variant=variant, compaction=compaction)
 
+    if algorithm == "nnchain" and backend == "distributed":
+        points_capable = (points is not None and points.ndim == 2
+                          and method in POINTS_METHODS and used_metric == "sqeuclidean")
+        if matrix_free is False or not points_capable:
+            raise ValueError(
+                "backend='distributed' with algorithm='nnchain' is the sharded "
+                "matrix-free chain: it needs (n, d) points input, a method from "
+                f"{POINTS_METHODS} under the squared-Euclidean convention, and "
+                f"matrix_free left on (got method={method!r}, metric={used_metric!r}, "
+                f"matrix_free={matrix_free!r}, input shape "
+                f"{None if points is None else points.shape}) — use algorithm='lw' for "
+                "the dense row-sharded engine"
+            )
+        raise NotImplementedError(
+            "backend='distributed' with algorithm='nnchain' (the sharded matrix-free "
+            "chain) is not ported yet: ROADMAP.md A7.2"
+        )
     if algorithm == "nnchain":
         use_points = resolve_matrix_free(
             matrix_free, points_shape=None if points is None else points.shape,
@@ -329,11 +365,14 @@ def cluster(
     else:
         if points is not None:
             D = build_distance_matrix(points, used_metric, device=dev)
-        run_lw = lance_williams if backend == "serial" else lance_williams_kernelized
-        res = run_lw(
-            D, method=method, variant=variant, stop_at_k=stop_at_k,
-            distance_threshold=distance_threshold, compaction=compaction, device=dev,
-        )
+        stops = dict(stop_at_k=stop_at_k, distance_threshold=distance_threshold,
+                     compaction=compaction)
+        if backend == "distributed":
+            res = distributed_lance_williams(D, method, ring or require_ring_mesh(None, dev),
+                                             variant, **stops)
+        else:
+            run_lw = lance_williams if backend == "serial" else lance_williams_kernelized
+            res = run_lw(D, method=method, variant=variant, device=dev, **stops)
         merges = res.merges[: res.n_merges].cpu().numpy()
     return ClusterResult(
         merges=merges,
@@ -425,35 +464,44 @@ def cluster_batch(
     distance_threshold: float | None = None,
     compaction: bool | str = "auto",
     keep_inputs: bool = False,
+    mesh=None,
     device=None,
 ) -> BatchResult:
     """Cluster many independent problems, one batched engine call a shape
     bucket (:func:`repro_torch.core.batched.cluster_batch_merges`).
 
     Each problem is read as :func:`cluster` reads its ``data``; sizes may
-    be ragged.  The knobs resolve as in :func:`repro.core.api.cluster_batch`
-    on one device: ``backend="auto"`` is ``"serial"`` (plain torch over
-    each bucket) and ``"kernel"`` runs the batch-grid CUDA kernels;
+    be ragged.  The knobs resolve as in :func:`repro.core.api.cluster_batch`:
+    ``backend="auto"`` is ``"distributed"`` when a default process group of
+    more than one rank is up (unless ``algorithm="nnchain"``), else
+    ``"serial"`` (plain torch over each bucket); ``"kernel"`` runs the
+    batch-grid CUDA kernels; ``"distributed"`` deals each bucket's whole
+    problems to the ranks of ``mesh`` (the default group's ring when
+    ``None``, its device the ring's), each rank running the serial engine
+    on its share, and one ``all_gather`` a bucket gives every rank every
+    result;
     ``algorithm="auto"`` keeps dense buckets on the LW loop and sends
     matrix-free buckets (``(n, d)`` points under the squared-Euclidean
     convention: ward, or average/weighted with ``metric="sqeuclidean"``)
     of at least :data:`~repro_torch.core.nnchain.NNCHAIN_BATCH_AUTO_MIN_N`
     to the batched NN chain, whose lists come back height-sorted.  On the
     LW loop every problem's merges equal ``cluster(problems[b], method,
-    algorithm="lw", backend=<the same>, ...)`` bit for bit.  The
-    distributed backend is not ported yet (ROADMAP.md A7).  ``device``
-    defaults to CUDA; ``device="cpu"`` runs the kernels' plain versions.
+    algorithm="lw", backend=<the same>, ...)`` bit for bit (the serial
+    backend's for ``"distributed"``).  ``device`` defaults to CUDA;
+    ``device="cpu"`` runs the kernels' plain versions.
     """
     if method not in METHODS:
         raise ValueError(f"unknown linkage method {method!r}")
     if backend == "auto":
-        backend = "serial"        # one device, as the JAX package resolves it
-    if backend in _NOT_PORTED_BACKENDS:
-        raise NotImplementedError(
-            f"backend={backend!r} is not ported yet: ROADMAP.md {_NOT_PORTED_BACKENDS[backend]}"
-        )
-    if backend not in ("serial", "kernel"):
+        # an explicit nnchain request owns the backend choice (it is a
+        # single-device engine), as in cluster()
+        backend = "distributed" if algorithm != "nnchain" and _group_size() > 1 else "serial"
+    if backend not in ("serial", "distributed", "kernel"):
         raise ValueError(f"unknown backend {backend!r}")
+    ring = None
+    if backend == "distributed":
+        ring = batch_ring(mesh, device)
+        device = ring.device
     dev = resolve_device(device)
 
     interps = [_interpret_input(data, method, metric, is_distance) for data in problems]
@@ -481,7 +529,7 @@ def cluster_batch(
     merge_lists, stats = cluster_batch_merges(
         matrices, method, engine=backend, variant=variant, stop_at_k=stop_at_k,
         distance_threshold=distance_threshold, compaction=compaction, algorithm=algorithm,
-        points=points_list, device=dev,
+        points=points_list, mesh=ring, device=dev,
     )
     results = [
         ClusterResult(

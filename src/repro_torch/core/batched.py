@@ -21,22 +21,28 @@ run the **batched NN chain** (``algorithm="nnchain"``, or ``"auto"`` for
 matrix-free points buckets of
 :data:`repro_torch.core.nnchain.NNCHAIN_BATCH_AUTO_MIN_N` or more); its
 merges come back canonicalized (height-sorted), early stop applied after
-the fact.  The JAX package's distributed engine (whole problems sharded
-over a mesh) is not ported yet: ``engine="distributed"`` raises
-``NotImplementedError`` (ROADMAP.md A7).
+the fact.
+
+* **distributed** — whole problems dealt to the ranks of a
+  ``torch.distributed`` ring (:mod:`repro_torch.core.distributed`): a
+  bucket's problem count is padded to a multiple of ``p``, rank ``r`` runs
+  the serial engine on its ``B / p`` consecutive problems, and one
+  ``all_gather`` of the bucket's records gives every rank every problem's
+  merges.  No collective runs inside the loop.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from repro_torch.core import dendrogram as dg
 from repro_torch.core.batch_engine import KernelBatchLoop, run_dense_batch
+from repro_torch.core.distributed import flatten_mesh, require_ring_mesh
 from repro_torch.core.engine import VARIANTS, resolve_compaction, resolve_device, symmetrize
 from repro_torch.core.linkage import METHODS
 from repro_torch.core.nnchain import (
@@ -321,6 +327,24 @@ class BucketProgram:
             return self.execute(distance_threshold)
 
 
+def batch_ring(mesh, device):
+    """The ring the distributed batch engine deals problems over: the
+    default group's when ``mesh`` is ``None``; a mesh of any shape is
+    flattened, as the JAX package flattens a multi-axis mesh here (whole
+    problems go to ranks, so the ranks' order matters to no result)."""
+    return require_ring_mesh(None if mesh is None else flatten_mesh(mesh, device), device)
+
+
+def _gather_lanes(ring, merges: torch.Tensor, n_merges: torch.Tensor):
+    """Every rank's ``(B / p, n_steps, 4)`` records and ``(B / p,)`` counts,
+    in rank order, through one ``all_gather``: each lane's count rides as
+    one more row of its record (a float32 holds every count below 2^24)."""
+    B, steps = merges.shape[:2]
+    rows = torch.cat((merges, n_merges.to(merges)[:, None, None].expand(B, 1, 4)), dim=1)
+    every = ring.all_gather(rows)
+    return every[:, :steps], every[:, steps, 0].to(torch.int64)
+
+
 def _on(dev: torch.device):
     """The device context of a program's work: ``dev`` made current on the
     calling thread (a service runs programs on its worker threads)."""
@@ -338,6 +362,7 @@ def cluster_batch_merges(
     compaction: bool | str = "auto",
     algorithm: str = "auto",
     points: list | None = None,
+    mesh=None,
     device=None,
 ) -> tuple[list[np.ndarray], BatchStats]:
     """Cluster many independent ``(n_b, n_b)`` distance matrices at once,
@@ -352,7 +377,9 @@ def cluster_batch_merges(
     (aligned with them) marks matrix-free capable problems, whose matrix
     may then be ``None``.  ``algorithm`` routes each bucket through
     :func:`repro_torch.core.nnchain.resolve_batch_algorithm`; NN-chain
-    lists come back canonicalized.
+    lists come back canonicalized.  ``engine="distributed"`` runs on the
+    ranks of ``mesh`` (:func:`batch_ring`), every rank called with the same
+    arguments, and equals the serial engine bit for bit.
     """
     if method not in METHODS:
         raise ValueError(f"unknown linkage method {method!r}")
@@ -368,8 +395,10 @@ def cluster_batch_merges(
                                 variant=variant, compaction=compaction)
     elif algorithm not in ("auto", "lw"):
         raise ValueError(f"algorithm must be 'auto', 'lw' or 'nnchain', got {algorithm!r}")
+    ring = None
     if engine == "distributed":
-        raise NotImplementedError("engine='distributed' is not ported yet: ROADMAP.md A7")
+        ring = batch_ring(mesh, device)
+        device = ring.device
     dev = resolve_device(device)
     matrices = list(matrices)
     pts = ([None] * len(matrices) if points is None
@@ -420,7 +449,8 @@ def cluster_batch_merges(
         sig = bucket_signature(
             n_pad, len(idxs), method=method, engine=engine, variant=variant,
             stop_at_k=stop_at_k, with_threshold=distance_threshold is not None,
-            compaction=compaction, algorithm=algorithm, points_dim=pdim,
+            b_multiple=1 if ring is None else ring.size, compaction=compaction,
+            algorithm=algorithm, points_dim=pdim,
         )
         algo_log.append((n_pad, sig.algorithm))
         B_pad = sig.bucket_B
@@ -429,9 +459,14 @@ def cluster_batch_merges(
         cells_padded += B_pad * n_pad * width
         cells_real += sum(sizes[i] * (pdim or sizes[i]) for i in idxs)
 
-        prog = BucketProgram(sig, dev)
-        merges, n_merges = prog.run([pts[i] if pdim else matrices[i] for i in idxs],
-                                    distance_threshold)
+        problems = [pts[i] if pdim else matrices[i] for i in idxs]
+        if ring is None:
+            merges, n_merges = BucketProgram(sig, dev).run(problems, distance_threshold)
+        else:       # this rank's share of the bucket on the serial engine
+            share = B_pad // ring.size
+            mine = problems[ring.rank * share:(ring.rank + 1) * share]
+            prog = BucketProgram(replace(sig, engine="serial", bucket_B=share), dev)
+            merges, n_merges = _gather_lanes(ring, *prog.run(mine, distance_threshold))
         merges, n_merges = merges.cpu().numpy(), n_merges.cpu().numpy()
         for slot, idx in enumerate(idxs):
             nr = sizes[idx]

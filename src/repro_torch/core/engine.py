@@ -3,7 +3,8 @@
 Counterpart of :mod:`repro.core.engine`: find the global minimum, apply
 the recurrence, tombstone the absorbed slot, record the merge — once per
 merge.  The step is assembled from primitives (:class:`StepOps`); two
-compositions of them run the loop on one device:
+compositions of them run the loop on one device, and a third over the
+ranks of a ``torch.distributed`` group:
 
 * **serial** (:func:`dense_ops`, :func:`run_dense`): plain torch over the
   *premasked* matrix.  Dead rows, dead columns and the diagonal hold
@@ -20,6 +21,12 @@ compositions of them run the loop on one device:
   row-update kernel's merge entry a merge (the update with the caches'
   invalidation, then the rescan of the stale rows) on device-resident
   buffers; on the CPU the host-driven loop, one row update a merge.
+* **distributed** (:func:`sharded_ops`, :func:`run_sharded`): the serial
+  primitives over each rank's block of consecutive rows, with one
+  ``all_gather`` of the ranks' candidates and one owner-contributes
+  ``all_reduce`` of rows ``i`` and ``j`` a merge, a stage boundary
+  re-sharded by one ``reduce_scatter`` (:func:`compact_sharded`): the
+  paper's algorithm, whose merges are the serial backend's bit for bit.
 
 The argmin ``variant`` picks the candidate search: a full row-min every
 merge (``baseline``), or per-row ``(min, first argmin)`` caches that the
@@ -253,14 +260,16 @@ def symmetrize(D: torch.Tensor) -> torch.Tensor:
     return torch.where(eye, 0.0, 0.5 * (full_sym + full_sym.transpose(-2, -1)))
 
 
-def premask(D: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+def premask(D: torch.Tensor, alive: torch.Tensor, offset: int = 0) -> torch.Tensor:
     """Apply the liveness/diagonal mask once, up front, in place: dead rows,
     dead columns and the diagonal of ``D`` (``(..., n, n)``, with ``alive``
     ``(..., n)``) become ``+inf`` (the serial backend's premasked
-    representation)."""
-    D.diagonal(dim1=-2, dim2=-1).fill_(_INF)
+    representation).  ``D`` may be a block of rows ``[offset, offset +
+    rows)`` of the matrix (a rank's block, ``(rows, n)``)."""
+    D.diagonal(offset, dim1=-2, dim2=-1).fill_(_INF)
     dead = ~alive
-    return D.masked_fill_(dead[..., :, None], _INF).masked_fill_(dead[..., None, :], _INF)
+    dead_rows = dead[..., offset:offset + D.shape[-2]]
+    return D.masked_fill_(dead_rows[..., :, None], _INF).masked_fill_(dead[..., None, :], _INF)
 
 
 def resolve_n_steps(n: int, stop_at_k: int) -> int:
@@ -463,26 +472,30 @@ def _first_where(mask: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
 
 
 def _row_major_first_min(D: torch.Tensor, ks: torch.Tensor):
-    """``(r, c, min)`` of a premasked matrix with ``jnp.argmin``'s row-major
-    first-minimum tie-breaking, from a row-min pass and two index searches."""
+    """``(r, c, min)`` of a premasked matrix (or block of rows, ``r`` then
+    counted from the block's first row) with ``jnp.argmin``'s row-major
+    first-minimum tie-breaking, from a row-min pass and two index searches.
+    ``ks`` is ``arange`` over the columns."""
     rowmin = D.amin(dim=1)
     m = rowmin.amin()
-    r = _first_where(rowmin == m, ks)
+    r = _first_where(rowmin == m, ks[: D.shape[0]])
     c = _first_where(D.index_select(0, r.reshape(1))[0] == m, ks)
     return r, c, m
 
 
 def _masked_row_mins(D: torch.Tensor, alive: torch.Tensor, rows: torch.Tensor,
-                     ks: torch.Tensor):
+                     ks: torch.Tensor, offset: int = 0):
     """Per-row ``(min, first-column argmin)`` of ``rows`` of the masked view
     of ``D`` (dead rows, dead columns and the diagonal at ``+inf``; a fully
     masked row gives ``(inf, 0)``), gathered :data:`RESCAN_ROWS` at a time.
-    The mask is a no-op on a premasked matrix."""
+    The mask is a no-op on a premasked matrix.  ``D`` may be a block of
+    rows starting at matrix row ``offset`` (``rows`` index the block)."""
     n = ks.numel()
     rmins, rargs = [], []
     for part in rows.split(RESCAN_ROWS):
-        valid = (alive[None, :] & (ks[None, :] != part[:, None])
-                 & alive.index_select(0, part)[:, None])
+        ids = part + offset if offset else part
+        valid = (alive[None, :] & (ks[None, :] != ids[:, None])
+                 & alive.index_select(0, ids)[:, None])
         sub = torch.where(valid, D.index_select(0, part), _INF)
         rm = sub.amin(dim=1)
         rmins.append(rm)
@@ -518,12 +531,13 @@ def _cache_invalidate(cache: tuple, ij: torch.Tensor, col: torch.Tensor,
     return rmin, rarg, stale
 
 
-def _drain_cache(D, alive, rmin, rarg, stale, ks):
-    """Rescan the stale rows against ``D``, all in one gather.  Reading
-    which rows they are is the one read-back of a merge."""
+def _drain_cache(D, alive, rmin, rarg, stale, ks, offset: int = 0):
+    """Rescan the stale rows against ``D`` (a block of rows from ``offset``),
+    all in one gather.  Reading which rows they are is the one read-back of
+    a merge."""
     rows = stale.nonzero().squeeze(1)
     if rows.numel():
-        rm, ra = _masked_row_mins(D, alive, rows, ks)
+        rm, ra = _masked_row_mins(D, alive, rows, ks, offset)
         rmin, rarg = rmin.index_copy(0, rows, rm), rarg.index_copy(0, rows, ra)
     return rmin, rarg
 
@@ -603,6 +617,173 @@ def run_dense(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_steps: int
         compact=lambda s, remap, size: compact_dense(s.D, s.alive, s.sizes, remap, size),
     )
     return LWResult(merges=out.merges, n_merges=out.n_merges)
+
+
+# ---------------------------------------------------------------------------
+# distributed backend: the serial primitives over a rank's block of rows
+# ---------------------------------------------------------------------------
+
+
+class ShardedLWResult(NamedTuple):
+    """The distributed backend's :class:`LWResult`, replicated on every rank
+    (``merges`` and ``n_merges`` first, so it passes for one), with what the
+    run held on this rank: its block's ``(rows, columns)`` at the start and
+    after each stage boundary it reached, the bytes of its largest boundary
+    contribution buffer, and the collectives the run launched."""
+
+    merges: torch.Tensor
+    n_merges: int
+    blocks: tuple[tuple[int, int], ...] = ()
+    reshard_bytes: int = 0
+    collectives: int = 0
+
+
+def sharded_ops(method: str, size: int, variant: str, ring) -> StepOps:
+    """The paper's collective primitives (its section 5.3) over this rank's
+    block of ``size / p`` consecutive rows of the premasked ``(size, size)``
+    matrix: the serial step (:func:`dense_ops`) with two collectives a merge
+    on ``ring`` (:class:`repro_torch.core.distributed.Ring`).
+
+    * Candidate: the block's row-major first minimum (``baseline``) or the
+      first least of the block's cached row minima (``rowmin``, ``lazy``),
+      then one ``all_gather`` of the ranks' ``(min, row, column)`` triples
+      as float64, which carries the float32 minimum and the indices
+      exactly; every rank takes the first rank with the least value.
+      Ranks hold consecutive rows, so that is the matrix's row-major first
+      minimum: the serial backend's candidate.
+    * Fetch: one owner-contributes ``all_reduce`` (sum) of rows ``i`` and
+      ``j``: the owner sends the row, every other rank zeros, and ``x + 0``
+      is exact, so the rows arrive bit for bit.
+    * Write: each rank writes its slice of column ``i`` and tombstones
+      column ``j``; the owners rewrite row ``i`` and tombstone row ``j``.
+
+    The recurrence runs on the replicated rows and sizes, so every value,
+    and every merge, equals the serial backend's bit for bit.  ``baseline``
+    reads nothing back a merge; the cached variants read back their stale
+    rows, as the serial ones do.
+    """
+    p, dev = ring.size, ring.device
+    rows = size // p
+    offset = ring.rank * rows
+    ks = torch.arange(size, device=dev)
+    block_ks = ks[:rows]
+    merged = [None]
+
+    def elect(r, c, m):
+        trips = ring.all_gather(torch.stack((m.double(), (r + offset).double(), c.double())))
+        w = trips[0::3].argmin()                 # the first rank with the least value
+        t = trips.view(p, 3).index_select(0, w.reshape(1))[0]
+        return t[1].to(torch.int64), t[2].to(torch.int64), t[0].to(torch.float32)
+
+    def owned(ij):
+        """Whether this rank owns rows ``i`` and ``j``, and their rows in the
+        block (another row of the block where it does not), worked out once
+        a merge: ``fetch`` and ``write`` get the same ``ij``."""
+        if merged[0] is None or merged[0][0] is not ij:
+            li = ij % rows
+            merged[0] = (ij, (ij - li) == offset, li)
+        return merged[0][1:]
+
+    def fetch(s: LWState, ij):
+        mine, li = owned(ij)
+        both = torch.where(mine[:, None], s.D.index_select(0, li), 0.0)
+        ring.all_reduce(both)
+        return both[0], both[1]
+
+    def update(d_ki, d_kj, d_ij, n_i, n_j, sizes, keep):
+        return torch.where(keep, update_row(method, d_ki, d_kj, d_ij, n_i, n_j, sizes), _INF)
+
+    def write(s: LWState, ij, new):
+        mine, li = owned(ij)
+        D = s.D
+        row_i = torch.where(mine[0], new, D.index_select(0, li[:1])[0])
+        D.index_copy_(0, li[:1], row_i[None, :]).index_copy_(1, ij[:1], new[offset:offset + rows, None])
+        row_j = D.index_select(0, li[1:]).masked_fill_(mine[1], _INF)
+        return D.index_copy_(0, li[1:], row_j).index_fill_(1, ij[1:], _INF)
+
+    if variant == "baseline":
+
+        def seed(s: LWState) -> LWState:
+            return s._replace(cand=elect(*_row_major_first_min(s.D, ks)))
+
+        def refresh(s: LWState, ij, new, keep) -> LWState:
+            return seed(s)
+
+    elif variant in ("rowmin", "lazy"):
+
+        def cached(s: LWState, rmin, rarg) -> LWState:
+            alive = s.alive[offset:offset + rows]
+            return s._replace(cache=(rmin, rarg),
+                              cand=elect(*_cached_cand(alive, rmin, rarg, block_ks)))
+
+        def seed(s: LWState) -> LWState:
+            return cached(s, *_masked_row_mins(s.D, s.alive, block_ks, ks, offset))
+
+        def refresh(s: LWState, ij, new, keep) -> LWState:
+            col = torch.where(keep, new, _INF)[offset:offset + rows]
+            rmin, rarg, stale = _cache_invalidate(s.cache, ij, col, ks[offset:offset + rows],
+                                                  s.alive[offset:offset + rows])
+            return cached(s, *_drain_cache(s.D, s.alive, rmin, rarg, stale, ks, offset))
+
+    else:
+        raise ValueError(f"unknown variant {variant!r}; pick from {VARIANTS}")
+    return StepOps(seed=seed, fetch=fetch, update=update, write=write, refresh=refresh)
+
+
+def compact_sharded(ring, blocks: list, reshard: list) -> Callable:
+    """The distributed backend's stage gather, ``compact(state, remap,
+    half)``: every rank computes the replicated live permutation, and
+    contributes, for each of the ``half`` new rows, the old row it owns
+    (zeros where it owns none); one ``reduce_scatter`` (sum) sums the
+    contributions and hands each rank its new ``(half / p, size)`` block;
+    the column gather and the mask are local.  A rank then holds
+    ``half² / p`` cells.  Appends each new block's shape to ``blocks`` and
+    the contribution buffer's bytes to ``reshard``."""
+
+    def compact(s: LWState, remap: torch.Tensor, half: int):
+        rows = s.D.shape[0]
+        offset = ring.rank * rows
+        live, perm = _live_perm(s.alive, half)
+        mine = (perm >= offset) & (perm < offset + rows) & live
+        contrib = s.D.index_select(0, (perm - offset).clamp(0, rows - 1))
+        contrib.masked_fill_(~mine[:, None], 0.0)
+        reshard.append(contrib.numel() * contrib.element_size())
+        block = ring.reduce_scatter(contrib)
+        del contrib
+        Dn = premask(block.index_select(1, perm), live, ring.rank * (half // ring.size))
+        blocks.append(tuple(Dn.shape))
+        return (Dn, live, torch.where(live, s.sizes.index_select(0, perm), 0.0),
+                remap.index_select(0, perm))
+
+    return compact
+
+
+def run_sharded(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_steps: int, ring,
+                variant: str = "baseline", distance_threshold: float | None = None,
+                compaction: bool = False) -> ShardedLWResult:
+    """The merge loop over the collective primitives (:func:`sharded_ops`),
+    SPMD: every rank calls it with its block ``D`` of ``(n / p, n)`` rows of
+    the symmetric matrix (premasked and updated in place) and the same
+    replicated ``alive``.  With ``compaction`` the run follows
+    :func:`plan_stages` with stage sizes multiples of ``p``, each boundary a
+    :func:`compact_sharded` re-shard; every rank reads the same merge
+    record, so a ``distance_threshold`` stops every rank at the same merge
+    and the collectives stay aligned."""
+    n, p = D.shape[-1], ring.size
+    if D.shape[0] * p != n:
+        raise ValueError(f"a block of {D.shape[0]} rows on {p} ranks does not tile {n} rows")
+    start = ring.collectives
+    blocks, reshard = [tuple(D.shape)], []
+    out = staged_merge_loop(
+        plan_stages(n, n_steps, align=p) if compaction else ((n, n_steps),),
+        _init_state(premask(D, alive, ring.rank * D.shape[0]), alive, n_steps),
+        torch.arange(n, device=D.device), distance_threshold,
+        ops_for=lambda size: sharded_ops(method, size, variant, ring),
+        compact=compact_sharded(ring, blocks, reshard),
+    )
+    return ShardedLWResult(merges=out.merges, n_merges=out.n_merges, blocks=tuple(blocks),
+                           reshard_bytes=max(reshard, default=0),
+                           collectives=ring.collectives - start)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""repro_torch.distributed — fault simulation and bounded retry (the
-sharding rules and collectives come with ROADMAP.md A7)."""
+"""repro_torch.distributed — the sharding rules of the clustering engines'
+data, and the fault simulation and bounded retry of the service (the
+restartable step loop comes with ROADMAP.md A7.2)."""
 
 from repro_torch.distributed.fault import (
     FailurePlan,
@@ -8,5 +9,7 @@ from repro_torch.distributed.fault import (
     StepDeadline,
     retry_call,
 )
+from repro_torch.distributed.sharding import replicate, shard_rows
 
-__all__ = ["FailurePlan", "RetryPolicy", "SimulatedFailure", "StepDeadline", "retry_call"]
+__all__ = ["FailurePlan", "RetryPolicy", "SimulatedFailure", "StepDeadline", "replicate",
+           "retry_call", "shard_rows"]

@@ -6,8 +6,8 @@ here because the port imports nothing of the JAX package.  The failure
 signal of a real deployment comes from the runtime (a failed launch, a
 lost device); here it is *simulated*, so the recovery machinery (deadline
 flagging, bounded retry) is real code under test.  The restartable step
-loop (``run_resilient_loop``) comes with the distributed engines
-(ROADMAP.md A7).
+loop (``run_resilient_loop``) comes with A7.2, the sharded matrix-free
+chain (ROADMAP.md).
 
 Every fault event also lands on the process-global metrics registry
 (``fault_injected_failures_total`` / ``fault_deadline_exceeded_total`` /

@@ -194,10 +194,6 @@ class ServiceConfig:
     def __post_init__(self) -> None:
         if self.method not in METHODS:
             raise ValueError(f"unknown linkage method {self.method!r}")
-        if self.engine == "distributed":
-            raise NotImplementedError(
-                "engine='distributed' is not ported yet: ROADMAP.md A7"
-            )
         if self.engine not in CACHEABLE_ENGINES:
             raise ValueError(
                 f"service engine must be one of {CACHEABLE_ENGINES}, got "

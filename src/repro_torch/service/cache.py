@@ -29,9 +29,9 @@ A program owns buffers that its run updates in place, so it carries a lock
 captured in this process, so tests can assert that warmed traffic builds
 and captures nothing, through the cache or past it.
 
-Only the ``serial`` and ``kernel`` engines are cacheable; the JAX
-package's ``distributed`` engine closes over a live mesh, and the port's
-is not ported yet (ROADMAP.md A7).
+Only the ``serial`` and ``kernel`` engines are cacheable: the
+``distributed`` engine's run is a collective over a live process group,
+so mesh traffic goes through ``cluster_batch``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -108,8 +108,8 @@ def _build(sig: BucketSignature, device: torch.device) -> BucketProgram:
     if sig.engine not in CACHEABLE_ENGINES:
         raise ValueError(
             f"the service program cache supports engines {CACHEABLE_ENGINES}, "
-            f"not {sig.engine!r} (the distributed engine is not ported yet: "
-            "ROADMAP.md A7)"
+            f"not {sig.engine!r} (the distributed engine's run depends on the live "
+            "process group — use cluster_batch for mesh traffic)"
         )
     return BucketProgram(sig, device, eager=True)
 

@@ -114,11 +114,36 @@ def test_lw_knobs_match_reference(n, method, knobs):
     np.testing.assert_allclose(got.merges[:, 2], want.merges[:, 2], rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("knobs", [dict(algorithm="twophase"), dict(backend="distributed")])
-def test_knobs_not_ported_raise(knobs):
+@pytest.mark.parametrize("method,knobs", [
+    ("complete", dict(algorithm="twophase")),
+    # the sharded matrix-free chain comes with A7.2
+    ("ward", dict(algorithm="nnchain", backend="distributed")),
+])
+def test_knobs_not_ported_raise(method, knobs):
     X = np.zeros((6, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cluster(X, "complete", device="cpu", **knobs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
+        cluster(X, method, device="cpu", **knobs)
+
+
+def test_distributed_backend_on_one_rank():
+    """``backend="distributed"`` brings up a world-size-1 gloo group for
+    ``device="cpu"`` and gives the serial backend's merges, reported as the
+    JAX package reports them; the group is torn down after."""
+    import torch.distributed as dist
+
+    X = gaussian_mixture(seed=7, n=50, dim=8, return_labels=False)
+    try:
+        got = cluster(X, "ward", backend="distributed", device="cpu")
+        want = jcluster(X, "ward", backend="distributed")
+        assert (got.backend, got.algorithm) == (want.backend, want.algorithm)
+        assert dist.get_world_size() == 1
+        np.testing.assert_array_equal(
+            got.merges, cluster(X, "ward", backend="serial", device="cpu").merges)
+        np.testing.assert_array_equal(got.merges[:, [0, 1, 3]], want.merges[:, [0, 1, 3]])
+        np.testing.assert_allclose(got.merges[:, 2], want.merges[:, 2], rtol=1e-4, atol=1e-5)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("knobs", [dict(method="nope"), dict(variant="nope"),

@@ -242,11 +242,30 @@ def test_input_validation_matches_reference(case):
     assert outcome(lambda *a, **k: cluster_batch(*a, device="cpu", **k)) is want
 
 
-def test_distributed_backend_not_ported():
-    with pytest.raises(NotImplementedError, match="A7"):
-        cluster_batch(mats("complete", (4,)), backend="distributed", device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        cluster_batch_merges(mats("complete", (4,)), engine="distributed", device="cpu")
+def test_distributed_backend_on_one_rank():
+    """The distributed batch engine on a world-size-1 gloo group (brought up
+    for ``device="cpu"``, torn down after): every problem's merges equal the
+    serial batch's bit for bit, with the same buckets; the group's size
+    pads no problem."""
+    import torch.distributed as dist
+
+    probs = mats("centroid", (4, 9, 30), seed=8)
+    try:
+        got = cluster_batch(probs, "centroid", backend="distributed", variant="lazy",
+                            device="cpu")
+        want = cluster_batch(probs, "centroid", backend="serial", variant="lazy", device="cpu")
+        assert got.stats == dataclasses.replace(want.stats, engine="distributed")
+        for g, w in zip(got, want):
+            assert g.backend == "distributed"
+            np.testing.assert_array_equal(g.merges, w.merges)
+        lists, stats = cluster_batch_merges(probs, "centroid", engine="distributed",
+                                            device="cpu")
+        assert stats.engine == "distributed"
+        for g, w in zip(lists, want):
+            np.testing.assert_array_equal(g, w.merges)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

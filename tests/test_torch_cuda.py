@@ -1598,3 +1598,162 @@ def test_cuda_service_steady_traffic_captures_nothing(engine, cuda):
     want = cluster_batch(probs, "complete", backend=engine, is_distance=True)
     for g, w in zip(got, want):
         assert np.array_equal(g.merges, w.merges)
+
+
+# ---------------------------------------------------------------------------
+# the rmsd build, built again and again (ROADMAP.md C.1)
+# ---------------------------------------------------------------------------
+
+RMSD_N, RMSD_ATOMS, RMSD_BUILDS = 1968, 24, 8     # chip_smoke phase 12's conformations
+
+
+def pair_report(C, r, c, device):
+    """One pair's rmsd on ``device`` from the pair grid's arithmetic, with
+    its cross-covariance's singular values and the sign of its determinant."""
+    from repro_torch.core.distance import _center, kabsch_rmsd
+
+    A = _center(torch.tensor(C[r], device=device))
+    B = _center(torch.tensor(C[c], device=device))
+    H = A.T @ B
+    return dict(rmsd=float(kabsch_rmsd(A, B)),
+                sigma=[float(x) for x in torch.linalg.svdvals(H)],
+                det_sign=float(torch.sign(torch.linalg.det(H))))
+
+
+@pytest.mark.cuda
+def test_cuda_rmsd_repeated_builds_match_cpu(cuda):
+    """Phase 12's rmsd matrix (1968 conformations of 24 atoms) built
+    RMSD_BUILDS times in one process: every build within phase 12's
+    tolerance (rtol 1e-4, atol 1e-4) of the CPU's.  Prints, as one JSON
+    line, each build's largest difference from the CPU's and from the first
+    build, and the worst pair's rmsd, singular values and determinant sign
+    on both devices."""
+    import json
+
+    from repro_torch.core import build_distance_matrix
+    from repro_torch.data.synthetic import conformations
+
+    C, _ = conformations(seed=0, n=RMSD_N, atoms=RMSD_ATOMS)
+    cpu = build_distance_matrix(C, "rmsd", device="cpu")
+    builds = [build_distance_matrix(C, "rmsd").cpu() for _ in range(RMSD_BUILDS)]
+    rows = []
+    for b in builds:
+        diff = (b - cpu).abs()
+        r, c = divmod(int(diff.argmax()), RMSD_N)
+        rows.append(dict(max_abs_err=float(diff.max()), pair=[r, c],
+                         vs_first_build=float((b - builds[0]).abs().max())))
+    r, c = max(rows, key=lambda row: row["max_abs_err"])["pair"]
+    print(json.dumps(dict(builds=rows, worst_pair=[r, c], card=pair_report(C, r, c, cuda),
+                          cpu=pair_report(C, r, c, "cpu"))), flush=True)
+    for b in builds:
+        torch.testing.assert_close(b, cpu, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the distributed LW loop on a world-size-1 NCCL group
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_ring(cuda):
+    """A world-size-1 NCCL group on the card (the machine holds one GPU, and
+    NCCL refuses two ranks on one device), torn down after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import make_cluster_mesh
+
+    ring = make_cluster_mesh()
+    yield ring
+    dist.destroy_process_group()
+
+
+def kernel_launches():
+    return (minscan.masked_argmin.launches, lw_step.lw_merge.launches,
+            lw_update.lazy_merge.launches, minscan.masked_argmin_batch.launches,
+            lw_step.lw_merge_batch.launches, lw_update.lazy_merge_batch.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ("complete", "centroid", "ward"))
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_cuda_distributed_matches_serial(variant, method, nccl_ring):
+    """``distributed_lance_williams`` on one NCCL rank, staged and unstaged:
+    the serial backend's merges on the card bit for bit, its plan's blocks,
+    two collectives a merge, and no kernel launched."""
+    from repro_torch.core.distributed import distributed_lance_williams
+    from repro_torch.core.engine import plan_stages
+    from repro_torch.core.lance_williams import lance_williams
+
+    n = 500
+    D = random_distance_matrix(np.random.default_rng(31), n,
+                               squared=method != "complete").astype(np.float32)
+    want = lance_williams(D, method, variant=variant).merges
+    before = kernel_launches()
+    for compaction in (True, False):
+        res = distributed_lance_williams(D, method, nccl_ring, variant, compaction=compaction)
+        plan = plan_stages(n, n - 1) if compaction else ((n, n - 1),)
+        assert res.merges.device.type == "cuda"
+        assert torch.equal(res.merges, want)
+        assert res.blocks == tuple((size, size) for size, _ in plan)
+        assert res.collectives == 2 * (n - 1) + 2 * len(plan) - 1
+    assert kernel_launches() == before
+
+
+@pytest.mark.cuda
+def test_cuda_distributed_baseline_reads_nothing_back(nccl_ring):
+    """The staged distributed ``baseline`` loop under the sync debug mode
+    "error": no merge and no stage boundary (the collectives, the
+    candidate's election, the re-shard) waits for the card."""
+    from repro_torch.core import engine
+    from repro_torch.core.distributed import distributed_lance_williams
+
+    n = 700
+    D = torch.tensor(random_distance_matrix(np.random.default_rng(32), n).astype(np.float32),
+                     device="cuda")
+    want = distributed_lance_williams(D, "complete", nccl_ring)    # warms NCCL up
+    D = engine.symmetrize(D)
+    alive = torch.ones(n, dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = engine.run_sharded(D, alive, method="complete", n_steps=n - 1, ring=nccl_ring,
+                                 compaction=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(got.blocks) > 1
+    assert torch.equal(got.merges, want.merges)
+
+
+@pytest.mark.cuda
+def test_cuda_distributed_api_and_batch(nccl_ring):
+    """``cluster`` and ``cluster_batch`` on the distributed backend equal
+    the serial backend's on the card; the born-sharded rmsd build equals
+    the single-device build on one rank."""
+    from repro_torch.core import build_distance_matrix, cluster, cluster_batch
+    from repro_torch.core.distributed import distributed_pairwise
+    from repro_torch.data.synthetic import conformations, gaussian_mixture
+
+    X = gaussian_mixture(seed=2, n=400, dim=16, return_labels=False)
+    got = cluster(X, "average", algorithm="lw", backend="distributed")
+    assert got.backend == "distributed"
+    np.testing.assert_array_equal(got.merges, cluster(X, "average", algorithm="lw",
+                                                      backend="serial").merges)
+    probs = [random_distance_matrix(np.random.default_rng(k), int(n)).astype(np.float32)
+             for k, n in enumerate((7, 30, 64, 100, 130))]
+    batch = cluster_batch(probs, "complete", backend="distributed")
+    assert batch.stats.engine == "distributed"
+    for g, w in zip(batch, cluster_batch(probs, "complete", backend="serial")):
+        np.testing.assert_array_equal(g.merges, w.merges)
+    C, _ = conformations(seed=1, n=200, atoms=12)
+    built = distributed_pairwise(C, "rmsd", nccl_ring)
+    torch.testing.assert_close(built.gather(), build_distance_matrix(C, "rmsd"),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_group_refuses_cpu_tensors(nccl_ring):
+    from repro_torch.core.distributed import make_cluster_mesh
+
+    assert (nccl_ring.size, nccl_ring.device.type) == (1, "cuda")
+    with pytest.raises(ValueError, match="nccl"):
+        make_cluster_mesh("cpu")

@@ -166,6 +166,25 @@ def test_pairwise_rmsd_matches_reference(chunk, monkeypatch):
                                rtol=RTOL, atol=RMSD_ATOL)
 
 
+def test_phase_12_worst_pair_matches_reference():
+    """The pair of chip_smoke phase 12's conformations (seed 0, 1968 of 24
+    atoms) where the card's rmsd matrix is farthest from the CPU's (5.86e-5
+    in every build so far; ROADMAP.md C.1): the port's Kabsch RMSD and its
+    pair grid on the CPU against the JAX package's ``kabsch_rmsd`` and a
+    float64 Kabsch, within the rmsd builders' atol."""
+    C, _ = conformations(seed=0, n=1968, atoms=24)
+    a, b = C[1488], C[1780]
+    A, B = (x.astype(np.float64) - x.mean(0) for x in (a, b))
+    U, S, Vt = np.linalg.svd(A.T @ B)
+    d = np.sign(np.linalg.det(Vt.T @ U.T))
+    exact = np.sqrt(((A * A).sum() + (B * B).sum() - 2 * (S[0] + S[1] + d * S[2])) / 24)
+    want = float(jdist.kabsch_rmsd(a, b))
+    got = [float(tdist.kabsch_rmsd(t(a), t(b))),
+           float(tdist.pairwise_rmsd(t(C[[1488, 1780]]))[0, 1])]
+    np.testing.assert_allclose(got, want, rtol=0, atol=RMSD_ATOL)
+    np.testing.assert_allclose(got + [want], exact, rtol=0, atol=RMSD_ATOL)
+
+
 def test_build_distance_matrix_rmsd_matches_reference():
     C, _ = conformations(2, 40, 12, k=4)
     got = build_distance_matrix(C, "rmsd", device="cpu")
