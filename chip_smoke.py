@@ -14,7 +14,8 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    n = 16384 (the step kernel through both its entries, the per-row step
    and the resident merge, with the bytes it reads and the rate it reaches;
    the row update checked for all 7 methods), the row kernel at
-   (m, d) = (1968, 64) and (32768, 128), its trip entry (a whole chain trip,
+   (m, d) = (1968, 64), (8192, 128) and (32768, 128) (phase 16's shard
+   shapes), its trip entry (a whole chain trip,
    the matrix-free chain's main path) at (32768, 128), (6155, 128) and
    (1968, 64) against its plain twin over 64 trips from the first state of
    a run, timed over 20 trips from the state they reach and over a graph
@@ -153,16 +154,33 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     ``python3 chip_smoke.py --distributed-full`` runs the full size
     (n = 16384, staged) alone: the wall, the peak memory and the block's
     bytes at each stage, the slots the kernel backend's.
-16. One line ``{"kernels": [...]}`` with each kernel's numbers (the batch
+16. The sharded matrix-free NN chain (``distributed_nn_chain_from_points``)
+    on a world-size-1 NCCL group, B5's row entry launched once a trip (the
+    trips), no other kernel, three collectives a trip: at n = 8192,
+    d = 128 for ward, average and weighted, bit for bit the host-driven
+    chain loop with B5's row on the card, with wall, and busy time, idle
+    share and host and device ms a trip over a profiled window (the same
+    points' first 500 merges, run again in a process of its own: later
+    profiling sessions of a process lost kernel records); at the
+    paper's size a segmented run (segments of 500 merges, a shard lost at
+    segment 1, a straggler deadline) equal to the unsegmented one, with
+    its restarts, stragglers and segments; ``cluster(...,
+    algorithm="nnchain", backend="distributed")``.  Its full-width run
+    (phase 6's n = 32768, d = 128 ward points: wall, trips, peak memory
+    under 0.25 GiB, the resident chain's dendrogram, host and device ms a
+    trip over a profiled window of 500 merges) is ``--distributed-full``:
+    in the phase it took the phase past 200 s.
+17. One line ``{"kernels": [...]}`` with each kernel's numbers (the batch
     entries beside the others, with their launches in the service's card
-    mix), the card's ``nvidia-smi`` line, and last
-    ``{"ok": true, "device": {...}}``.
+    mix; B5's row entry with its launches in phase 16), the card's
+    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counters set to 0 just before it
 and read just after.  Phase 6's profiled chain run (``--profile-chain``),
 phases 10-12 (``--later-phases``), phase 13 (``--batch``), phase 14
-(``--service``) and phase 15 (``--distributed``) run in child processes
-of this script, for the profiler's sake (``run_child``).
+(``--service``), phase 15 (``--distributed``) and phase 16
+(``--sharded-chain``) run in child processes of this script, for the
+profiler's sake (``run_child``).
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.
 """
@@ -186,7 +204,7 @@ PAPER_N, FULL_N, DIM = 1968, 16384, 64
 CHAIN_N, CHAIN_DIM = 32768, 128  # matrix-free run: 16 MiB of summaries, no 4 GiB matrix
 CROSS_SHAPES = ((4096, 128), (1968, 64))   # matrix-free ward held against the LW loop
 MID_N = 8192                   # phases 5, 7, 8: n = 16384 until the smoke outgrew 700 s
-ROW_SHAPES = ((PAPER_N, DIM), (CHAIN_N, CHAIN_DIM))
+ROW_SHAPES = ((PAPER_N, DIM), (MID_N, CHAIN_DIM), (CHAIN_N, CHAIN_DIM))  # phase 16: B5 a shard
 LANDMARK_N, LANDMARK_K = 131072, 6155   # k = ceil(sqrt(n) log2 n); the matrix would be 64 GiB
 LANDMARK_PEAK_LIMIT_GIB = 32.0          # half of that matrix
 LANDMARK_CROSS_N = 8192                 # the landmark run held against the exact chain
@@ -249,6 +267,9 @@ RESOURCE_SHAPES = {"lw_step": ((1, 1024), (1, 4096), (1, 16384)),
                                           (256, 128), (256, 255), (33, 256), (256, 256),
                                           (256, 512), (256, 1024), (64, 512), (16, 1024),
                                           (16, 2048), (2, 4096), (256, 1023), (16, 1023))}
+SHARDED_METHODS = ("ward", "average", "weighted")  # phase 16 at n = MID_N, d = CHAIN_DIM
+SHARDED_SEGMENT = 500          # phase 16's segmented run at the paper's size: 4 segments
+SHARDED_WINDOW = 500           # merges of a sharded run's profiled window (~1500 trips)
 RTOL, ATOL = 1e-4, 1e-5        # height tolerance of the JAX package's kernel tests
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once a launch
@@ -1812,6 +1833,31 @@ def phase_landmark(torch, np) -> dict:
     return stats
 
 
+def kabsch64(np, a, b) -> float:
+    """The Kabsch RMSD of two ``(atoms, 3)`` conformations in float64
+    (numpy's SVD): the value a float32 build of the pair should round to."""
+    a = np.asarray(a, np.float64) - np.asarray(a, np.float64).mean(0)
+    b = np.asarray(b, np.float64) - np.asarray(b, np.float64).mean(0)
+    H = a.T @ b
+    s = np.linalg.svd(H, compute_uv=False)
+    corr = s[0] + s[1] + np.sign(np.linalg.det(H)) * s[2]
+    return float(np.sqrt(max(((a * a).sum() + (b * b).sum() - 2.0 * corr) / len(a), 0.0)))
+
+
+def check_rmsd_matrix(torch, np, C, D_card, D_cpu, what: str) -> float:
+    """Hold the card's rmsd matrix against the CPU's build (RTOL,
+    RMSD_ATOL) and return the largest difference.  On a mismatch the
+    error names the worst pair, both builds' values and the pair's
+    float64 Kabsch RMSD, which tells which build is off."""
+    err = float((D_card - D_cpu).abs().max())
+    if not torch.allclose(D_card, D_cpu, rtol=RTOL, atol=RMSD_ATOL):
+        r, c = divmod(int((D_card - D_cpu).abs().argmax()), D_card.shape[1])
+        raise AssertionError(f"{what} differs from the CPU's by {err} at ({r}, {c}): "
+                             f"{float(D_card[r, c])} against {float(D_cpu[r, c])}; float64 "
+                             f"Kabsch {kabsch64(np, C[r], C[c])}")
+    return err
+
+
 def phase_rmsd(torch, np) -> dict:
     """The paper's protein mode at its size: ``cluster(C, "complete",
     metric="rmsd")`` builds the rmsd matrix on the card and runs the
@@ -1838,11 +1884,7 @@ def phase_rmsd(torch, np) -> dict:
     stats["cpu_build_s"] = time.perf_counter() - t0
     _, s = timed(torch, lambda: build_distance_matrix(C, "rmsd"))
     stats["card_build_s"] = s["wall_s"]
-    err = float((D_card - D_cpu).abs().max())
-    if not torch.allclose(D_card, D_cpu, rtol=RTOL, atol=RMSD_ATOL):
-        r, c = divmod(int((D_card - D_cpu).abs().argmax()), n)
-        raise AssertionError(f"rmsd matrix on the card differs from the CPU's by {err} at ({r}, "
-                             f"{c}): {float(D_card[r, c])} against {float(D_cpu[r, c])}")
+    err = check_rmsd_matrix(torch, np, C, D_card, D_cpu, "rmsd matrix on the card")
     serial, s = timed(torch, lambda: cluster(D_card.numpy(), "complete", algorithm="lw",
                                              backend="serial", keep_inputs=False))
     check_equivalent(np, res.merges, serial.merges, n, "rmsd chain vs serial LW, one matrix")
@@ -2369,12 +2411,7 @@ def phase_distributed(torch, np, spec: dict) -> dict:
         check_launches(s["launches"], {}, "distributed rmsd build")
         D_card = built.gather().cpu()
         D_cpu = build_distance_matrix(C, "rmsd", device="cpu")
-        err = float((D_card - D_cpu).abs().max())
-        if not torch.allclose(D_card, D_cpu, rtol=RTOL, atol=RMSD_ATOL):
-            r, c = divmod(int((D_card - D_cpu).abs().argmax()), RMSD_N)
-            raise AssertionError(f"born-sharded rmsd matrix differs from the CPU's by {err} at "
-                                 f"({r}, {c}): {float(D_card[r, c])} against "
-                                 f"{float(D_cpu[r, c])}")
+        err = check_rmsd_matrix(torch, np, C, D_card, D_cpu, "born-sharded rmsd matrix")
         single = build_distance_matrix(C, "rmsd").cpu()
         out["rmsd"] = dict(build_wall_s=s["wall_s"], max_abs_err_vs_cpu=err,
                            max_abs_diff_vs_single_device=float((D_card - single).abs().max()))
@@ -2402,10 +2439,200 @@ def phase_distributed(torch, np, spec: dict) -> dict:
     return out
 
 
+def sharded_window(torch, ring, X, method: str, what: str) -> dict:
+    """The host's and the device's ms a trip of the sharded chain on ``X``
+    over a profiled window: a fresh state run up to its first
+    SHARDED_WINDOW merges, timed, then again under the profiler.  A trip's
+    work does not change along a run (each builds the rank's whole row), so
+    the window's shares are the run's.  A trip gives the profiler ~19
+    records (a whole run at n = 8192 4.7·10⁵), and a process's later
+    profiling sessions lost some of B5's records (after a whole run, or
+    windows of 1000 and 500 merges), its first never: phase 16 profiles
+    each window in a process of its own (:func:`sharded_window_child`)."""
+    from repro_torch.core import distributed as tdist
+
+    Xt = torch.as_tensor(X)
+
+    def window():
+        s = tdist._chain_state(Xt, ring)
+        tdist._run_sharded_chain(method, s, ring, SHARDED_WINDOW)
+        return s
+
+    s, stats = timed(torch, window)
+    check_launches(stats["launches"], {"row_sq_euclidean": s.iters}, f"{what}, window")
+    busy = device_busy(torch, window, stats["wall_s"], stats["launches"])[1]
+    return dict(merges=len(s.pairs), wall_s=stats["wall_s"],
+                device_busy_s=busy["device_busy_s"], idle_share=busy["idle_share"],
+                profiler_tries=busy["profiler_tries"],
+                row_ms_mean=busy["kernel_ms_mean"]["row_sq_euclidean"],
+                row_busy_share=busy["kernel_busy_share"]["row_sq_euclidean"],
+                **per_step(dict(stats, device_busy_s=busy["device_busy_s"]), s.iters, "trip"))
+
+
+def sharded_chain_run(torch, np, ring, X, method: str, what: str, want=None,
+                      profile: bool = False, **knobs) -> tuple:
+    """One ``distributed_nn_chain_from_points`` run of ``X`` on ``ring``, as
+    phase 16 drives it: :func:`timed`; B5's row entry launched once a trip
+    and no other kernel; three collectives a trip; every merge made; the
+    merges ``want`` (the host-driven loop's) bit for bit when given.  With
+    ``profile``, busy time, idle share and the host's and the device's ms
+    a trip over a profiled window (:func:`sharded_window`).  Returns the
+    result and the numbers."""
+    from repro_torch.core.distributed import distributed_nn_chain_from_points
+
+    def call():
+        return distributed_nn_chain_from_points(X, method, ring, **knobs)
+
+    before = ring.collectives
+    res, stats = timed(torch, call)
+    collectives = ring.collectives - before
+    check_launches(stats["launches"], {"row_sq_euclidean": res.iters}, what)
+    n = X.shape[0]
+    if res.n_merges != n - 1 or collectives != 3 * res.iters:
+        raise AssertionError(f"{what}: {res.n_merges} merges and {collectives} collectives in "
+                             f"{res.iters} trips, want {n - 1} and {3 * res.iters}")
+    if want is not None:
+        check_bit_equal(np, res.merges.cpu().numpy(), want, f"{what} vs the host-driven loop")
+    out = dict(n=n, d=X.shape[1], wall_s=stats["wall_s"], peak_gib=stats["peak_gib"],
+               trips=res.iters, collectives=collectives,
+               launches={"row_sq_euclidean": res.iters},      # and no other kernel
+               wall_ms_per_trip=stats["wall_s"] / res.iters * 1e3, restarts=res.restarts,
+               stragglers=res.stragglers, segments=res.segments)
+    if profile:
+        out["window"] = sharded_window(torch, ring, X, method, what)
+    return res, out
+
+
+def sharded_chain_full(torch, np, ring) -> dict:
+    """The sharded chain at the matrix-free chain's full width (phase 6's
+    n = 32768, d = 128 ward points), once: its launches and collectives,
+    its peak memory under PEAK_LIMIT_GIB (no (n, n) and no (n/p, n)
+    tensor), its dendrogram equal to the resident chain's on the same
+    points, and a profiled window."""
+    from repro_torch.core.dendrogram import canonical_order
+    from repro_torch.core.nnchain import nn_chain_from_points
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    n = CHAIN_N
+    X = gaussian_mixture(seed=0, n=n, dim=CHAIN_DIM, return_labels=False)
+    what = f"sharded chain n={n} d={CHAIN_DIM} ward"
+    res, out = sharded_chain_run(torch, np, ring, X, "ward", what, profile=True)
+    if out["peak_gib"] >= PEAK_LIMIT_GIB:
+        raise AssertionError(f"{what}: peak memory {out['peak_gib']:.4f} GiB, "
+                             f"limit {PEAK_LIMIT_GIB} GiB")
+    got = canonical_order(res.merges.cpu().numpy(), n=n)
+    resident = canonical_order(nn_chain_from_points(X, "ward").merges.cpu().numpy(), n=n)
+    check_equivalent(np, got, resident, n, f"{what} vs the resident chain")
+    out["canonical_slots_equal"] = bool(np.array_equal(got[:, :2], resident[:, :2]))
+    return out
+
+
+def sharded_window_child(torch, np, spec: dict) -> dict:
+    """Phase 16's profiled window (:func:`sharded_window`) for
+    ``spec["method"]`` on its ``(n, d)`` points, in a process of its own on
+    a world-size-1 NCCL group of its own."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import distributed_nn_chain_from_points, make_cluster_mesh
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    method, n, d = spec["method"], spec["n"], spec["d"]
+    ring = make_cluster_mesh()
+    try:
+        distributed_nn_chain_from_points(
+            gaussian_mixture(seed=1, n=300, dim=d, return_labels=False), method, ring)
+        X = gaussian_mixture(seed=0, n=n, dim=d, return_labels=False)
+        return sharded_window(torch, ring, X, method, f"sharded chain n={n} d={d} {method}")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded_chain(torch, np, spec: dict) -> dict:
+    """Phase 16, in a process of its own: the sharded matrix-free chain
+    (``distributed_nn_chain_from_points``) on a world-size-1 NCCL group, B5's
+    row entry launched once a trip.  At n = 8192, d = 128 for ward, average
+    and weighted: bit for bit the host-driven chain loop with B5's row on
+    the card, with busy and idle from a profiled window, each in a process
+    of its own.  At the paper's size a segmented run with a lost shard at
+    segment 1 and a straggler deadline, equal to the unsegmented run; and
+    ``cluster(..., algorithm="nnchain", backend="distributed")``.  The
+    group is torn down at the end."""
+    import torch.distributed as dist
+
+    from repro_torch.core import cluster
+    from repro_torch.core.dendrogram import canonical_order
+    from repro_torch.core.distributed import distributed_nn_chain_from_points, make_cluster_mesh
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.distributed.fault import FailurePlan, StepDeadline
+    from repro_torch.kernels.pairwise import row_sq_euclidean
+
+    ring = make_cluster_mesh()
+    backend = str(dist.get_backend())
+    if (ring.size, backend, ring.device.type) != (1, "nccl", "cuda"):
+        raise AssertionError(f"ring of {ring.size} on {backend}/{ring.device}, want 1 on nccl")
+    out = dict(backend=backend, world_size=ring.size)
+    try:
+        # loads B5's row kernel and warms NCCL up
+        distributed_nn_chain_from_points(
+            gaussian_mixture(seed=1, n=300, dim=DIM, return_labels=False), "ward", ring)
+        n = MID_N
+        X = gaussian_mixture(seed=0, n=n, dim=CHAIN_DIM, return_labels=False)
+        for method in SHARDED_METHODS:
+            host, hs = timed(torch, lambda: points_chain(torch, X, method, row_sq_euclidean))
+            check_launches(hs["launches"], {"row_sq_euclidean": host.iters},
+                           f"host-driven loop n={n} {method}")
+            what = f"sharded chain n={n} d={CHAIN_DIM} {method}"
+            res, out[method] = sharded_chain_run(torch, np, ring, X, method, what,
+                                                 want=host.merges.cpu().numpy())
+            out[method]["window"] = run_child(torch, SHARDED_WINDOW_FLAG,
+                                              dict(method=method, n=n, d=CHAIN_DIM))
+            if res.iters != host.iters:
+                raise AssertionError(f"{what}: {res.iters} trips, the host loop {host.iters}")
+            out[method]["host_loop_wall_s"] = hs["wall_s"]
+            say(f"phase 16 {what}: " + json.dumps(out[method]))
+        torch.cuda.empty_cache()
+
+        # the paper's size: segmented, a shard lost at segment 1, a deadline
+        Xp = gaussian_mixture(seed=0, n=PAPER_N, dim=DIM, return_labels=False)
+        what = f"sharded chain n={PAPER_N} d={DIM} ward"
+        whole, w = sharded_chain_run(torch, np, ring, Xp, "ward", what)
+        events = []
+        seg, sg = sharded_chain_run(torch, np, ring, Xp, "ward", f"{what}, segmented",
+                                    want=whole.merges.cpu().numpy(),
+                                    segment_steps=SHARDED_SEGMENT,
+                                    failure_plan=FailurePlan(fail_at=(1,)),
+                                    deadline=StepDeadline(factor=3.0, warmup=1),
+                                    log=events.append)
+        segments = -(-(PAPER_N - 1) // SHARDED_SEGMENT)
+        if (seg.restarts, seg.segments) != (1, segments) or seg.iters != whole.iters:
+            raise AssertionError(f"{what}, segmented: {seg.restarts} restarts, {seg.segments} "
+                                 f"segments, {seg.iters} trips; want 1, {segments}, "
+                                 f"{whole.iters}")
+        out["paper"] = dict(whole=w, segmented=dict(sg, events=events))
+        say(f"phase 16 {what}, whole and segmented: " + json.dumps(out["paper"]))
+
+        res, cs = timed(torch, lambda: cluster(Xp, "ward", algorithm="nnchain",
+                                               backend="distributed", keep_inputs=False))
+        check_launches(cs["launches"], {"row_sq_euclidean": whole.iters},
+                       "cluster() on the sharded chain")
+        if (res.backend, res.algorithm, res.distances) != ("distributed", "nnchain", None):
+            raise AssertionError(f"cluster() ran {res.algorithm}/{res.backend}")
+        check_bit_equal(np, res.merges, canonical_order(whole.merges.cpu().numpy(), n=PAPER_N),
+                        "cluster() sharded chain vs its canonical merges")
+        out["cluster_wall_s"] = cs["wall_s"]
+        say(f"phase 16 cluster(algorithm='nnchain', backend='distributed') n={PAPER_N}: "
+            f"wall_s {cs['wall_s']}")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 LATER_PHASES_FLAG, PROFILE_CHAIN_FLAG = "--later-phases", "--profile-chain"
 BATCH_FLAG = "--batch"
 SERVICE_FLAG = "--service"
 DISTRIBUTED_FLAG = "--distributed"
+SHARDED_CHAIN_FLAG = "--sharded-chain"
+SHARDED_WINDOW_FLAG = "--sharded-window"
 
 
 def run_child(torch, flag: str, spec: dict) -> dict:
@@ -2472,7 +2699,8 @@ def phases_10_to_12(torch, np, spec: dict) -> dict:
 
 CHILDREN = {LATER_PHASES_FLAG: phases_10_to_12, PROFILE_CHAIN_FLAG: profile_chain,
             BATCH_FLAG: phase_batch, SERVICE_FLAG: phase_service,
-            DISTRIBUTED_FLAG: phase_distributed}
+            DISTRIBUTED_FLAG: phase_distributed, SHARDED_CHAIN_FLAG: phase_sharded_chain,
+            SHARDED_WINDOW_FLAG: sharded_window_child}
 
 
 def child(flag: str) -> int:
@@ -2491,7 +2719,7 @@ def child(flag: str) -> int:
 
 def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
             serial: dict, lazy: dict, assigned: dict, landmark: dict, rmsd: dict,
-            batch: dict, service: dict, distributed: dict) -> str:
+            batch: dict, service: dict, distributed: dict, sharded: dict) -> str:
     """The numbers a reader checks first, on one line near the end."""
     def g(x):
         return f"{x:.6g}"
@@ -2579,11 +2807,24 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
                  f"{g(distributed['rmsd']['max_abs_err_vs_cpu'])}; batch wall_s "
                  f"{g(distributed['batch']['wall_s'])} (serial "
                  f"{g(distributed['batch']['serial_wall_s'])})")
+    for r in (sharded[m] for m in SHARDED_METHODS):
+        w = r["window"]
+        parts.append(f"sharded chain n={r['n']} wall_s {g(r['wall_s'])} trips {r['trips']} "
+                     f"collectives {r['collectives']} peak_gib {g(r['peak_gib'])}; window busy_s "
+                     f"{g(w['device_busy_s'])} idle {g(w['idle_share'])} host/device ms per trip "
+                     f"{g(w['host_ms_per_trip'])}/{g(w['device_ms_per_trip'])}"
+                     + (f"; host loop wall_s {g(r['host_loop_wall_s'])}"
+                        if "host_loop_wall_s" in r else ""))
+    seg = sharded["paper"]["segmented"]
+    parts.append(f"sharded chain n={PAPER_N} whole wall_s {g(sharded['paper']['whole']['wall_s'])}"
+                 f"; segmented wall_s {g(seg['wall_s'])} restarts {seg['restarts']} stragglers "
+                 f"{seg['stragglers']} segments {seg['segments']}; cluster() wall_s "
+                 f"{g(sharded['cluster_wall_s'])}")
     return "summary: " + "; ".join(parts)
 
 
 def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assigned: dict,
-                     batch: dict, service: dict) -> list:
+                     batch: dict, service: dict, sharded: dict) -> list:
     """The ``{"kernels": [...]}`` line: each TPU kernel's CUDA counterpart
     with its main-path entry's numbers first and every entry listed."""
     src = {"masked_argmin": ("src/repro_torch/csrc/minscan.cu", "src/repro/kernels/minscan.py:71"),
@@ -2595,7 +2836,9 @@ def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assign
                                      "src/repro/kernels/pairwise.py:60")}
     # B2, B3 and B5 launch through their second entries on the main path (the
     # merge, the lazy merge, the chain trip): a kernel's line gives that
-    # entry's launches and times, and lists every entry under "entries"
+    # entry's launches and times, and lists every entry under "entries";
+    # B5's row entry runs once a trip of the sharded chain (phase 16's ward
+    # run, at its shard shape)
     # "stages": the compaction stages of the LW run the launches were
     # counted in (null for the chains and the labeler, which do not stage)
     def numbers(key, path, entry):
@@ -2607,6 +2850,7 @@ def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assign
 
     # the batch entries: times at the full-width bucket, launches from its runs
     full_b = BATCH_FULL[:2]
+    row_main = sharded["ward"]
     b_kernel, b_lazy = batch["full"]["kernel"], batch["full"]["kernel_lazy"]
     inventory = []
     for name, entries in (
@@ -2621,7 +2865,8 @@ def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assign
                            ("lazy_merge_batch", ("lazy_merge_batch/complete", full_b),
                             b_lazy)]),
             ("row_sq_euclidean", [("chain_trip", ("chain_trip", CHAIN_N), points),
-                                  ("row_sq_euclidean", ("row_sq_euclidean", CHAIN_N), points)]),
+                                  ("row_sq_euclidean", ("row_sq_euclidean", row_main["n"]),
+                                   row_main)]),
             ("pairwise_sq_euclidean", [("pairwise_sq_euclidean",
                                         ("pairwise_sq_euclidean", QUERY_N),
                                         assigned["centroid"]["kernel"])])):
@@ -2763,11 +3008,12 @@ def main() -> int:
     batch = run_child(torch, BATCH_FLAG, {})
     service = run_child(torch, SERVICE_FLAG, {})
     distributed = run_child(torch, DISTRIBUTED_FLAG, dict(paper_serial=paper_serial))
+    sharded = run_child(torch, SHARDED_CHAIN_FLAG, {})
 
-    # 16. inventory, card, result
-    inventory = kernel_inventory(kernels, full, lazy, points, assigned, batch, service)
+    # 17. inventory, card, result
+    inventory = kernel_inventory(kernels, full, lazy, points, assigned, batch, service, sharded)
     print(summary(kernels, paper, full, dense, points, serial, lazy, assigned, landmark, rmsd,
-                  batch, service, distributed))
+                  batch, service, distributed, sharded))
     print(json.dumps({"kernels": inventory}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2780,12 +3026,13 @@ DISTRIBUTED_FULL_FLAG = "--distributed-full"
 
 
 def distributed_full() -> int:
-    """``python3 chip_smoke.py --distributed-full``: phase 15's full-size run,
-    out of the smoke for its time: the distributed ``baseline`` at n = 16384
-    (phase 4's points), staged, on a world-size-1 NCCL group, against the
-    slots of phase 4's kernel-backend run.  Prints the card's line and one
-    JSON line: the wall, the peak memory, the collectives and the rank's
-    block bytes at each stage."""
+    """``python3 chip_smoke.py --distributed-full``: the full-size runs of
+    phases 15 and 16, out of the smoke for their time.  The distributed
+    ``baseline`` at n = 16384 (phase 4's points), staged, on a world-size-1
+    NCCL group, against the slots of phase 4's kernel-backend run; then the
+    sharded chain at n = 32768, d = 128 (:func:`sharded_chain_full`).  Prints the card's line and one JSON
+    line: the LW run's wall, peak memory, collectives and the rank's block
+    bytes at each stage, and the chain's numbers."""
     import numpy as np
     import torch
 
@@ -2810,10 +3057,13 @@ def distributed_full() -> int:
                                     f"distributed baseline n={FULL_N}", profile=False)
         check_merges(np, res.merges.cpu().numpy(), want,
                      f"distributed n={FULL_N} vs the kernel backend")
+        del D, res
+        torch.cuda.empty_cache()
+        chain = sharded_chain_full(torch, np, ring)
     finally:
         dist.destroy_process_group()
     print(gpu_line())
-    print(json.dumps(dict(n=FULL_N, **full)))
+    print(json.dumps(dict(lw=dict(n=FULL_N, **full), sharded_chain=chain)))
     return 0
 
 

@@ -3,8 +3,9 @@
 Counterpart of :mod:`repro.core.api`, for the parts this port runs: the
 NN-chain engine (dense, and matrix-free on points) behind the default
 knobs, the Lance-Williams merge loop on the serial and kernel backends,
-the landmark tier, the paper's distributed LW loop over the ranks of a
-``torch.distributed`` group (``backend="distributed"``), and
+the landmark tier, the paper's distributed LW loop and the sharded
+matrix-free chain over the ranks of a ``torch.distributed`` group
+(``backend="distributed"``), and
 :func:`cluster_batch` for many small problems at once (shape buckets on
 the serial and kernel backends, or whole problems dealt to the ranks).
 ``cluster(...)`` takes raw ``(n, d)`` points, ``(n, atoms, 3)``
@@ -29,7 +30,11 @@ import torch.distributed as dist
 from repro_torch.core import dendrogram as dg
 from repro_torch.core.batched import BatchStats, batch_ring, bucket_n, cluster_batch_merges
 from repro_torch.core.distance import pairwise_euclidean, pairwise_rmsd, pairwise_sq_euclidean
-from repro_torch.core.distributed import distributed_lance_williams, require_ring_mesh
+from repro_torch.core.distributed import (
+    distributed_lance_williams,
+    distributed_nn_chain_from_points,
+    require_ring_mesh,
+)
 from repro_torch.core.engine import resolve_device, symmetrize
 from repro_torch.core.linkage import METHODS, default_metric
 from repro_torch.core.nnchain import (
@@ -259,10 +264,15 @@ def cluster(
     (:func:`repro_torch.core.landmark.landmark_cluster`) on points or
     conformations, with ``n_landmarks``, ``seed`` and ``refine``; an
     explicit ``n_landmarks`` or ``refine`` makes ``"auto"`` mean it and
-    contradicts any other explicit engine.  Engines not ported yet (the
-    sharded matrix-free chain, ``backend="distributed"`` with
-    ``algorithm="nnchain"``, and the two-phase engine) raise
-    ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+    contradicts any other explicit engine.  ``backend="distributed"`` with
+    ``algorithm="nnchain"`` is the sharded matrix-free chain
+    (:func:`repro_torch.core.distributed.distributed_nn_chain_from_points`
+    over the ranks of ``mesh``): ``(n, d)`` points of a
+    ``ward``/``average``/``weighted`` run under the squared-Euclidean
+    convention, no matrix kept (``distances`` is ``None``); anything else
+    raises the JAX package's ``ValueError``.  The two-phase engine is not
+    ported yet and raises ``NotImplementedError`` naming its ROADMAP.md
+    item.
     ``device`` defaults to CUDA and raises without it; ``device="cpu"``
     runs the plain torch versions of the kernels.
     ``keep_inputs`` stores the input on the result (for
@@ -324,29 +334,28 @@ def cluster(
     algorithm = resolve_algorithm(algorithm, method=method, backend=backend, n=n,
                                   variant=variant, compaction=compaction)
 
-    if algorithm == "nnchain" and backend == "distributed":
-        points_capable = (points is not None and points.ndim == 2
-                          and method in POINTS_METHODS and used_metric == "sqeuclidean")
-        if matrix_free is False or not points_capable:
-            raise ValueError(
-                "backend='distributed' with algorithm='nnchain' is the sharded "
-                "matrix-free chain: it needs (n, d) points input, a method from "
-                f"{POINTS_METHODS} under the squared-Euclidean convention, and "
-                f"matrix_free left on (got method={method!r}, metric={used_metric!r}, "
-                f"matrix_free={matrix_free!r}, input shape "
-                f"{None if points is None else points.shape}) — use algorithm='lw' for "
-                "the dense row-sharded engine"
-            )
-        raise NotImplementedError(
-            "backend='distributed' with algorithm='nnchain' (the sharded matrix-free "
-            "chain) is not ported yet: ROADMAP.md A7.2"
-        )
     if algorithm == "nnchain":
-        use_points = resolve_matrix_free(
-            matrix_free, points_shape=None if points is None else points.shape,
-            method=method, metric=used_metric, n=n,
-        )
-        if use_points:
+        if backend == "distributed":
+            # the sharded matrix-free chain is the only distributed chain:
+            # it needs the points capability, and matrix_free=False
+            # contradicts it
+            points_capable = (points is not None and points.ndim == 2
+                              and method in POINTS_METHODS and used_metric == "sqeuclidean")
+            if matrix_free is False or not points_capable:
+                raise ValueError(
+                    "backend='distributed' with algorithm='nnchain' is the sharded "
+                    "matrix-free chain: it needs (n, d) points input, a method from "
+                    f"{POINTS_METHODS} under the squared-Euclidean convention, and "
+                    f"matrix_free left on (got method={method!r}, metric={used_metric!r}, "
+                    f"matrix_free={matrix_free!r}, input shape "
+                    f"{None if points is None else points.shape}) — use algorithm='lw' "
+                    "for the dense row-sharded engine"
+                )
+            res = distributed_nn_chain_from_points(points, method,
+                                                   ring or require_ring_mesh(None, dev))
+        elif resolve_matrix_free(matrix_free,
+                                 points_shape=None if points is None else points.shape,
+                                 method=method, metric=used_metric, n=n):
             res = nn_chain_from_points(points, method, device=dev)
         else:
             if points is not None:

@@ -181,6 +181,20 @@ def kabsch_rmsd(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
                                  A.shape[-2])
 
 
+def _covariances(a: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``(rows, atoms, 3) × (m, atoms, 3) → (rows, m, 3, 3)`` cross-covariances
+    ``H = aᵀ b`` of every pair, summed atom by atom with ``addcmul_``: one
+    fused multiply-add an atom, in atom order, on every device, so the CPU
+    and the card round alike (on chip_smoke's conformations, bit for bit
+    each other and ``einsum``).  No matrix-product library call: a CPU
+    build through one batched ``sgemm`` a chunk once came out 9.2·10⁻⁴ off
+    the float64 Kabsch value at one pair (ROADMAP.md C.1)."""
+    H = torch.zeros((a.shape[0], B.shape[0], 3, 3), dtype=torch.float32, device=a.device)
+    for k in range(a.shape[1]):
+        H.addcmul_(a[:, None, k, :, None], B[None, :, k, None, :])
+    return H
+
+
 def _rmsd_grid(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """``(n, atoms, 3) × (m, atoms, 3) → (n, m)`` RMSD of centered
     conformations, a block of rows of the pair grid at a time."""
@@ -190,9 +204,7 @@ def _rmsd_grid(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     sq_a, sq_b = (A * A).sum((-2, -1)), (B * B).sum((-2, -1))
     rows = max(1, RMSD_CHUNK_PAIRS // max(m, 1))
     for r0 in range(0, n, rows):
-        a = A[r0:r0 + rows]
-        with full_fp32_matmul():
-            H = torch.einsum("iap,jaq->ijpq", a, B)          # (rows, m, 3, 3)
+        H = _covariances(A[r0:r0 + rows], B)                # (rows, m, 3, 3)
         out[r0:r0 + rows] = _rmsd_from_covariance(H, sq_a[r0:r0 + rows, None], sq_b[None],
                                                   atoms)
     return out

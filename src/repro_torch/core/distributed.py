@@ -22,6 +22,14 @@ so a rank holds ``n²/p`` cells, then ``size²/p`` as the run goes on.  The
 merges equal the serial backend's (:func:`repro_torch.core.lance_williams.lance_williams`)
 bit for bit, for every method and variant.
 
+The sharded **matrix-free NN chain** (:func:`distributed_nn_chain_from_points`)
+takes the paper's storage argument past n²/p: the ``(n, d)`` points are
+block-row sharded, the O(n) summary bookkeeping is replicated, and each
+trip builds only the rank's slice of the chain tip's row (kernel B5's row
+entry on the card), with three small collectives a trip: O(n·d/p + n) a
+rank.  A segmented driver retries a segment after a simulated shard loss
+and can shrink onto a smaller ring (:mod:`repro_torch.checkpoint.elastic`).
+
 The ring is :class:`Ring`, a small dataclass over a ``ProcessGroup`` with
 this process's rank, the group's size and the rank's device, not a
 ``DeviceMesh``: one group and one device are all the engine uses.
@@ -42,9 +50,13 @@ else ``all_gather_into_tensor`` and ``reduce_scatter_tensor``).
 from __future__ import annotations
 
 import math
+import os
+import time
+import warnings
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -58,7 +70,10 @@ from repro_torch.core.engine import (
     run_sharded,
     symmetrize,
 )
+from repro_torch.core.nnchain import POINTS_METHODS, summary_distance, summary_merge
+from repro_torch.distributed.fault import SimulatedFailure, StepDeadline
 from repro_torch.distributed.sharding import shard_rows
+from repro_torch.obs import NULL_TRACER, Tracer, get_registry
 
 #: ``kind`` of :func:`distributed_pairwise`.
 PAIRWISE_KINDS = ("sqeuclidean", "euclidean", "cosine", "rmsd")
@@ -134,6 +149,20 @@ def ring_of(group, device) -> Ring:
     return Ring(group, dist.get_rank(group), dist.get_world_size(group), dev)
 
 
+def sub_ring(ranks, device=None) -> Ring:
+    """The ring over ``ranks`` of the default group, in ascending order, on
+    ``device`` (CUDA unless the caller names another): a smaller ring for
+    the matrix-free chain's elastic shrink.  Every rank of the world must
+    call it (``dist.new_group``); a rank outside ``ranks`` gets a ring with
+    rank -1 and the ring's size, which runs no collective."""
+    ranks = sorted(int(r) for r in ranks)
+    group = dist.new_group(ranks)
+    dev = torch.device("cuda" if device is None else device)
+    if dist.get_rank() in ranks:
+        return ring_of(group, dev)
+    return Ring(group, -1, len(ranks), resolve_device(dev))
+
+
 def make_cluster_mesh(device=None) -> Ring:
     """The ring over every rank of the default process group, on ``device``
     (CUDA unless the caller names another, as
@@ -143,6 +172,12 @@ def make_cluster_mesh(device=None) -> Ring:
     dev = torch.device("cuda" if device is None else device)
     if not dist.is_initialized():
         resolve_device(dev)         # no GPU: raise before bringing anything up
+        if dev.type == "cuda" and "TORCH_NCCL_TRACE_BUFFER_SIZE" not in os.environ:
+            # a rank with no peer has no hang to record: the NCCL flight
+            # recorder keeps each collective's Python stack, 90-180 us of host
+            # a call on one rank (an H100 host, PERF.md), and a chain trip
+            # makes three (TORCH_NCCL_TRACE_BUFFER_SIZE is its older name)
+            os.environ.setdefault("TORCH_FR_BUFFER_SIZE", "0")
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                                 store=dist.HashStore(), rank=0, world_size=1)
     return ring_of(dist.group.WORLD, dev)
@@ -320,3 +355,385 @@ def distributed_pairwise(X, kind: str = "sqeuclidean", mesh=None) -> ShardedMatr
     block = 0.5 * (block + transposed)
     block.diagonal(ring.rank * rows).fill_(0.0)
     return ShardedMatrix(block, n, n_pad, ring)
+
+
+# ---------------------------------------------------------------------------
+# the sharded matrix-free NN chain: O(n·d/p + n) a rank
+# ---------------------------------------------------------------------------
+
+
+class DistributedChainResult(NamedTuple):
+    """The sharded chain's merges and the segmented driver's telemetry.
+
+    ``merges`` ``(n − 1, 4)`` rows ``(i, j, dist, new_size)`` in chain order
+    (the first ``n_merges`` are the run's), replicated on every rank;
+    ``restarts``, ``stragglers`` and ``segments`` count the driver's
+    same-segment retries, the segments past the deadline and the segments
+    dispatched (the same counts land on the metrics registry); ``iters``
+    the chain trips made.  ``dropped`` marks a rank outside the fallback
+    ring of an elastic shrink: it stopped at the shrink, and its merges are
+    the ``n_merges`` committed before it.
+    """
+
+    merges: torch.Tensor
+    n_merges: int
+    restarts: int = 0
+    stragglers: int = 0
+    segments: int = 0
+    iters: int = 0
+    dropped: bool = False
+
+
+@dataclass(eq=False)
+class _ChainState:
+    """One rank's sharded chain, updated in place: its block ``W`` of the
+    summary points and, replicated, the scatter terms ``u``, ``alive``,
+    ``sizes`` and the merge record (heights and sizes) on the device; the
+    chain stack, the merged slots, a host mirror of ``alive`` and the trip
+    count on the host.  Each trip's decision comes from collectives, so
+    every rank holds the same of all but ``W``."""
+
+    W: torch.Tensor
+    u: torch.Tensor
+    alive: torch.Tensor
+    sizes: torch.Tensor
+    merges: torch.Tensor
+    live: np.ndarray
+    chain: list
+    pairs: list
+    inf: torch.Tensor               # a 0-d inf: prev's value on a rank that does not own it
+    iters: int = 0
+    stopped: bool = False           # a NaN row: no candidate
+
+    def result(self, **telemetry) -> DistributedChainResult:
+        if self.pairs:
+            self.merges[: len(self.pairs), :2] = torch.tensor(
+                self.pairs, dtype=torch.float32, device=self.merges.device)
+        return DistributedChainResult(merges=self.merges, n_merges=len(self.pairs),
+                                      iters=self.iters, **telemetry)
+
+
+def _chain_state(X: torch.Tensor, ring: Ring) -> _ChainState:
+    """The first state of a sharded chain of the ``(n, d)`` points ``X`` on
+    ``ring``: ``X`` padded to :func:`pad_to_mesh` (padding slots born dead,
+    of size 0), this rank's block of rows copied to its device, every slot
+    a leaf."""
+    n, d = X.shape
+    n_pad = pad_to_mesh(n, ring.size)
+    if n_pad != n:
+        X = torch.cat((X, X.new_zeros((n_pad - n, d))))
+    dev = ring.device
+    alive = torch.arange(n_pad, device=dev) < n
+    return _ChainState(W=shard_rows(X, ring).clone(), u=torch.zeros(n_pad, device=dev),
+                       alive=alive, sizes=alive.to(torch.float32),
+                       merges=torch.zeros((n - 1, 4), dtype=torch.float32, device=dev),
+                       live=np.arange(n_pad) < n, chain=[], pairs=[],
+                       inf=torch.full((), torch.inf, device=dev))
+
+
+def _owner_row(ring: Ring, W: torch.Tensor, slot: int) -> torch.Tensor:
+    """Summary ``slot`` on every rank: its owner contributes the row, every
+    other rank zeros, and one ``all_reduce`` sums them (``x + 0`` is exact,
+    so the row arrives bit for bit).  O(d)."""
+    rows = W.shape[0]
+    local = slot - ring.rank * rows
+    row = W[local].clone() if 0 <= local < rows else W.new_zeros(W.shape[1])
+    return ring.all_reduce(row)
+
+
+def _chain_trip(method: str, s: _ChainState, ring: Ring) -> None:
+    """One trip of the chain over ``ring``, exactly three collectives: the
+    tip's summary by an owner-contributes ``all_reduce`` (O(d)); one
+    ``all_gather`` of each rank's ``(local min, first local argmin, masked
+    value at prev)`` as float32 (the slot is exact below 2²⁴), read back:
+    the trip's one wait for the device; the elected candidate's summary by
+    another owner-contributes ``all_reduce``, made on a push as on a merge.
+    The rank's slice of the row is
+    :func:`~repro_torch.kernels.pairwise.row_sq_euclidean` (B5 on a CUDA
+    tensor) and the summary distance, masked as the serial loop masks it.
+    Every rank elects on the host from the same values: the global
+    minimum, the first rank attaining it and its first local slot; the
+    previous chain element wins a tie, and a NaN minimum stops the chain.
+    Scalars go to the device by ``fill_``, which copies nothing from the
+    host."""
+    from repro_torch.kernels.pairwise import row_sq_euclidean
+
+    W = s.W
+    rows = W.shape[0]
+    offset = ring.rank * rows
+    n_pad = s.alive.shape[0]
+    if not s.chain:
+        s.chain.append(int(np.argmax(s.live)))             # first live slot
+    top = s.chain[-1]
+    prev = s.chain[-2] if len(s.chain) >= 2 else None
+    mine = slice(offset, offset + rows)
+    w_top = _owner_row(ring, W, top)                        # collective 1
+    sq = row_sq_euclidean(w_top, W)
+    row = summary_distance(method, sq, s.u[mine], s.u[top], s.sizes[mine], s.sizes[top])
+    row = torch.where(s.alive[mine], row, torch.inf)
+    if offset <= top < offset + rows:
+        row[top - offset].fill_(torch.inf)
+    lmin, larg = row.min(0)                                # the first index of the minimum
+    pval = row[prev - offset] if prev is not None and offset <= prev < offset + rows else s.inf
+    # collective 2: every rank's (min, first argmin, prev's value), read back
+    votes = ring.all_gather(torch.stack((lmin, larg.to(torch.float32), pval)))
+    v = votes.tolist()
+    mins = v[0::3]
+    if any(x != x for x in mins):                          # a NaN row: no candidate
+        win, c = None, n_pad
+    else:
+        m = min(mins)
+        win = mins.index(m)                                # the first rank with the least
+        c = int(v[3 * win + 1]) + win * rows
+        if prev is not None and min(v[2::3]) == m:         # the previous element wins ties
+            c = prev
+    w_c = _owner_row(ring, W, c)                           # collective 3, on a push too
+    s.iters += 1
+    if win is None:
+        s.stopped = True
+    elif c == prev:                                        # mutual nearest neighbors
+        i, j = min(top, c), max(top, c)
+        w_i, w_j = (w_top, w_c) if top < c else (w_c, w_top)
+        n_i, n_j = s.sizes[i], s.sizes[j]
+        new_size = n_i + n_j
+        w_new, u_new = summary_merge(method, w_i, w_j, s.u[i], s.u[j], n_i, n_j)
+        if offset <= i < offset + rows:
+            W[i - offset] = w_new
+        s.u[i] = u_new
+        s.merges[len(s.pairs), 2:] = torch.stack((votes[3 * win], new_size))
+        s.sizes[i] = new_size
+        s.sizes[j].fill_(0.0)
+        s.alive[j].fill_(False)
+        s.live[j] = False
+        s.pairs.append((i, j))
+        del s.chain[-2:]
+    else:
+        s.chain.append(c)
+
+
+def _run_sharded_chain(method: str, s: _ChainState, ring: Ring, target: int) -> int:
+    """The trips of one segment: until ``target`` merges are committed, the
+    trip cap of ``4·n_pad + 8`` is reached or a NaN row stops the chain.
+    Returns the merges committed."""
+    cap = 4 * s.alive.shape[0] + 8
+    while len(s.pairs) < target and s.iters < cap and not s.stopped:
+        _chain_trip(method, s, ring)
+    return len(s.pairs)
+
+
+def _fault_event(log, msg: str) -> None:
+    if log is not None:
+        log(msg)
+    else:
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
+
+
+#: Logical → ring axis mapping of the sharded chain state: only the summary
+#: rows are sharded, over the paper's ring axis; the rest is replicated.
+_CHAIN_ROW_RULES = {"rows": ("p",)}
+
+
+def _chain_state_specs(n_pad: int, d: int, n: int) -> tuple:
+    """The sharded chain state as :class:`~repro_torch.checkpoint.elastic.ParamSpec`
+    leaves, in the reference's state order."""
+    from repro_torch.checkpoint.elastic import ParamSpec
+
+    rep = ParamSpec((n_pad,), (None,))
+    scalar = ParamSpec((), ())
+    return (
+        ParamSpec((n_pad, d), ("rows", None)),          # W
+        rep,                                            # u
+        rep,                                            # alive
+        rep,                                            # sizes
+        rep,                                            # chain
+        scalar,                                         # chain_len
+        ParamSpec((n - 1, 4), (None, None)),            # merges
+        scalar,                                         # n_merges
+        scalar,                                         # iters
+    )
+
+
+def _shrink_chain_state(s: _ChainState, ring: Ring, fallback: Ring, *, n_pad: int, d: int,
+                        n: int, cause, log) -> None:
+    """Validate the fallback ring, then move the summary rows onto it.
+
+    The validation runs before any state moves
+    (:func:`~repro_torch.checkpoint.elastic.validate_mesh_for_tree`), so an
+    incompatible fallback fails with the offending leaves and axes named
+    and the state still whole on the old ring.  Then one ``all_gather`` on
+    the old ring (the failure is simulated: every rank is still up) and
+    each fallback rank keeps its block; a rank outside the fallback keeps
+    none (``s.W`` becomes ``None``)."""
+    from repro_torch.checkpoint.elastic import reshard_rows, validate_mesh_for_tree
+
+    problems = validate_mesh_for_tree(_chain_state_specs(n_pad, d, n), _CHAIN_ROW_RULES,
+                                      fallback)
+    if problems:
+        raise RuntimeError(
+            f"restart budget exhausted on the p={ring.size} ring, and the fallback ring "
+            f"(p={fallback.size}) cannot hold the sharded chain state:"
+            "\n  " + "\n  ".join(problems) + "\n"
+            "the last consistent state is still on the original ring — pick a fallback "
+            "whose size divides the padded row count"
+        ) from cause
+    _fault_event(
+        log,
+        f"[fault] restart budget exhausted on p={ring.size} — resharding the chain state "
+        f"onto the p={fallback.size} fallback ring and continuing (same segment, fresh "
+        "budget; no merges lost)",
+    )
+    s.W = reshard_rows(s.W, ring, fallback)
+
+
+def distributed_nn_chain_from_points(
+    X,
+    method: str = "ward",
+    mesh=None,
+    *,
+    segment_steps: int | None = None,
+    failure_plan=None,
+    max_restarts: int = 2,
+    fallback_mesh=None,
+    deadline: StepDeadline | None = None,
+    log=None,
+    tracer: Tracer | None = None,
+) -> DistributedChainResult:
+    """Sharded matrix-free agglomeration of ``(n, d)`` points across every
+    rank of ``mesh`` (:func:`require_ring_mesh`; the default ring when
+    ``None``): the exact serial NN chain with **O(n·d/p + n)** memory a
+    rank.
+
+    SPMD: every rank calls it with the same arguments.  The points are
+    padded (:func:`pad_to_mesh`; padding slots are born dead) and each rank
+    keeps its block of rows; ``u``, ``alive``, ``sizes`` and the merge
+    record are replicated, and the chain stack lives on the host.  Each
+    trip makes three collectives and one read-back
+    (:func:`_chain_trip`).  Merges come back in chain order on every rank,
+    equal bit for bit to the serial host-driven points chain with the same
+    row build (:func:`repro_torch.core.nnchain._chain_loop` over
+    ``_points_nnchain_ops``); canonicalize with
+    :func:`repro_torch.core.dendrogram.canonical_order` before cutting
+    (``cluster(algorithm="nnchain", backend="distributed")`` does).  The
+    reference's TPU knobs (``use_pallas``, ``block_n``, ``interpret``) are
+    not taken: B5 masks its own ragged edge.
+
+    **Fault tolerance** (:mod:`repro_torch.distributed.fault`): with
+    ``segment_steps`` the run goes in segments of that many merges;
+    ``failure_plan.check(segment)`` injects a shard loss before a segment,
+    and recovery retries the same segment from the committed state (no
+    merge is lost), at most ``max_restarts`` times running, then raises a
+    ``RuntimeError``.  A :class:`~repro_torch.distributed.fault.StepDeadline`
+    flags segments that straggle.  Events go to ``log``, else to a
+    ``RuntimeWarning``.
+
+    **Elastic shrink**: with a ``fallback_mesh`` (a ring over the first
+    ``p'`` ranks, which every rank builds beforehand, e.g. with
+    :func:`sub_ring`), exhausting the restart budget validates the state
+    against the fallback (a ``RuntimeError`` naming the offending leaves
+    and axes, before any state moves), moves the summary rows onto it and
+    retries the same segment there with a fresh budget; one shrink a run.
+    The ranks outside the fallback make no further collective: they return
+    the merges committed before the shrink, marked ``dropped`` (the JAX
+    package has no ranks to drop: its mesh just gets smaller).
+
+    **Telemetry**: the result carries ``restarts``, ``stragglers`` and
+    ``segments``; the registry (:func:`repro_torch.obs.get_registry`)
+    counts ``distributed_chain_segments_total``, ``..._restarts_total``,
+    ``..._straggler_segments_total`` and ``..._shrinks_total``; with a
+    ``tracer`` each segment dispatch is a ``chain_segment`` span (a failed
+    one with ``error="shard-lost"``).
+    """
+    if method not in POINTS_METHODS:
+        raise ValueError(
+            f"the sharded matrix-free chain supports {POINTS_METHODS} "
+            f"(their LW distance is a geometric-summary function), got "
+            f"{method!r} — use the dense distributed LW engine instead"
+        )
+    X = torch.as_tensor(X, dtype=torch.float32)
+    if X.ndim != 2:
+        raise ValueError(f"expected (n, d) points, got {tuple(X.shape)}")
+    ring = require_ring_mesh(mesh)
+    n, d = X.shape
+    if n < 2:
+        return DistributedChainResult(
+            merges=torch.zeros((0, 4), dtype=torch.float32, device=ring.device), n_merges=0)
+    fallback = None if fallback_mesh is None else require_ring_mesh(fallback_mesh, ring.device)
+    s = _chain_state(X, ring)
+    n_pad = s.alive.shape[0]
+
+    n_steps = n - 1
+    seg = n_steps if segment_steps is None else max(1, int(segment_steps))
+    tracer = tracer or NULL_TRACER
+    reg = get_registry()
+    seg_counter = reg.counter("distributed_chain_segments_total", "Segment dispatches")
+    restart_counter = reg.counter("distributed_chain_restarts_total",
+                                  "Shard-loss same-segment retries")
+    straggler_counter = reg.counter("distributed_chain_straggler_segments_total",
+                                    "Segments past the straggler deadline")
+    shrink_counter = reg.counter("distributed_chain_shrinks_total",
+                                 "Elastic reshard-to-fallback-mesh events")
+    done, seg_idx, restarts, stragglers = 0, 0, 0, 0
+    while done < n_steps:
+        target = min(done + seg, n_steps)
+        t0 = time.perf_counter()
+        try:
+            if failure_plan is not None:
+                failure_plan.check(seg_idx)
+            made = _run_sharded_chain(method, s, ring, target)
+        except SimulatedFailure as e:
+            restarts += 1
+            restart_counter.inc()
+            tracer.add_span("chain_segment", t0, time.perf_counter(), cat="distributed",
+                            segment=seg_idx, error="shard-lost", restarts=restarts)
+            if restarts > max_restarts:
+                if fallback is None:
+                    raise RuntimeError(
+                        f"distributed NN-chain lost a shard at segment {seg_idx} and "
+                        f"exceeded max_restarts={max_restarts} (committed {done}/{n_steps} "
+                        f"merges, p={ring.size}, n={n}); the last consistent sharded state "
+                        "is still on the ring — re-dispatch with a fresh failure budget to "
+                        "continue, or pass fallback_mesh= to shrink elastically"
+                    ) from e
+                # elastic shrink: validate, then move the rows; the same
+                # segment is retried on the smaller ring with a fresh budget
+                _shrink_chain_state(s, ring, fallback, n_pad=n_pad, d=d, n=n, cause=e,
+                                    log=log)
+                shrink_counter.inc()
+                if s.W is None:
+                    _fault_event(log, f"[fault] rank {ring.rank} is outside the "
+                                      f"p={fallback.size} fallback ring: it stops with the "
+                                      f"{done} merges committed before the shrink")
+                    return s.result(restarts=restarts, stragglers=stragglers,
+                                    segments=seg_idx, dropped=True)
+                ring, fallback, restarts = fallback, None, 0     # one shrink a run
+                continue
+            _fault_event(
+                log,
+                f"[fault] {e} — retrying segment {seg_idx} ({restarts}/{max_restarts}); "
+                "the sharded state is the checkpoint, no merges lost",
+            )
+            continue
+        t1 = time.perf_counter()
+        dt = t1 - t0
+        seg_counter.inc()
+        tracer.add_span("chain_segment", t0, t1, cat="distributed", segment=seg_idx,
+                        merges_done=made, target=target)
+        if deadline is not None and deadline.observe(dt):
+            stragglers += 1
+            straggler_counter.inc()
+            _fault_event(
+                log,
+                f"[fault] segment {seg_idx} straggled ({dt:.3f}s > {deadline.factor}x "
+                "median) — delayed shard flagged; run continues",
+            )
+        seg_idx += 1
+        done = made
+        if made < target:               # the trip cap or a NaN row inside the segment
+            break
+    if done != n_steps:
+        raise RuntimeError(
+            "sharded NN-chain hit its iteration cap (or a NaN row) before finishing — "
+            "the input likely contains NaNs (the chain invariant needs a total order on "
+            f"distances); committed {done}/{n_steps} merges"
+        )
+    return s.result(restarts=restarts, stragglers=stragglers, segments=seg_idx)

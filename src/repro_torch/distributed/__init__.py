@@ -1,6 +1,5 @@
 """repro_torch.distributed — the sharding rules of the clustering engines'
-data, and the fault simulation and bounded retry of the service (the
-restartable step loop comes with ROADMAP.md A7.2)."""
+data, and the fault simulation, bounded retry and restartable step loop."""
 
 from repro_torch.distributed.fault import (
     FailurePlan,
@@ -8,8 +7,9 @@ from repro_torch.distributed.fault import (
     SimulatedFailure,
     StepDeadline,
     retry_call,
+    run_resilient_loop,
 )
 from repro_torch.distributed.sharding import replicate, shard_rows
 
 __all__ = ["FailurePlan", "RetryPolicy", "SimulatedFailure", "StepDeadline", "replicate",
-           "retry_call", "shard_rows"]
+           "retry_call", "run_resilient_loop", "shard_rows"]

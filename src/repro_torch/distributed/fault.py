@@ -1,13 +1,17 @@
-"""Fault-tolerance pieces the clustering service needs: failure
-injection, step deadlines (straggler detection) and bounded retry.
+"""Fault-tolerance runtime pieces: failure injection, step deadlines
+(straggler detection), bounded retry and the restartable step-loop
+driver.
 
 Counterpart of :mod:`repro.distributed.fault`, framework-free and copied
 here because the port imports nothing of the JAX package.  The failure
 signal of a real deployment comes from the runtime (a failed launch, a
-lost device); here it is *simulated*, so the recovery machinery (deadline
-flagging, bounded retry) is real code under test.  The restartable step
-loop (``run_resilient_loop``) comes with A7.2, the sharded matrix-free
-chain (ROADMAP.md).
+lost device, a preemption); here it is *simulated*, so the recovery
+machinery (resume from a checkpoint, deadline flagging, bounded retry) is
+real code under test.  The service retries with :func:`retry_call`; the
+sharded matrix-free chain (:func:`repro_torch.core.distributed.distributed_nn_chain_from_points`)
+retries a segment under a :class:`FailurePlan` and flags stragglers with a
+:class:`StepDeadline`; :func:`run_resilient_loop` drives any step
+function with checkpoint/restart semantics.
 
 Every fault event also lands on the process-global metrics registry
 (``fault_injected_failures_total`` / ``fault_deadline_exceeded_total`` /
@@ -150,3 +154,54 @@ def retry_call(
                 on_retry(attempt, exc)
             sleep(delay)
             attempt += 1
+
+
+def run_resilient_loop(
+    *,
+    start_step: int,
+    total_steps: int,
+    step_fn: Callable[[int], dict],
+    save_fn: Callable[[int], None],
+    restore_fn: Callable[[], int],
+    save_every: int = 50,
+    max_restarts: int = 3,
+    failure_plan: FailurePlan | None = None,
+    deadline: StepDeadline | None = None,
+    log: Callable[[str], None] = print,
+) -> int:
+    """Run steps with checkpoint/restart semantics.  Returns final step.
+
+    On failure: restore from the latest committed checkpoint and continue
+    (bounded by ``max_restarts``).  A step past the deadline forces an
+    early checkpoint.  Whatever the steps read must be part of the
+    checkpointed state for the restart to be exact.
+    """
+    restarts = 0
+    step = start_step
+    while step < total_steps:
+        try:
+            t0 = time.perf_counter()
+            if failure_plan is not None:
+                failure_plan.check(step)
+            metrics = step_fn(step)
+            dt = time.perf_counter() - t0
+            if deadline is not None and deadline.observe(dt):
+                log(f"[fault] step {step}: straggler detected "
+                    f"({dt:.3f}s > {deadline.factor}× median) — "
+                    f"forcing early checkpoint")
+                save_fn(step)
+            if (step + 1) % save_every == 0 or step + 1 == total_steps:
+                save_fn(step + 1)
+            step += 1
+            if metrics and step % 10 == 0:
+                log(f"[train] step {step}: " + ", ".join(
+                    f"{k}={v:.4f}" for k, v in metrics.items()))
+        except SimulatedFailure as e:
+            restarts += 1
+            if restarts > max_restarts:
+                raise RuntimeError(
+                    f"exceeded max_restarts={max_restarts}") from e
+            log(f"[fault] {e} — restarting from latest checkpoint "
+                f"({restarts}/{max_restarts})")
+            step = restore_fn()
+    return step

@@ -116,13 +116,35 @@ def test_lw_knobs_match_reference(n, method, knobs):
 
 @pytest.mark.parametrize("method,knobs", [
     ("complete", dict(algorithm="twophase")),
-    # the sharded matrix-free chain comes with A7.2
-    ("ward", dict(algorithm="nnchain", backend="distributed")),
 ])
 def test_knobs_not_ported_raise(method, knobs):
     X = np.zeros((6, 3), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         cluster(X, method, device="cpu", **knobs)
+
+
+def test_distributed_chain_route():
+    """``algorithm="nnchain", backend="distributed"`` is the sharded
+    matrix-free chain on the default ring (a world-size-1 gloo group for
+    ``device="cpu"``, torn down after): the serial matrix-free chain's
+    merges, reported as the JAX package reports them, no matrix kept."""
+    import torch.distributed as dist
+
+    X = gaussian_mixture(seed=3, n=60, dim=8, return_labels=False)
+    try:
+        got = cluster(X, "ward", algorithm="nnchain", backend="distributed", device="cpu")
+        want = jcluster(X, "ward", algorithm="nnchain", backend="distributed")
+        assert (got.backend, got.algorithm) == (want.backend, want.algorithm)
+        assert (got.backend, got.algorithm) == ("distributed", "nnchain")
+        assert got.distances is None and want.distances is None
+        np.testing.assert_array_equal(
+            got.merges,
+            cluster(X, "ward", algorithm="nnchain", matrix_free=True, device="cpu").merges)
+        np.testing.assert_array_equal(got.merges[:, [0, 1, 3]], want.merges[:, [0, 1, 3]])
+        np.testing.assert_allclose(got.merges[:, 2], want.merges[:, 2], rtol=1e-4, atol=1e-5)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_distributed_backend_on_one_rank():

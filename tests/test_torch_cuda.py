@@ -1649,6 +1649,22 @@ def test_cuda_rmsd_repeated_builds_match_cpu(cuda):
         torch.testing.assert_close(b, cpu, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.cuda
+def test_cuda_rmsd_covariances_equal_cpu(cuda):
+    """The pair grid's covariances of phase 12's first chunk (532 × 1968
+    pairs), summed atom by atom with one fused multiply-add an atom: bit
+    for bit the CPU's, so that the two builds differ only in the 3 × 3
+    singular values and determinants."""
+    from repro_torch.core.distance import RMSD_CHUNK_PAIRS, _center, _covariances
+    from repro_torch.data.synthetic import conformations
+
+    C, _ = conformations(seed=0, n=RMSD_N, atoms=RMSD_ATOMS)
+    A = _center(torch.tensor(C))
+    rows = RMSD_CHUNK_PAIRS // RMSD_N
+    got = _covariances(A[:rows].to(cuda), A.to(cuda))
+    assert torch.equal(got.cpu(), _covariances(A[:rows], A))
+
+
 # ---------------------------------------------------------------------------
 # the distributed LW loop on a world-size-1 NCCL group
 # ---------------------------------------------------------------------------
@@ -1757,3 +1773,99 @@ def test_cuda_nccl_group_refuses_cpu_tensors(nccl_ring):
     assert (nccl_ring.size, nccl_ring.device.type) == (1, "cuda")
     with pytest.raises(ValueError, match="nccl"):
         make_cluster_mesh("cpu")
+
+
+# ---------------------------------------------------------------------------
+# the sharded matrix-free chain on a world-size-1 NCCL group
+# ---------------------------------------------------------------------------
+
+
+def host_points_chain(X, method):
+    """The host-driven matrix-free chain loop on the card, its row built by
+    B5's row entry: the sharded chain's bit-for-bit yardstick."""
+    n = X.shape[0]
+    W = torch.as_tensor(X, dtype=torch.float32, device="cuda").clone()
+    state = nnchain._init_state((W, torch.zeros(n, device="cuda")), n, "cuda")
+    ops = nnchain._points_nnchain_ops(method, pairwise.row_sq_euclidean)
+    return nnchain._chain_loop(ops, state, n - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", nnchain.POINTS_METHODS)
+def test_cuda_distributed_chain_matches_host_loop(method, nccl_ring):
+    """The sharded chain on one NCCL rank at the paper's size (n = 1968,
+    d = 64): bit for bit the host-driven loop with B5's row on the card,
+    trips included; one B5 row launch and three collectives a trip, no
+    other kernel; the resident chain's dendrogram."""
+    from repro_torch.core.dendrogram import canonical_order, merges_equivalent
+    from repro_torch.core.distributed import distributed_nn_chain_from_points
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    n = 1968
+    X = gaussian_mixture(seed=5, n=n, dim=64, return_labels=False)
+    want = host_points_chain(X, method)
+    rows, collectives = pairwise.row_sq_euclidean.launches, nccl_ring.collectives
+    others = (kernel_launches(), pairwise.chain_trip.launches)
+    got = distributed_nn_chain_from_points(X, method, nccl_ring)
+    assert got.merges.device.type == "cuda" and got.n_merges == n - 1
+    assert torch.equal(got.merges, want.merges)
+    assert got.iters == want.iters
+    assert pairwise.row_sq_euclidean.launches - rows == got.iters
+    assert nccl_ring.collectives - collectives == 3 * got.iters
+    assert (kernel_launches(), pairwise.chain_trip.launches) == others
+    resident = nnchain.nn_chain_from_points(X, method)
+    assert merges_equivalent(canonical_order(got.merges.cpu().numpy(), n=n),
+                             canonical_order(resident.merges.cpu().numpy(), n=n), n=n)
+
+
+@pytest.mark.cuda
+def test_cuda_distributed_chain_segmented(nccl_ring):
+    """A segmented run with a lost shard at segment 1 and a deadline that
+    flags every segment after the first: the unsegmented run's merges, one
+    restart, four segments, and B5's launches still the trips."""
+    from repro_torch.core.distributed import distributed_nn_chain_from_points
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.distributed.fault import FailurePlan, StepDeadline
+
+    n = 1968
+    X = gaussian_mixture(seed=6, n=n, dim=64, return_labels=False)
+    whole = distributed_nn_chain_from_points(X, "ward", nccl_ring)
+    events, rows = [], pairwise.row_sq_euclidean.launches
+    seg = distributed_nn_chain_from_points(X, "ward", nccl_ring, segment_steps=500,
+                                           failure_plan=FailurePlan(fail_at=(1,)),
+                                           deadline=StepDeadline(factor=0.0, warmup=1),
+                                           log=events.append)
+    assert torch.equal(seg.merges, whole.merges)
+    assert (seg.restarts, seg.segments, seg.iters) == (1, 4, whole.iters)
+    assert seg.stragglers >= 1
+    assert any("retrying segment" in e for e in events)
+    assert pairwise.row_sq_euclidean.launches - rows == seg.iters
+
+
+@pytest.mark.cuda
+def test_cuda_distributed_chain_one_read_back_a_trip(nccl_ring):
+    """Under the sync debug mode "warn", a run waits for the card once a
+    trip (the candidate) and at most twice more (the points' upload, the
+    merge record's slots)."""
+    import collections
+    import warnings
+
+    from repro_torch.core.distributed import distributed_nn_chain_from_points
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    X = gaussian_mixture(seed=7, n=300, dim=32, return_labels=False)
+    want = distributed_nn_chain_from_points(X, "average", nccl_ring)    # warms NCCL up
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = distributed_nn_chain_from_points(X, "average", nccl_ring)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the mode's own first-use notice ("... does not yet detect all synchronizing
+    # operations") is no sync
+    syncs = [w for w in seen if "called a synchronizing" in str(w.message)]
+    where = collections.Counter(f"{w.filename}:{w.lineno}" for w in syncs)
+    assert torch.equal(got.merges, want.merges)
+    assert got.iters <= len(syncs) <= got.iters + 2, (len(syncs), got.iters, where.most_common(8))

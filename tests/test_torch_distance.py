@@ -185,6 +185,37 @@ def test_phase_12_worst_pair_matches_reference():
     np.testing.assert_allclose(got + [want], exact, rtol=0, atol=RMSD_ATOL)
 
 
+def test_phase_15_failing_pair_matches_reference():
+    """The pair (18, 54) of the same conformations, where one CPU build
+    once read 2.8550088 against the card's 2.8559260 (ROADMAP.md C.1): the
+    port's Kabsch RMSD and its whole-set pair grid on the CPU against the
+    JAX package's ``kabsch_rmsd`` and a float64 Kabsch (2.8559259)."""
+    C, _ = conformations(seed=0, n=1968, atoms=24)
+    A, B = (x.astype(np.float64) - x.mean(0) for x in (C[18], C[54]))
+    S = np.linalg.svd(A.T @ B, compute_uv=False)
+    corr = S[0] + S[1] + np.sign(np.linalg.det(A.T @ B)) * S[2]
+    exact = np.sqrt(((A * A).sum() + (B * B).sum() - 2 * corr) / 24)
+    grid = tdist.pairwise_rmsd(t(C[:64]))
+    got = [float(tdist.kabsch_rmsd(t(C[18]), t(C[54]))), float(grid[18, 54]),
+           float(grid[54, 18])]
+    want = float(jdist.kabsch_rmsd(C[18], C[54]))
+    np.testing.assert_allclose(got, want, rtol=0, atol=RMSD_ATOL)
+    np.testing.assert_allclose(got + [want], exact, rtol=0, atol=RMSD_ATOL)
+
+
+@pytest.mark.parametrize("rows, m, atoms", [(1, 1, 1), (5, 7, 24), (33, 2, 9)])
+def test_covariances_match_float64(rows, m, atoms):
+    """The pair grid's covariances (summed atom by atom, no matrix-product
+    call) against float64 ``einsum``."""
+    rng = np.random.default_rng(rows * 100 + m)
+    a = rng.normal(size=(rows, atoms, 3)).astype(np.float32) * 5
+    b = rng.normal(size=(m, atoms, 3)).astype(np.float32) * 5
+    H = tdist._covariances(t(a), t(b))
+    assert H.shape == (rows, m, 3, 3) and H.dtype == torch.float32
+    want = np.einsum("iap,jaq->ijpq", a.astype(np.float64), b.astype(np.float64))
+    np.testing.assert_allclose(H.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_build_distance_matrix_rmsd_matches_reference():
     C, _ = conformations(2, 40, 12, k=4)
     got = build_distance_matrix(C, "rmsd", device="cpu")

@@ -200,7 +200,7 @@ import torch.distributed as dist
 rank = int(sys.argv[1])
 dist.init_process_group("gloo", init_method={init!r}, rank=rank, world_size={p},
                         timeout=timedelta(seconds={timeout}))
-import test_torch_distributed as cases
+import {module} as cases
 out = getattr(cases, {fn!r})()
 with open({out!r}.format(rank), "wb") as f:
     pickle.dump(out, f)
@@ -208,13 +208,16 @@ dist.destroy_process_group()
 """
 
 
-def run_ranks(p: int, fn: str, tmp: Path, timeout: float = GROUP_TIMEOUT_S) -> list:
-    """Run this module's ``fn`` on ``p`` gloo ranks, one process each, and
-    return each rank's result.  A rank that fails, or a group that outlives
-    ``timeout`` (every process is then killed), fails the caller with every
-    rank's output, tracebacks included."""
+def run_ranks(p: int, fn: str, tmp: Path, timeout: float = GROUP_TIMEOUT_S,
+              module: str = "test_torch_distributed") -> list:
+    """Run ``fn`` of the test module ``module`` (this one by default) on
+    ``p`` gloo ranks, one process each, and return each rank's result.  A
+    rank that fails, or a group that outlives ``timeout`` (every process is
+    then killed), fails the caller with every rank's output, tracebacks
+    included."""
     code = RANK_MAIN.format(src=str(SRC), tests=str(TESTS), init=f"file://{tmp / 'store'}",
-                            p=p, timeout=timeout, fn=fn, out=str(tmp / "rank{}.pkl"))
+                            p=p, timeout=timeout, fn=fn, out=str(tmp / "rank{}.pkl"),
+                            module=module)
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([str(SRC), os.environ.get("PYTHONPATH", "")]))
     logs = [tmp / f"rank{r}.log" for r in range(p)]
@@ -574,18 +577,20 @@ def test_cluster_distributed_on_one_rank(no_group):
 
 def test_distributed_chain_raises_as_reference(no_group):
     """``algorithm="nnchain"`` on the distributed backend is the sharded
-    matrix-free chain (A7.2): a matrix raises the reference's ValueError,
-    points of a points method raise NotImplementedError until A7.2."""
+    matrix-free chain: a matrix, a method that is not a points method, and
+    ``matrix_free=False`` raise the reference's ValueError in both packages
+    (the chain itself is held in test_torch_distributed_chain.py)."""
     from repro.core import cluster as jcluster
 
     D = lw_inputs()[24]
-    with pytest.raises(ValueError, match="sharded"):
-        jcluster(D, "complete", algorithm="nnchain", backend="distributed")
-    with pytest.raises(ValueError, match="sharded"):
-        cluster(D, "complete", algorithm="nnchain", backend="distributed", device="cpu")
     X, _ = api_input()
-    with pytest.raises(NotImplementedError, match="A7.2"):
-        cluster(X, "ward", algorithm="nnchain", backend="distributed", device="cpu")
+    for data, method, knobs in ((D, "complete", {}), (X, "single", {}),
+                                (X, "ward", dict(matrix_free=False))):
+        with pytest.raises(ValueError, match="sharded"):
+            jcluster(data, method, algorithm="nnchain", backend="distributed", **knobs)
+        with pytest.raises(ValueError, match="sharded"):
+            cluster(data, method, algorithm="nnchain", backend="distributed", device="cpu",
+                    **knobs)
 
 
 def test_distributed_knobs_validate(no_group):

@@ -7,8 +7,9 @@ The service tests re-prove the zero-build contract with tracing ON:
 instrumentation that silently perturbed the programs would invalidate
 every number the layer reports.  Left out until their modules are
 ported: the compile span's HLO cost (the JAX package reads it from XLA's
-HLO; the port's analytic roofline is ROADMAP.md A8), the sharded chain's
-telemetry (A7) and the benchmark regression gate (A8).
+HLO; the port's analytic roofline is ROADMAP.md A8) and the benchmark
+regression gate (A8).  The sharded chain's telemetry (the reference's
+p = 1 cases) is held in ``test_torch_distributed_chain.py``.
 """
 
 import json
