@@ -144,7 +144,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     paper's configuration ``distributed_lance_williams`` for ``baseline``,
     ``rowmin`` and ``lazy``, staged and unstaged, each equal bit for bit
     to the serial backend's run on the card (whose slots are phase 3's),
-    with its wall, busy time, idle share, host and device ms a merge, the
+    with its wall (the staged ``baseline`` run also with busy time, idle
+    share, host and device ms a merge over a profiled second run; the
+    staged ``rowmin`` and ``lazy`` runs in ``--distributed-full``), the
     collectives it launched (two a merge, one a stage's seed and one a
     boundary) and its block at each stage; ``cluster(...,
     backend="distributed")``; the born-sharded rmsd build of phase 12's
@@ -156,37 +158,59 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     bytes at each stage, the slots the kernel backend's.
 16. The sharded matrix-free NN chain (``distributed_nn_chain_from_points``)
     on a world-size-1 NCCL group, B5's row entry launched once a trip (the
-    trips), no other kernel, three collectives a trip: at n = 8192,
-    d = 128 for ward, average and weighted, bit for bit the host-driven
-    chain loop with B5's row on the card, with wall, and busy time, idle
-    share and host and device ms a trip over a profiled window (the same
-    points' first 500 merges, run again in a process of its own: later
-    profiling sessions of a process lost kernel records); at the
-    paper's size a segmented run (segments of 500 merges, a shard lost at
-    segment 1, a straggler deadline) equal to the unsegmented one, with
+    trips), no other kernel, three collectives a trip: at the paper's size
+    (n = 1968, d = 64) for ward, average and weighted, bit for bit the
+    host-driven chain loop with B5's row on the card, with its wall; the
+    ward run again segmented (segments of 500 merges, a shard lost at
+    segment 1, a straggler deadline), equal to the unsegmented one, with
     its restarts, stragglers and segments; ``cluster(...,
-    algorithm="nnchain", backend="distributed")``.  Its full-width run
-    (phase 6's n = 32768, d = 128 ward points: wall, trips, peak memory
-    under 0.25 GiB, the resident chain's dendrogram, host and device ms a
-    trip over a profiled window of 500 merges) is ``--distributed-full``:
-    in the phase it took the phase past 200 s.
-17. One line ``{"kernels": [...]}`` with each kernel's numbers (the batch
+    algorithm="nnchain", backend="distributed")``.  The runs at n = 8192,
+    d = 128 and the full-width one (phase 6's n = 32768, d = 128 ward
+    points: wall, trips, peak memory under 0.25 GiB, the resident chain's
+    dendrogram, host and device ms a trip over a profiled window of 500
+    merges), each with busy time, idle share and host and device ms a trip
+    over a profiled window (the same points' first 500 merges, run again
+    in a process of its own: later profiling sessions of a process lost
+    kernel records), are ``--distributed-full``, for the smoke's time.
+17. The two-phase tier (``two_phase_from_points``), B5's trip entry in
+    both phases and no other kernel: on phase 11's points (n = 131072,
+    d = 128, ward, 8 shards of 16384, 1024 summaries) n - 1 merges in the
+    global slot convention, a valid dendrogram with monotone heights, ARI
+    >= 0.95 at the 8-cut against the mixture's labels, peak memory under
+    0.25 GiB, trip launches = 256 x the replays of all nine chains (at
+    least their trips), the profiler agreeing; wall, busy time, idle
+    share, each phase's trips and host and device ms a trip, the host
+    seconds of the replays and the canonicalisations.  B5's trip entry
+    against its plain twin from phase 2's seed (1024 summaries of sizes
+    other than 1; ``u`` other than 0 for average and weighted), timed
+    with its bound and ``cdist``'s row.  At n = 32768, d = 128 against the
+    exact chain: the 8-cuts agree (ARI >= 0.95) on phase 6's points, and
+    merge-set agreement >= 0.5 on the reference's own benchmark data.  At
+    the paper's n = 1968 the card's run equals the CPU's for ward, average
+    and weighted.  ``cluster(..., algorithm="twophase")`` reports the
+    serial backend, and the distributed one on a world-size-1 NCCL group,
+    with the same merges.  The entry points (ENTRY_POINTS: the quickstart
+    and protein examples, ``repro_torch.launch.cluster_run`` in both
+    modes) each exit 0 at their defaults, their lines carried here.
+18. One line ``{"kernels": [...]}`` with each kernel's numbers (the batch
     entries beside the others, with their launches in the service's card
-    mix; B5's row entry with its launches in phase 16), the card's
-    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+    mix; B5's row entry with its launches in phase 16; B5's trip entry
+    from phase 17's summary seeds), the card's ``nvidia-smi`` line, and
+    last ``{"ok": true, "device": {...}}``.
 
 Every path is driven with the launch counters set to 0 just before it
 and read just after.  Phase 6's profiled chain run (``--profile-chain``),
 phases 10-12 (``--later-phases``), phase 13 (``--batch``), phase 14
-(``--service``), phase 15 (``--distributed``) and phase 16
-(``--sharded-chain``) run in child processes of this script, for the
-profiler's sake (``run_child``).
+(``--service``), phase 15 (``--distributed``), phase 16
+(``--sharded-chain``) and phase 17 (``--two-phase``) run in child
+processes of this script, for the profiler's sake (``run_child``).
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pickle
 import statistics
@@ -204,7 +228,7 @@ PAPER_N, FULL_N, DIM = 1968, 16384, 64
 CHAIN_N, CHAIN_DIM = 32768, 128  # matrix-free run: 16 MiB of summaries, no 4 GiB matrix
 CROSS_SHAPES = ((4096, 128), (1968, 64))   # matrix-free ward held against the LW loop
 MID_N = 8192                   # phases 5, 7, 8: n = 16384 until the smoke outgrew 700 s
-ROW_SHAPES = ((PAPER_N, DIM), (MID_N, CHAIN_DIM), (CHAIN_N, CHAIN_DIM))  # phase 16: B5 a shard
+ROW_SHAPES = ((PAPER_N, DIM), (MID_N, CHAIN_DIM), (CHAIN_N, CHAIN_DIM))  # sharded chains: B5 a shard
 LANDMARK_N, LANDMARK_K = 131072, 6155   # k = ceil(sqrt(n) log2 n); the matrix would be 64 GiB
 LANDMARK_PEAK_LIMIT_GIB = 32.0          # half of that matrix
 LANDMARK_CROSS_N = 8192                 # the landmark run held against the exact chain
@@ -267,9 +291,17 @@ RESOURCE_SHAPES = {"lw_step": ((1, 1024), (1, 4096), (1, 16384)),
                                           (256, 128), (256, 255), (33, 256), (256, 256),
                                           (256, 512), (256, 1024), (64, 512), (16, 1024),
                                           (16, 2048), (2, 4096), (256, 1023), (16, 1023))}
-SHARDED_METHODS = ("ward", "average", "weighted")  # phase 16 at n = MID_N, d = CHAIN_DIM
+SHARDED_METHODS = ("ward", "average", "weighted")  # phase 16 at PAPER_N; n = MID_N in
+                                                   # --distributed-full
 SHARDED_SEGMENT = 500          # phase 16's segmented run at the paper's size: 4 segments
 SHARDED_WINDOW = 500           # merges of a sharded run's profiled window (~1500 trips)
+TWO_PHASE_SHARDS = 8           # phase 17: shards of 16384 at n = LANDMARK_N, K = 1024 summaries
+TWO_PHASE_AGREEMENT_MIN = 0.5  # on its data, benchmarks/bench_distributed.py:209-225
+# phase 17: the entry points a user starts, each run at its defaults on the card
+ENTRY_POINTS = {"quickstart": ("examples/quickstart_torch.py",),
+                "protein": ("examples/protein_clustering_torch.py",),
+                "cluster_run embed": ("-m", "repro_torch.launch.cluster_run", "--mode", "embed"),
+                "cluster_run rmsd": ("-m", "repro_torch.launch.cluster_run", "--mode", "rmsd")}
 RTOL, ATOL = 1e-4, 1e-5        # height tolerance of the JAX package's kernel tests
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once a launch
@@ -993,58 +1025,67 @@ def trip_bytes(m: int, d: int) -> float:
 
 
 def phase_trip(torch, m: int, d: int, l2_rate: float) -> dict:
-    """B5's trip entry, the matrix-free chain's main path, against its
-    plain twin on the card: TRIP_CHECKS trips from the first state of a
-    ward run on one mixture's points, the same decisions (every count,
-    slot, size and liveness equal) and the summaries within the row's
-    float error.  Then timed from the state those trips reach: MERGE_REPS
-    trips launched one by one, and one graph replay of CHAIN_GRAPH_TRIPS
-    trips; with ``cdist``'s row as the library call."""
-    from repro_torch.core.nnchain import CHAIN_GRAPH_TRIPS
+    """B5's trip entry, the matrix-free chain's main path, from the first
+    state of a ward run on one mixture's points (:func:`trip_row`)."""
     from repro_torch.data.synthetic import gaussian_mixture
-    from repro_torch.kernels import pairwise
 
     X = torch.as_tensor(gaussian_mixture(seed=3, n=m, dim=d, return_labels=False),
                         dtype=torch.float32, device="cuda")
+    return trip_row(torch, "ward", X, torch.zeros(m, device="cuda"), torch.ones(m, device="cuda"),
+                    f"chain_trip m={m} d={d}", l2_rate)
+
+
+def trip_row(torch, method: str, W, u, sizes, what: str, l2_rate: float) -> dict:
+    """B5's trip entry against its plain twin on the card, from the state
+    of a run's first trip over the summaries ``(W, u, sizes)`` (a leaf's:
+    unit sizes and ``u = 0``; phase 2's of the two-phase tier: whole
+    clusters): TRIP_CHECKS trips, the same decisions (every count, slot,
+    size and liveness equal) and the summaries within the row's float
+    error.  Then timed from the state those trips reach: MERGE_REPS trips
+    launched one by one, and one graph replay of CHAIN_GRAPH_TRIPS trips;
+    with ``cdist``'s row as the library call."""
+    from repro_torch.core.nnchain import CHAIN_GRAPH_TRIPS
+    from repro_torch.kernels import pairwise
+
+    m, d = W.shape
 
     def fresh():
-        return pairwise.chain_buffers(X.clone(), torch.zeros(m, device="cuda"),
+        return pairwise.chain_buffers(W.clone(), u.clone(),
                                       torch.ones(m, dtype=torch.bool, device="cuda"),
-                                      torch.ones(m, device="cuda"), m - 1)
+                                      sizes.clone(), m - 1)
 
     bk, bp = fresh(), fresh()
     for _ in range(TRIP_CHECKS):
-        pairwise.chain_trip("ward", bk)
-        pairwise.chain_trip_plain("ward", bp)
+        pairwise.chain_trip(method, bk)
+        pairwise.chain_trip_plain(method, bp)
     torch.cuda.synchronize()
     for name in ("alive", "bits", "sizes", "chain", "count"):
         if not torch.equal(getattr(bk, name), getattr(bp, name)):
-            raise AssertionError(f"chain_trip m={m} d={d}: {name} differs from the plain twin")
+            raise AssertionError(f"{what}: {name} differs from the plain twin")
     if not torch.equal(bk.merges[:, [0, 1, 3]], bp.merges[:, [0, 1, 3]]):
-        raise AssertionError(f"chain_trip m={m} d={d}: merge slots differ from the plain twin")
+        raise AssertionError(f"{what}: merge slots differ from the plain twin")
     if bk.sync[:2].tolist() != [-1, 0]:
-        raise AssertionError(f"chain_trip m={m} d={d}: the kernel left its key/ticket at {bk.sync}")
+        raise AssertionError(f"{what}: the kernel left its key/ticket at {bk.sync}")
     err = 0.0
     for a, b in ((bk.W, bp.W), (bk.u, bp.u), (bk.merges, bp.merges)):
         if not torch.allclose(a, b, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
-            raise AssertionError(f"chain_trip m={m} d={d}: summaries or heights differ "
-                                 "from the plain twin")
+            raise AssertionError(f"{what}: summaries or heights differ from the plain twin")
         err = max(err, float((a - b).abs().max()))
     length, merged, _, _ = bk.count.tolist()
     b0 = [t.clone() for t in bk[:9]]
-    ms = time_merges(torch, lambda _: pairwise.chain_trip("ward", bk), b0, bk[:9])
-    plain_ms = time_merges(torch, lambda _: pairwise.chain_trip_plain("ward", bk), b0, bk[:9])
+    ms = time_merges(torch, lambda _: pairwise.chain_trip(method, bk), b0, bk[:9])
+    plain_ms = time_merges(torch, lambda _: pairwise.chain_trip_plain(method, bk), b0, bk[:9])
     for dst, src in zip(bk[:9], b0):
         dst.copy_(src)
-    graph = pairwise.TripGraph("ward", bk, CHAIN_GRAPH_TRIPS)
+    graph = pairwise.TripGraph(method, bk, CHAIN_GRAPH_TRIPS)
     replay_ms = time_merges(torch, lambda _: graph.replay(), b0, bk[:9], reps=1)
-    x = X[m // 3]
+    x = W[m // 3]
     n_bytes = trip_bytes(m, d)
-    return dict(m=m, d=d, checked_trips=TRIP_CHECKS, merges_in_check=merged, chain_length=length,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    return dict(m=m, d=d, method=method, checked_trips=TRIP_CHECKS, merges_in_check=merged,
+                chain_length=length, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 graph_ms_per_trip=replay_ms / CHAIN_GRAPH_TRIPS,
-                library_ms=time_ms(torch, lambda: torch.cdist(x[None], X)),
-                host_us=host_us(torch, lambda: pairwise.chain_trip("ward", bk)),
+                library_ms=time_ms(torch, lambda: torch.cdist(x[None], W)),
+                host_us=host_us(torch, lambda: pairwise.chain_trip(method, bk)),
                 **bound(torch, n_bytes, 3 * m * d + 8 * m, n_bytes, l2_rate))
 
 
@@ -1269,7 +1310,7 @@ def per_step(stats: dict, steps: int, unit: str) -> dict:
             f"host_ms_per_{unit}": (wall - busy) / steps * 1e3}
 
 
-def device_busy(torch, call, wall_s: float, launches: dict):
+def device_busy(torch, call, wall_s: float, launches: dict, tail: dict | None = None):
     """Device busy seconds over a whole run of ``call``, summed from the
     profiler's records of every kernel, copy and fill on the card (one
     stream, so they do not overlap); the idle share is the rest of the
@@ -1284,8 +1325,10 @@ def device_busy(torch, call, wall_s: float, launches: dict):
     how many it took.  ``launches`` None takes the counters as each
     profiled run leaves them (a service run, whose batching and so its
     launches vary from run to run), and ``wall_s`` None the profiled run's
-    wall.  Returns what the last run of ``call`` returned, and the
-    numbers."""
+    wall.  ``tail`` ``{kernel: k}`` also sums the device ms of each
+    kernel's last ``k`` launches by start time (``tail_ms``: the end of a
+    run that launches one kernel in two parts).  Returns what the last run
+    of ``call`` returned, and the numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1300,6 +1343,7 @@ def device_busy(torch, call, wall_s: float, launches: dict):
         launches = read_counters() if expected is None else expected
         busy_ns = 0
         kernel_ns, kernel_n = dict.fromkeys(KERNEL_SYMBOLS, 0), dict.fromkeys(KERNEL_SYMBOLS, 0)
+        starts = {k: [] for k in tail or {}}
         # the raw records: building prof.events() costs ~70 us a record
         for e in prof.profiler.kineto_results.events():
             if e.device_type() != DeviceType.CUDA:
@@ -1310,6 +1354,8 @@ def device_busy(torch, call, wall_s: float, launches: dict):
                 if any(sym in name for sym in symbols):
                     kernel_ns[kernel] += ns
                     kernel_n[kernel] += symbols[0] in name
+                    if kernel in starts and symbols[0] in name:
+                        starts[kernel].append((e.start_ns(), ns))
         missed = {k: launches[k] - kernel_n[k] for k in kernel_n}
         allowed = {k: PROFILER_MISS_SHARE * n if n >= PROFILER_MISS_MIN else 0
                    for k, n in launches.items()}
@@ -1322,12 +1368,17 @@ def device_busy(torch, call, wall_s: float, launches: dict):
             raise AssertionError(seen)
         print(f"{seen}: profiling the run again", flush=True)
     busy_s = busy_ns / 1e9
+    tail_ms = {}
+    for kernel, count in (tail or {}).items():
+        last = sorted(starts[kernel])[max(len(starts[kernel]) - count, 0):]
+        tail_ms[kernel] = sum(ns for _, ns in last) / 1e6
     return res, dict(device_busy_s=busy_s, idle_share=1 - busy_s / (wall_s or profiled_wall),
                      profiled_wall_s=profiled_wall, profiler_missed=missed,
                      profiler_tries=tries,
                      kernel_ms_mean={k: kernel_ns[k] / 1e6 / max(kernel_n[k], 1)
                                      for k in kernel_ns},
-                     kernel_busy_share={k: kernel_ns[k] / busy_ns for k in kernel_ns})
+                     kernel_busy_share={k: kernel_ns[k] / busy_ns for k in kernel_ns},
+                     tail_ms=tail_ms)
 
 
 def host_device_split(torch, X) -> dict:
@@ -2392,7 +2443,7 @@ def phase_distributed(torch, np, spec: dict) -> dict:
                 what = f"distributed {variant} n={PAPER_N}, compaction={compaction}"
                 key = variant if compaction else f"{variant}_unstaged"
                 paper[key] = distributed_run(torch, np, ring, D, variant, compaction, serial,
-                                             what)[1]
+                                             what, profile=compaction and variant == "baseline")[1]
                 say(f"phase 15 {what}: " + json.dumps(paper[key]))
         res, s = timed(torch, lambda: cluster(X, "complete", algorithm="lw",
                                               backend="distributed", keep_inputs=False))
@@ -2547,16 +2598,47 @@ def sharded_window_child(torch, np, spec: dict) -> dict:
         dist.destroy_process_group()
 
 
+def sharded_methods(torch, np, ring, n: int, d: int, phase: str,
+                    windows=SHARDED_METHODS) -> tuple:
+    """The sharded chain on ``ring`` for each of SHARDED_METHODS at (n, d):
+    bit for bit the host-driven chain loop with B5's row on the card; for
+    the methods in ``windows``, busy and idle from a profiled window, each
+    in a process of its own.  Returns each method's numbers and its
+    chain-order merges."""
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.kernels.pairwise import row_sq_euclidean
+
+    X = gaussian_mixture(seed=0, n=n, dim=d, return_labels=False)
+    out, merges = {}, {}
+    for method in SHARDED_METHODS:
+        host, hs = timed(torch, lambda: points_chain(torch, X, method, row_sq_euclidean))
+        check_launches(hs["launches"], {"row_sq_euclidean": host.iters},
+                       f"host-driven loop n={n} {method}")
+        what = f"sharded chain n={n} d={d} {method}"
+        res, out[method] = sharded_chain_run(torch, np, ring, X, method, what,
+                                             want=host.merges.cpu().numpy())
+        if method in windows:
+            out[method]["window"] = run_child(torch, SHARDED_WINDOW_FLAG,
+                                              dict(method=method, n=n, d=d))
+        if res.iters != host.iters:
+            raise AssertionError(f"{what}: {res.iters} trips, the host loop {host.iters}")
+        out[method]["host_loop_wall_s"] = hs["wall_s"]
+        merges[method] = res.merges.cpu().numpy()
+        say(f"{phase} {what}: " + json.dumps(out[method]))
+    torch.cuda.empty_cache()
+    return out, merges
+
+
 def phase_sharded_chain(torch, np, spec: dict) -> dict:
     """Phase 16, in a process of its own: the sharded matrix-free chain
     (``distributed_nn_chain_from_points``) on a world-size-1 NCCL group, B5's
-    row entry launched once a trip.  At n = 8192, d = 128 for ward, average
-    and weighted: bit for bit the host-driven chain loop with B5's row on
-    the card, with busy and idle from a profiled window, each in a process
-    of its own.  At the paper's size a segmented run with a lost shard at
-    segment 1 and a straggler deadline, equal to the unsegmented run; and
-    ``cluster(..., algorithm="nnchain", backend="distributed")``.  The
-    group is torn down at the end."""
+    row entry launched once a trip.  At the paper's size (n = 1968, d = 64)
+    for ward, average and weighted (:func:`sharded_methods`): bit for bit
+    the host-driven chain loop with B5's row on the card (their profiled
+    windows are ``--distributed-full``'s); the ward run again segmented, with a lost shard at segment 1 and a straggler
+    deadline, equal to the unsegmented run; and ``cluster(...,
+    algorithm="nnchain", backend="distributed")``.  The group is torn down
+    at the end.  The n = 8192 runs are ``--distributed-full``."""
     import torch.distributed as dist
 
     from repro_torch.core import cluster
@@ -2564,7 +2646,6 @@ def phase_sharded_chain(torch, np, spec: dict) -> dict:
     from repro_torch.core.distributed import distributed_nn_chain_from_points, make_cluster_mesh
     from repro_torch.data.synthetic import gaussian_mixture
     from repro_torch.distributed.fault import FailurePlan, StepDeadline
-    from repro_torch.kernels.pairwise import row_sq_euclidean
 
     ring = make_cluster_mesh()
     backend = str(dist.get_backend())
@@ -2575,49 +2656,34 @@ def phase_sharded_chain(torch, np, spec: dict) -> dict:
         # loads B5's row kernel and warms NCCL up
         distributed_nn_chain_from_points(
             gaussian_mixture(seed=1, n=300, dim=DIM, return_labels=False), "ward", ring)
-        n = MID_N
-        X = gaussian_mixture(seed=0, n=n, dim=CHAIN_DIM, return_labels=False)
-        for method in SHARDED_METHODS:
-            host, hs = timed(torch, lambda: points_chain(torch, X, method, row_sq_euclidean))
-            check_launches(hs["launches"], {"row_sq_euclidean": host.iters},
-                           f"host-driven loop n={n} {method}")
-            what = f"sharded chain n={n} d={CHAIN_DIM} {method}"
-            res, out[method] = sharded_chain_run(torch, np, ring, X, method, what,
-                                                 want=host.merges.cpu().numpy())
-            out[method]["window"] = run_child(torch, SHARDED_WINDOW_FLAG,
-                                              dict(method=method, n=n, d=CHAIN_DIM))
-            if res.iters != host.iters:
-                raise AssertionError(f"{what}: {res.iters} trips, the host loop {host.iters}")
-            out[method]["host_loop_wall_s"] = hs["wall_s"]
-            say(f"phase 16 {what}: " + json.dumps(out[method]))
-        torch.cuda.empty_cache()
+        runs, merges = sharded_methods(torch, np, ring, PAPER_N, DIM, "phase 16", windows=())
+        out.update(runs)
+        whole = merges["ward"]
 
         # the paper's size: segmented, a shard lost at segment 1, a deadline
         Xp = gaussian_mixture(seed=0, n=PAPER_N, dim=DIM, return_labels=False)
         what = f"sharded chain n={PAPER_N} d={DIM} ward"
-        whole, w = sharded_chain_run(torch, np, ring, Xp, "ward", what)
         events = []
         seg, sg = sharded_chain_run(torch, np, ring, Xp, "ward", f"{what}, segmented",
-                                    want=whole.merges.cpu().numpy(),
-                                    segment_steps=SHARDED_SEGMENT,
+                                    want=whole, segment_steps=SHARDED_SEGMENT,
                                     failure_plan=FailurePlan(fail_at=(1,)),
                                     deadline=StepDeadline(factor=3.0, warmup=1),
                                     log=events.append)
         segments = -(-(PAPER_N - 1) // SHARDED_SEGMENT)
-        if (seg.restarts, seg.segments) != (1, segments) or seg.iters != whole.iters:
+        if (seg.restarts, seg.segments, seg.iters) != (1, segments, out["ward"]["trips"]):
             raise AssertionError(f"{what}, segmented: {seg.restarts} restarts, {seg.segments} "
                                  f"segments, {seg.iters} trips; want 1, {segments}, "
-                                 f"{whole.iters}")
-        out["paper"] = dict(whole=w, segmented=dict(sg, events=events))
-        say(f"phase 16 {what}, whole and segmented: " + json.dumps(out["paper"]))
+                                 f"{out['ward']['trips']}")
+        out["segmented"] = dict(sg, events=events)
+        say(f"phase 16 {what}, segmented: " + json.dumps(out["segmented"]))
 
         res, cs = timed(torch, lambda: cluster(Xp, "ward", algorithm="nnchain",
                                                backend="distributed", keep_inputs=False))
-        check_launches(cs["launches"], {"row_sq_euclidean": whole.iters},
+        check_launches(cs["launches"], {"row_sq_euclidean": seg.iters},
                        "cluster() on the sharded chain")
         if (res.backend, res.algorithm, res.distances) != ("distributed", "nnchain", None):
             raise AssertionError(f"cluster() ran {res.algorithm}/{res.backend}")
-        check_bit_equal(np, res.merges, canonical_order(whole.merges.cpu().numpy(), n=PAPER_N),
+        check_bit_equal(np, res.merges, canonical_order(whole, n=PAPER_N),
                         "cluster() sharded chain vs its canonical merges")
         out["cluster_wall_s"] = cs["wall_s"]
         say(f"phase 16 cluster(algorithm='nnchain', backend='distributed') n={PAPER_N}: "
@@ -2627,12 +2693,336 @@ def phase_sharded_chain(torch, np, spec: dict) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recorded(module, name: str, log: list):
+    """Within the block, each call of ``module.name`` appends a record to
+    ``log``: its arguments, what it returned, its wall seconds and the
+    trip graphs it replayed.  The callers look the name up in the module
+    at each call, so they reach the wrapper; the launch counters are not
+    touched."""
+    from repro_torch.kernels.pairwise import TripGraph
+
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        replays, t0 = TripGraph.replays, time.perf_counter()
+        res = fn(*args, **kwargs)
+        log.append(dict(args=args, result=res, seconds=time.perf_counter() - t0,
+                        replays=TripGraph.replays - replays))
+        return res
+
+    setattr(module, name, wrapper)
+    try:
+        yield log
+    finally:
+        setattr(module, name, fn)
+
+
+def two_phase_run(torch, np, X, method: str, shards: int, what: str) -> tuple:
+    """One ``two_phase_from_points`` run of ``X`` on the card, as phase 17
+    drives it: :func:`timed`, with each chain (the resident chain of a
+    shard, then of the summaries), each host replay and each
+    canonicalisation recorded (:func:`recorded`).  Gates: B5's trip entry
+    and no other kernel, launched from whole graph replays of the chains
+    (at least each chain's trips and less than one replay more); n - 1
+    merges, a valid dendrogram with monotone heights, slots ``i < j`` in
+    the global convention.  Returns the result, :func:`timed`'s numbers
+    and the records."""
+    from repro_torch.core import dendrogram, distributed, nnchain
+
+    logs = dict(chain=[], replay=[], canonical=[], summaries=[])
+    with recorded(nnchain, "_resident_chain", logs["chain"]), \
+            recorded(nnchain, "nn_chain_from_summaries", logs["summaries"]), \
+            recorded(distributed, "_replay_summaries", logs["replay"]), \
+            recorded(dendrogram, "canonical_order", logs["canonical"]):
+        res, stats = timed(torch, lambda: distributed.two_phase_from_points(X, method,
+                                                                           shards=shards))
+    n = X.shape[0]
+    launches = stats["launches"]["chain_trip"]
+    check_launches(stats["launches"], {"chain_trip": launches}, what)
+    replays = sum(c["replays"] for c in logs["chain"])
+    if launches != replays * nnchain.CHAIN_GRAPH_TRIPS or replays != stats["trip_replays"]:
+        raise AssertionError(f"{what}: {launches} trip launches, {stats['trip_replays']} "
+                             f"replays, the chains' {replays}")
+    for c in logs["chain"]:
+        made = c["replays"] * nnchain.CHAIN_GRAPH_TRIPS
+        if not c["result"].iters <= made < c["result"].iters + nnchain.CHAIN_GRAPH_TRIPS:
+            raise AssertionError(f"{what}: a chain of {c['result'].iters} trips launched {made}")
+    merges = res.merges.numpy()
+    if res.n_merges != n - 1 or merges.shape != (n - 1, 4):
+        raise AssertionError(f"{what}: {res.n_merges} merges, shape {merges.shape}")
+    dendrogram.validate_merges(merges, n=n)
+    if not dendrogram.is_monotone(merges):
+        raise AssertionError(f"{what}: heights are not monotone")
+    i, j = merges[:, 0], merges[:, 1]
+    if not (np.all(i == np.rint(i)) and np.all(i < j) and i.min() >= 0 and j.max() < n):
+        raise AssertionError(f"{what}: slots are not in the global i < j convention")
+    return res, stats, logs
+
+
+def two_phase_full(torch, np, l2_rate: float) -> tuple:
+    """Phase 17's full-width run: ``two_phase_from_points`` on phase 11's
+    points (n = 131072, d = 128, ward, TWO_PHASE_SHARDS shards of 16384,
+    K = 1024 summaries) through :func:`two_phase_run`, the ARI at the
+    8-cut against the mixture's labels, peak memory; busy time and idle
+    share over a profiled second run (the same merges), with the device
+    ms of phase 2's launches apart; per phase the trips, launches and
+    host and device ms a trip; the host seconds of the replays and the
+    canonicalisations.  Then B5's trip entry against its plain twin from
+    phase 2's seed state, for ward (the run's own) and for average and
+    weighted (the same phase-1 trees replayed with their recursions:
+    ``u`` other than 0), each timed (:func:`trip_row`).  Returns the
+    numbers and the trip rows."""
+    from repro_torch.core import distributed
+    from repro_torch.core.dendrogram import adjusted_rand_index, cut
+    from repro_torch.core.nnchain import CHAIN_GRAPH_TRIPS
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    n, p = LANDMARK_N, TWO_PHASE_SHARDS
+    X, truth = gaussian_mixture(seed=0, n=n, dim=CHAIN_DIM)
+    what = f"two-phase n={n} d={CHAIN_DIM} ward shards={p}"
+    res, stats, logs = two_phase_run(torch, np, X, "ward", p, what)
+    chains = logs["chain"]
+    if len(chains) != p + 1:
+        raise AssertionError(f"{what}: {len(chains)} chain runs, want {p + 1}")
+    merges = res.merges.numpy()
+    ari = adjusted_rand_index(cut(merges, CUT_K, n=n), truth)
+    if ari < QUALITY_MIN:
+        raise AssertionError(f"{what}: ARI at the {CUT_K}-cut {ari:.4f} < {QUALITY_MIN}")
+    if stats["peak_gib"] >= PEAK_LIMIT_GIB:
+        raise AssertionError(f"{what}: peak memory {stats['peak_gib']:.4f} GiB, "
+                             f"limit {PEAK_LIMIT_GIB} GiB")
+
+    # busy and idle over a profiled second run, phase 2's launches apart
+    phase2_launches = chains[-1]["replays"] * CHAIN_GRAPH_TRIPS
+    again, busy = device_busy(
+        torch, lambda: distributed.two_phase_from_points(X, "ward", shards=p), stats["wall_s"],
+        stats["launches"], tail={"chain_trip": phase2_launches})
+    if not np.array_equal(again.merges.numpy(), merges):
+        raise AssertionError(f"{what}: the profiled run gave other merges")
+    trip_ms = busy["kernel_ms_mean"]["chain_trip"] * stats["launches"]["chain_trip"]
+    device_ms = dict(phase1=trip_ms - busy["tail_ms"]["chain_trip"],
+                     phase2=busy["tail_ms"]["chain_trip"])
+    phases = {}
+    for name, runs in (("phase1", chains[:-1]), ("phase2", chains[-1:])):
+        trips = sum(c["result"].iters for c in runs)
+        wall = sum(c["seconds"] for c in runs)
+        phases[name] = dict(chains=len(runs), trips=trips,
+                            launches=sum(c["replays"] for c in runs) * CHAIN_GRAPH_TRIPS,
+                            wall_s=wall, ms_per_trip=wall / trips * 1e3,
+                            device_ms_per_trip=device_ms[name] / trips,
+                            host_ms_per_trip=(wall * 1e3 - device_ms[name]) / trips)
+    replay_s = sum(r["seconds"] for r in logs["replay"])
+    canonical_s = sum(r["seconds"] for r in logs["canonical"])
+    out = dict(n=n, d=CHAIN_DIM, shards=p, summaries=len(logs["summaries"][0]["args"][0]),
+               wall_s=stats["wall_s"], peak_gib=stats["peak_gib"],
+               device_busy_s=busy["device_busy_s"], idle_share=busy["idle_share"],
+               profiler_tries=busy["profiler_tries"], profiler_missed=busy["profiler_missed"],
+               launches={"chain_trip": stats["launches"]["chain_trip"]},
+               trip_replays=stats["trip_replays"], phases=phases, replay_host_s=replay_s,
+               canonical_host_s=canonical_s,
+               other_host_s=stats["wall_s"] - sum(c["seconds"] for c in chains) - replay_s
+               - canonical_s, ari=ari)
+
+    # B5's trip from phase 2's seed: the run's own (ward), and the same trees
+    # replayed under average's and weighted's recursions
+    W, u, sizes = logs["summaries"][0]["args"][:3]
+    seeds = {"ward": (W, u, sizes)}
+    for method in ("average", "weighted"):
+        parts = [distributed._replay_summaries(r["args"][0], r["args"][1], method)
+                 for r in logs["replay"]]
+        seeds[method] = tuple(np.concatenate([part[k][part[3]] for part in parts])
+                              for k in range(3))
+    rows = {}
+    for method, (W, u, sizes) in seeds.items():
+        if sizes.sum() != n or (method != "ward") != bool(u.max() > 0):
+            raise AssertionError(f"{what}: {method}'s seed has sizes summing to {sizes.sum()} "
+                                 f"and u up to {u.max()}")
+        t = [torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (W, u, sizes)]
+        rows[method] = trip_row(torch, method, *t, f"chain_trip from {method}'s summary seed",
+                                l2_rate)
+        rows[method]["sizes_max"] = float(sizes.max())
+    return out, rows
+
+
+def separated_mixture(np, n: int, d: int, k: int = 16):
+    """The reference's two-phase benchmark data
+    (``benchmarks/bench_distributed.py``): ``k`` centers 20 apart in
+    scale, ``n / k`` points 0.1 around each, in contiguous blocks."""
+    rng = np.random.default_rng(2)
+    centers = rng.normal(size=(k, d)).astype(np.float32) * 20
+    return np.concatenate([c + 0.1 * rng.normal(size=(n // k, d)).astype(np.float32)
+                           for c in centers])
+
+
+def two_phase_quality(torch, np) -> dict:
+    """Phase 17 against the resident exact chain at n = 32768, d = 128,
+    ward, TWO_PHASE_SHARDS shards.  On phase 6's points: the ARI between
+    the two 8-cuts at least QUALITY_MIN, and the merge-set agreement
+    reported (each shard holds an eighth of every component, so no
+    cluster below a component's scale is the exact one's).  On the
+    reference's own benchmark data (:func:`separated_mixture`): merge-set
+    agreement at least TWO_PHASE_AGREEMENT_MIN, the reference's gate."""
+    from repro_torch.core.dendrogram import (
+        adjusted_rand_index, canonical_order, cut, merge_set_agreement)
+    from repro_torch.core.nnchain import nn_chain_from_points
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    n = CHAIN_N
+    out = {}
+    for name, X in (("mixture", gaussian_mixture(seed=0, n=n, dim=CHAIN_DIM,
+                                                 return_labels=False)),
+                    ("separated", separated_mixture(np, n, CHAIN_DIM))):
+        what = f"two-phase n={n} d={CHAIN_DIM} ward shards={TWO_PHASE_SHARDS} on the {name}"
+        res, stats, _ = two_phase_run(torch, np, X, "ward", TWO_PHASE_SHARDS, what)
+        exact, es = timed(torch, lambda: canonical_order(
+            nn_chain_from_points(X, "ward").merges.cpu().numpy(), n=n))
+        approx = res.merges.numpy()
+        agreement = merge_set_agreement(exact, approx, n=n)
+        cut_ari = adjusted_rand_index(cut(approx, CUT_K, n=n), cut(exact, CUT_K, n=n))
+        if name == "mixture" and cut_ari < QUALITY_MIN:
+            raise AssertionError(f"{what}: ARI between the {CUT_K}-cuts {cut_ari:.4f} "
+                                 f"< {QUALITY_MIN}")
+        if name == "separated" and agreement < TWO_PHASE_AGREEMENT_MIN:
+            raise AssertionError(f"{what}: merge-set agreement with the exact chain "
+                                 f"{agreement:.4f} < {TWO_PHASE_AGREEMENT_MIN}")
+        out[name] = dict(n=n, wall_s=stats["wall_s"], exact_wall_s=es["wall_s"],
+                         merge_set_agreement=agreement, cut_ari=cut_ari)
+    return out
+
+
+def two_phase_against_cpu(torch, np) -> dict:
+    """Phase 17's kernel path against the plain path, end to end: at the
+    paper's n = 1968, d = 64, TWO_PHASE_SHARDS shards, for ward, average
+    and weighted (squared-Euclidean points), the card's run
+    (:func:`two_phase_run`) against ``device="cpu"``: slots equal, heights
+    within RTOL/ATOL."""
+    from repro_torch.core.distributed import two_phase_from_points
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    X = gaussian_mixture(seed=0, n=PAPER_N, dim=DIM, return_labels=False)
+    out = {}
+    for method in SHARDED_METHODS:
+        what = f"two-phase n={PAPER_N} d={DIM} {method} shards={TWO_PHASE_SHARDS}"
+        res, stats, logs = two_phase_run(torch, np, X, method, TWO_PHASE_SHARDS, what)
+        cpu, cs = timed(torch, lambda: two_phase_from_points(X, method, shards=TWO_PHASE_SHARDS,
+                                                             device="cpu"))
+        check_launches(cs["launches"], {}, f"{what} on the CPU")
+        check_merges(np, res.merges.numpy(), cpu.merges.numpy(), f"{what}: card vs CPU")
+        out[method] = dict(wall_s=stats["wall_s"], cpu_wall_s=cs["wall_s"],
+                           launches=stats["launches"]["chain_trip"],
+                           trips=sum(c["result"].iters for c in logs["chain"]),
+                           max_abs_height_diff=float(np.abs(res.merges.numpy()[:, 2]
+                                                            - cpu.merges.numpy()[:, 2]).max()))
+    return out
+
+
+def two_phase_routes(torch, np) -> dict:
+    """``cluster(X, "ward", algorithm="twophase")`` on the card at the
+    paper's size reports the serial backend; with
+    ``backend="distributed"`` on a world-size-1 NCCL group it reports the
+    distributed one, with the same merges: the tier over one shard (the
+    group's world size), B5's trip entry and no other kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.core import cluster
+    from repro_torch.core.distributed import make_cluster_mesh, two_phase_from_points
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    X = gaussian_mixture(seed=0, n=PAPER_N, dim=DIM, return_labels=False)
+    want = two_phase_from_points(X, "ward", shards=1).merges.numpy()
+    out = {}
+    ring = None
+    try:
+        for backend in ("auto", "distributed"):
+            if backend == "distributed":
+                ring = make_cluster_mesh()
+            res, s = timed(torch, lambda: cluster(X, "ward", algorithm="twophase",
+                                                  backend=backend, keep_inputs=False))
+            check_launches(s["launches"], {"chain_trip": s["launches"]["chain_trip"]},
+                           f"cluster(algorithm='twophase', backend={backend!r})")
+            reported = backend.replace("auto", "serial")
+            if (res.algorithm, res.backend, res.distances) != ("twophase", reported, None):
+                raise AssertionError(f"cluster(algorithm='twophase', backend={backend!r}) ran "
+                                     f"{res.algorithm}/{res.backend}")
+            check_bit_equal(np, res.merges, want, f"cluster() twophase {backend} vs one shard")
+            out[reported] = dict(wall_s=s["wall_s"], launches=s["launches"]["chain_trip"])
+    finally:
+        if ring is not None:
+            dist.destroy_process_group()
+    return out
+
+
+def entry_points() -> dict:
+    """Each of ENTRY_POINTS at its defaults on the card, all four at once,
+    each in a process of its own: each must exit 0 (its own asserts), and
+    its lines are carried into this output."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(root / "src"),
+                                                       os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, *args], cwd=root, env=env, text=True,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for name, args in ENTRY_POINTS.items()}
+    out, failed = {}, []
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        for line in stdout.splitlines():
+            say(f"phase 17 {name}: {line}")
+        if proc.returncode != 0:
+            print(stderr[-4000:], flush=True)
+            failed.append(f"{name} (exit code {proc.returncode})")
+        out[name] = dict(done_s=time.perf_counter() - t0, lines=len(stdout.splitlines()))
+    if failed:
+        raise AssertionError(f"entry points failed: {failed}")
+    return out
+
+
+def phase_two_phase(torch, np, spec: dict) -> dict:
+    """Phase 17, in a process of its own: the two-phase tier
+    (``two_phase_from_points``) on B5's resident trip in both phases: the
+    full-width run and its summary-seed trip rows (:func:`two_phase_full`,
+    profiled first in this process), the quality against the exact chain
+    (:func:`two_phase_quality`), the card against the CPU
+    (:func:`two_phase_against_cpu`), the ``cluster()`` routes
+    (:func:`two_phase_routes`) and the entry points (:func:`entry_points`)."""
+    from repro_torch.core.distributed import two_phase_from_points
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    # loads B5's trip kernel
+    two_phase_from_points(gaussian_mixture(seed=1, n=600, dim=CHAIN_DIM, return_labels=False),
+                          "ward", shards=2)
+    full, rows = two_phase_full(torch, np, spec["l2_rate"])
+    say(f"phase 17 two-phase n={LANDMARK_N} d={CHAIN_DIM} ward: " + json.dumps(full))
+    for method, row in rows.items():
+        say(f"phase 17 chain_trip from {method}'s summary seed m={row['m']} d={row['d']}: "
+            + json.dumps(row))
+    torch.cuda.empty_cache()
+    quality = two_phase_quality(torch, np)
+    say(f"phase 17 two-phase vs the exact chain n={CHAIN_N}: " + json.dumps(quality))
+    against_cpu = two_phase_against_cpu(torch, np)
+    say(f"phase 17 two-phase card vs CPU n={PAPER_N}: " + json.dumps(against_cpu))
+    routes = two_phase_routes(torch, np)
+    say(f"phase 17 cluster(algorithm='twophase') n={PAPER_N}: " + json.dumps(routes))
+    entries = entry_points()
+    say("phase 17 entry points: " + json.dumps(entries))
+    return dict(full=full, rows=rows, quality=quality, against_cpu=against_cpu, routes=routes,
+                entry_points=entries)
+
+
 LATER_PHASES_FLAG, PROFILE_CHAIN_FLAG = "--later-phases", "--profile-chain"
 BATCH_FLAG = "--batch"
 SERVICE_FLAG = "--service"
 DISTRIBUTED_FLAG = "--distributed"
 SHARDED_CHAIN_FLAG = "--sharded-chain"
 SHARDED_WINDOW_FLAG = "--sharded-window"
+TWO_PHASE_FLAG = "--two-phase"
 
 
 def run_child(torch, flag: str, spec: dict) -> dict:
@@ -2700,7 +3090,7 @@ def phases_10_to_12(torch, np, spec: dict) -> dict:
 CHILDREN = {LATER_PHASES_FLAG: phases_10_to_12, PROFILE_CHAIN_FLAG: profile_chain,
             BATCH_FLAG: phase_batch, SERVICE_FLAG: phase_service,
             DISTRIBUTED_FLAG: phase_distributed, SHARDED_CHAIN_FLAG: phase_sharded_chain,
-            SHARDED_WINDOW_FLAG: sharded_window_child}
+            SHARDED_WINDOW_FLAG: sharded_window_child, TWO_PHASE_FLAG: phase_two_phase}
 
 
 def child(flag: str) -> int:
@@ -2719,7 +3109,8 @@ def child(flag: str) -> int:
 
 def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
             serial: dict, lazy: dict, assigned: dict, landmark: dict, rmsd: dict,
-            batch: dict, service: dict, distributed: dict, sharded: dict) -> str:
+            batch: dict, service: dict, distributed: dict, sharded: dict,
+            two_phase: dict) -> str:
     """The numbers a reader checks first, on one line near the end."""
     def g(x):
         return f"{x:.6g}"
@@ -2798,33 +3189,48 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
                      f"{s['steady_builds']}/{s['steady_captures']} peak_gib {g(s['peak_gib'])}")
     for variant in ("baseline", "rowmin", "lazy"):
         s, u = distributed["paper"][variant], distributed["paper"][f"{variant}_unstaged"]
-        parts.append(f"distributed {variant} n={PAPER_N} wall_s {g(s['wall_s'])} busy_s "
-                     f"{g(s['device_busy_s'])} idle {g(s['idle_share'])} host/device ms per "
-                     f"merge {g(s['host_ms_per_merge'])}/{g(s['device_ms_per_merge'])} "
-                     f"collectives {s['collectives']}; unstaged wall_s {g(u['wall_s'])} busy_s "
-                     f"{g(u['device_busy_s'])}")
+        parts.append(f"distributed {variant} n={PAPER_N} wall_s {g(s['wall_s'])} "
+                     + (f"busy_s {g(s['device_busy_s'])} idle {g(s['idle_share'])} host/device "
+                        f"ms per merge {g(s['host_ms_per_merge'])}/"
+                        f"{g(s['device_ms_per_merge'])} " if "device_busy_s" in s else "")
+                     + f"collectives {s['collectives']}; unstaged wall_s {g(u['wall_s'])}")
     parts.append(f"distributed rmsd build wall_s {g(distributed['rmsd']['build_wall_s'])} err "
                  f"{g(distributed['rmsd']['max_abs_err_vs_cpu'])}; batch wall_s "
                  f"{g(distributed['batch']['wall_s'])} (serial "
                  f"{g(distributed['batch']['serial_wall_s'])})")
-    for r in (sharded[m] for m in SHARDED_METHODS):
-        w = r["window"]
-        parts.append(f"sharded chain n={r['n']} wall_s {g(r['wall_s'])} trips {r['trips']} "
-                     f"collectives {r['collectives']} peak_gib {g(r['peak_gib'])}; window busy_s "
-                     f"{g(w['device_busy_s'])} idle {g(w['idle_share'])} host/device ms per trip "
-                     f"{g(w['host_ms_per_trip'])}/{g(w['device_ms_per_trip'])}"
-                     + (f"; host loop wall_s {g(r['host_loop_wall_s'])}"
-                        if "host_loop_wall_s" in r else ""))
-    seg = sharded["paper"]["segmented"]
-    parts.append(f"sharded chain n={PAPER_N} whole wall_s {g(sharded['paper']['whole']['wall_s'])}"
-                 f"; segmented wall_s {g(seg['wall_s'])} restarts {seg['restarts']} stragglers "
+    for m in SHARDED_METHODS:
+        r, w = sharded[m], sharded[m].get("window")
+        parts.append(f"sharded chain {m} n={r['n']} wall_s {g(r['wall_s'])} trips {r['trips']} "
+                     f"collectives {r['collectives']} peak_gib {g(r['peak_gib'])}"
+                     + (f"; window busy_s {g(w['device_busy_s'])} idle {g(w['idle_share'])} "
+                        f"host/device ms per trip {g(w['host_ms_per_trip'])}/"
+                        f"{g(w['device_ms_per_trip'])}" if w else "")
+                     + f"; host loop wall_s {g(r['host_loop_wall_s'])}")
+    seg = sharded["segmented"]
+    parts.append(f"sharded chain n={PAPER_N} segmented wall_s {g(seg['wall_s'])} restarts "
+                 f"{seg['restarts']} stragglers "
                  f"{seg['stragglers']} segments {seg['segments']}; cluster() wall_s "
                  f"{g(sharded['cluster_wall_s'])}")
+    f, q = two_phase["full"], two_phase["quality"]
+    parts.append(f"two-phase n={f['n']} shards={f['shards']} K={f['summaries']} wall_s "
+                 f"{g(f['wall_s'])} busy_s {g(f['device_busy_s'])} idle {g(f['idle_share'])} "
+                 f"ari {g(f['ari'])} peak_gib {g(f['peak_gib'])}; " + ", ".join(
+                     f"{k} trips {v['trips']} host/device ms per trip "
+                     f"{g(v['host_ms_per_trip'])}/{g(v['device_ms_per_trip'])}"
+                     for k, v in f["phases"].items())
+                 + f"; host s replay {g(f['replay_host_s'])} canonical "
+                 f"{g(f['canonical_host_s'])}; n={CHAIN_N} agreement / cut ari: " + ", ".join(
+                     f"{k} {g(v['merge_set_agreement'])} / {g(v['cut_ari'])}"
+                     for k, v in q.items())
+                 + f"; card vs CPU n="
+                 f"{PAPER_N} max height diff " + ", ".join(
+                     f"{k} {g(v['max_abs_height_diff'])}"
+                     for k, v in two_phase["against_cpu"].items()))
     return "summary: " + "; ".join(parts)
 
 
 def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assigned: dict,
-                     batch: dict, service: dict, sharded: dict) -> list:
+                     batch: dict, service: dict, sharded: dict, two_phase: dict) -> list:
     """The ``{"kernels": [...]}`` line: each TPU kernel's CUDA counterpart
     with its main-path entry's numbers first and every entry listed."""
     src = {"masked_argmin": ("src/repro_torch/csrc/minscan.cu", "src/repro/kernels/minscan.py:71"),
@@ -2838,7 +3244,9 @@ def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assign
     # merge, the lazy merge, the chain trip): a kernel's line gives that
     # entry's launches and times, and lists every entry under "entries";
     # B5's row entry runs once a trip of the sharded chain (phase 16's ward
-    # run, at its shard shape)
+    # run, at its shard shape); B5's trip entry also from phase 2's seed of the
+    # two-phase tier (phase 17: ward's launches in the full-width run, average's
+    # and weighted's in the paper-size runs)
     # "stages": the compaction stages of the LW run the launches were
     # counted in (null for the chains and the labeler, which do not stage)
     def numbers(key, path, entry):
@@ -2876,6 +3284,14 @@ def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assign
                 row["service_launches"] = service["card"]["launches"][row["entry"]]
             if row["entry"] == "lazy_merge":
                 row["rescan_launches"] = lazy["launches"]["lazy_rescan"]
+        if name == "row_sq_euclidean":
+            for method, row in two_phase["rows"].items():
+                launches = (two_phase["full"]["launches"] if method == "ward" else
+                            {"chain_trip": two_phase["against_cpu"][method]["launches"]})
+                key = (f"chain_trip/summaries/{method}", row["m"])
+                kernels[key] = row
+                listed.append(dict(entry="chain_trip", seed=f"two-phase summaries, {method}",
+                                   **numbers(key, dict(launches=launches), "chain_trip")))
         for row in listed[1:]:                    # an entry in a source of its own
             row["source"] = ENTRY_SOURCES.get(row["entry"], src[name][0])
         inventory.append(dict(name=name, route="cuda", source=src[name][0],
@@ -3009,11 +3425,13 @@ def main() -> int:
     service = run_child(torch, SERVICE_FLAG, {})
     distributed = run_child(torch, DISTRIBUTED_FLAG, dict(paper_serial=paper_serial))
     sharded = run_child(torch, SHARDED_CHAIN_FLAG, {})
+    two_phase = run_child(torch, TWO_PHASE_FLAG, dict(l2_rate=l2_rate))
 
-    # 17. inventory, card, result
-    inventory = kernel_inventory(kernels, full, lazy, points, assigned, batch, service, sharded)
+    # 18. inventory, card, result
+    inventory = kernel_inventory(kernels, full, lazy, points, assigned, batch, service, sharded,
+                                 two_phase)
     print(summary(kernels, paper, full, dense, points, serial, lazy, assigned, landmark, rmsd,
-                  batch, service, distributed, sharded))
+                  batch, service, distributed, sharded, two_phase))
     print(json.dumps({"kernels": inventory}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3027,12 +3445,16 @@ DISTRIBUTED_FULL_FLAG = "--distributed-full"
 
 def distributed_full() -> int:
     """``python3 chip_smoke.py --distributed-full``: the full-size runs of
-    phases 15 and 16, out of the smoke for their time.  The distributed
-    ``baseline`` at n = 16384 (phase 4's points), staged, on a world-size-1
-    NCCL group, against the slots of phase 4's kernel-backend run; then the
-    sharded chain at n = 32768, d = 128 (:func:`sharded_chain_full`).  Prints the card's line and one JSON
+    phases 15 and 16, out of the smoke for their time.  On a world-size-1
+    NCCL group: the distributed ``rowmin`` and ``lazy`` at the paper's size,
+    staged, profiled (:func:`distributed_run`); the distributed
+    ``baseline`` at n = 16384 (phase 4's points), staged, against the
+    slots of phase 4's kernel-backend run; then the
+    sharded chain at n = 8192, d = 128 for ward, average and weighted
+    (:func:`sharded_methods`) and at n = 32768, d = 128
+    (:func:`sharded_chain_full`).  Prints the card's line and one JSON
     line: the LW run's wall, peak memory, collectives and the rank's block
-    bytes at each stage, and the chain's numbers."""
+    bytes at each stage, and the chains' numbers."""
     import numpy as np
     import torch
 
@@ -3052,6 +3474,11 @@ def distributed_full() -> int:
     torch.cuda.empty_cache()
     ring = make_cluster_mesh()
     try:
+        Xp = gaussian_mixture(seed=0, n=PAPER_N, dim=DIM, return_labels=False)
+        Dp = build_distance_matrix(Xp, "euclidean")
+        paper = {variant: distributed_run(torch, np, ring, Dp, variant, True, None,
+                                          f"distributed {variant} n={PAPER_N}")[1]
+                 for variant in ("rowmin", "lazy")}
         D = build_distance_matrix(X, "euclidean")
         res, full = distributed_run(torch, np, ring, D, "baseline", True, None,
                                     f"distributed baseline n={FULL_N}", profile=False)
@@ -3059,11 +3486,13 @@ def distributed_full() -> int:
                      f"distributed n={FULL_N} vs the kernel backend")
         del D, res
         torch.cuda.empty_cache()
+        mid = sharded_methods(torch, np, ring, MID_N, CHAIN_DIM, "distributed-full")[0]
         chain = sharded_chain_full(torch, np, ring)
     finally:
         dist.destroy_process_group()
     print(gpu_line())
-    print(json.dumps(dict(lw=dict(n=FULL_N, **full), sharded_chain=chain)))
+    print(json.dumps(dict(lw=dict(n=FULL_N, **full), lw_paper=paper, sharded_chain_mid=mid,
+                          sharded_chain=chain)))
     return 0
 
 

@@ -3,9 +3,9 @@
 Counterpart of :mod:`repro.core.api`, for the parts this port runs: the
 NN-chain engine (dense, and matrix-free on points) behind the default
 knobs, the Lance-Williams merge loop on the serial and kernel backends,
-the landmark tier, the paper's distributed LW loop and the sharded
-matrix-free chain over the ranks of a ``torch.distributed`` group
-(``backend="distributed"``), and
+the landmark tier, the two-phase tier, the paper's distributed LW loop
+and the sharded matrix-free chain over the ranks of a
+``torch.distributed`` group (``backend="distributed"``), and
 :func:`cluster_batch` for many small problems at once (shape buckets on
 the serial and kernel backends, or whole problems dealt to the ranks).
 ``cluster(...)`` takes raw ``(n, d)`` points, ``(n, atoms, 3)``
@@ -25,7 +25,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import dendrogram as dg
 from repro_torch.core.batched import BatchStats, batch_ring, bucket_n, cluster_batch_merges
@@ -33,7 +32,9 @@ from repro_torch.core.distance import pairwise_euclidean, pairwise_rmsd, pairwis
 from repro_torch.core.distributed import (
     distributed_lance_williams,
     distributed_nn_chain_from_points,
+    group_size,
     require_ring_mesh,
+    two_phase_from_points,
 )
 from repro_torch.core.engine import resolve_device, symmetrize
 from repro_torch.core.linkage import METHODS, default_metric
@@ -45,18 +46,6 @@ from repro_torch.core.nnchain import (
     resolve_batch_algorithm,
     resolve_matrix_free,
 )
-
-#: Engines of the JAX package that this port does not run yet, with the
-#: ROADMAP.md item that ports each.
-_NOT_PORTED_ALGORITHMS = {
-    "twophase": "A7.3 (the two-phase tier)",
-}
-
-
-def _group_size() -> int:
-    """World size of the default process group, 1 when none is up: the
-    port's count of devices for ``backend="auto"``."""
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 @dataclass
@@ -234,12 +223,13 @@ def cluster(
     None``, else ``(n, d)`` points embedded via ``metric``.  The knobs
     resolve as in :func:`repro.core.api.cluster`: ``backend="auto"`` is
     ``"distributed"`` when a default process group of more than one rank
-    is up (for the LW loop: an explicit ``algorithm="nnchain"`` or
-    ``"landmark"`` keeps ``"serial"``), else ``"serial"``; ``algorithm="auto"`` runs the
-    NN-chain engine for reducible methods at ``n ≥ 256`` with default
-    engine knobs, matrix-free (no ``(n, n)`` tensor) under
-    ``matrix_free="auto"`` for ``(n, d)`` points of
-    ``ward``/``average``/``weighted`` on the squared-Euclidean metric at
+    is up (for the LW loop: an explicit ``algorithm="nnchain"``,
+    ``"twophase"`` or ``"landmark"`` keeps ``"serial"``), else
+    ``"serial"``; ``algorithm="auto"`` runs the NN-chain engine for
+    reducible methods at ``n ≥ 256`` with default engine knobs,
+    matrix-free (no ``(n, n)`` tensor) under ``matrix_free="auto"`` for
+    ``(n, d)`` points of ``ward``/``average``/``weighted`` on the
+    squared-Euclidean metric at
     ``n ≥ 4096``.  The chain runs the full agglomeration; ``stop_at_k``
     and ``distance_threshold`` cut its canonical merge list afterwards.
     Otherwise the LW merge loop runs: in plain torch on the serial
@@ -270,9 +260,13 @@ def cluster(
     over the ranks of ``mesh``): ``(n, d)`` points of a
     ``ward``/``average``/``weighted`` run under the squared-Euclidean
     convention, no matrix kept (``distances`` is ``None``); anything else
-    raises the JAX package's ``ValueError``.  The two-phase engine is not
-    ported yet and raises ``NotImplementedError`` naming its ROADMAP.md
-    item.
+    raises the JAX package's ``ValueError``.  ``algorithm="twophase"`` is
+    the approximate two-phase tier
+    (:func:`repro_torch.core.distributed.two_phase_from_points`: as many
+    shards as the default group has ranks, each clustered in this
+    process): ``(n, d)`` points of a ``ward``/``average``/``weighted``
+    run under the squared-Euclidean convention, on ``backend="serial"``
+    (``"auto"``) or ``"distributed"``, no matrix kept.
     ``device`` defaults to CUDA and raises without it; ``device="cpu"``
     runs the plain torch versions of the kernels.
     ``keep_inputs`` stores the input on the result (for
@@ -320,17 +314,18 @@ def cluster(
         return _cluster_landmark(points, method, used_metric, backend, stop_at_k,
                                  distance_threshold, keep_inputs, n_landmarks, seed,
                                  refine, dev)
-    if algorithm in _NOT_PORTED_ALGORITHMS:
-        raise NotImplementedError(
-            f"algorithm={algorithm!r} is not ported yet: ROADMAP.md "
-            f"{_NOT_PORTED_ALGORITHMS[algorithm]}"
-        )
     if backend not in ("auto", "serial", "distributed", "kernel"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "auto":
-        # an explicit nnchain request owns the backend choice: its default
-        # composition is the serial chain
-        backend = "distributed" if algorithm != "nnchain" and _group_size() > 1 else "serial"
+        # an explicit nnchain/twophase request owns the backend choice: its
+        # default composition is the serial chain
+        backend = ("distributed" if algorithm not in ("nnchain", "twophase") and group_size() > 1
+                   else "serial")
+    points_capable = (points is not None and points.ndim == 2
+                      and method in POINTS_METHODS and used_metric == "sqeuclidean")
+    if algorithm == "twophase":
+        return _cluster_two_phase(points, method, used_metric, backend, points_capable,
+                                  stop_at_k, distance_threshold, keep_inputs, dev)
     algorithm = resolve_algorithm(algorithm, method=method, backend=backend, n=n,
                                   variant=variant, compaction=compaction)
 
@@ -339,8 +334,6 @@ def cluster(
             # the sharded matrix-free chain is the only distributed chain:
             # it needs the points capability, and matrix_free=False
             # contradicts it
-            points_capable = (points is not None and points.ndim == 2
-                              and method in POINTS_METHODS and used_metric == "sqeuclidean")
             if matrix_free is False or not points_capable:
                 raise ValueError(
                     "backend='distributed' with algorithm='nnchain' is the sharded "
@@ -437,6 +430,41 @@ def _cluster_landmark(points, method, metric, backend, stop_at_k, distance_thres
     )
 
 
+def _cluster_two_phase(points, method, metric, backend, points_capable, stop_at_k,
+                       distance_threshold, keep_inputs, dev) -> ClusterResult:
+    """``cluster(..., algorithm="twophase")``: validate, run the tier over
+    the default group's world size of shards, and truncate its canonical
+    merges."""
+    if not points_capable:
+        raise ValueError(
+            "algorithm='twophase' shards points and agglomerates "
+            "geometric summaries: it needs (n, d) points input and a "
+            f"method from {POINTS_METHODS} under the squared-"
+            f"Euclidean convention; got method={method!r}, "
+            f"metric={metric!r}, "
+            f"input shape {None if points is None else points.shape}"
+        )
+    if backend not in ("serial", "distributed"):
+        raise ValueError(
+            f"algorithm='twophase' supports backend='serial'/"
+            f"'distributed', got {backend!r}"
+        )
+    n = int(points.shape[0])
+    res = two_phase_from_points(points, method, device=dev)
+    # heights are already monotone-repaired and canonical: only truncate
+    merges = dg.truncate_canonical(res.merges.numpy(), n, stop_at_k, distance_threshold)
+    return ClusterResult(
+        merges=merges,
+        method=method,
+        backend=backend,
+        algorithm="twophase",
+        n_leaves=n,
+        points=points if keep_inputs else None,
+        distances=None,
+        metric=metric,
+    )
+
+
 @dataclass
 class BatchResult(Sequence):
     """Results of a :func:`cluster_batch` call: one :class:`ClusterResult`
@@ -504,7 +532,7 @@ def cluster_batch(
     if backend == "auto":
         # an explicit nnchain request owns the backend choice (it is a
         # single-device engine), as in cluster()
-        backend = "distributed" if algorithm != "nnchain" and _group_size() > 1 else "serial"
+        backend = "distributed" if algorithm != "nnchain" and group_size() > 1 else "serial"
     if backend not in ("serial", "distributed", "kernel"):
         raise ValueError(f"unknown backend {backend!r}")
     ring = None

@@ -30,6 +30,12 @@ entry on the card), with three small collectives a trip: O(n·d/p + n) a
 rank.  A segmented driver retries a segment after a simulated shard loss
 and can shrink onto a smaller ring (:mod:`repro_torch.checkpoint.elastic`).
 
+The **two-phase approximate tier** (:func:`two_phase_from_points`) runs
+in one process: the matrix-free chain on each contiguous block of points,
+truncated; the host replays each block's merges into geometric summaries;
+one more chain agglomerates the summaries.  On the card both phases run
+kernel B5's resident chain trip.
+
 The ring is :class:`Ring`, a small dataclass over a ``ProcessGroup`` with
 this process's rank, the group's size and the rank's device, not a
 ``DeviceMesh``: one group and one device are all the engine uses.
@@ -62,6 +68,7 @@ import torch.distributed as dist
 
 from repro_torch.core import distance
 from repro_torch.core.engine import (
+    LWResult,
     ShardedLWResult,
     check_knobs,
     resolve_compaction,
@@ -161,6 +168,13 @@ def sub_ring(ranks, device=None) -> Ring:
     if dist.get_rank() in ranks:
         return ring_of(group, dev)
     return Ring(group, -1, len(ranks), resolve_device(dev))
+
+
+def group_size() -> int:
+    """World size of the default process group, 1 when none is up: the
+    port's count of devices, where the JAX package reads
+    ``jax.device_count()``."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def make_cluster_mesh(device=None) -> Ring:
@@ -737,3 +751,146 @@ def distributed_nn_chain_from_points(
             f"distances); committed {done}/{n_steps} merges"
         )
     return s.result(restarts=restarts, stragglers=stragglers, segments=seg_idx)
+
+
+# ---------------------------------------------------------------------------
+# the two-phase approximate tier (Variance-based Distributed Clustering)
+# ---------------------------------------------------------------------------
+
+
+def _replay_summaries(X: np.ndarray, merges: np.ndarray, method: str):
+    """Replay a merge prefix through the geometric-summary recursions.
+
+    The JAX package's host mirror of ``summary_merge``, verbatim: numpy
+    float32 on the host, so that the summaries phase 2 starts from are the
+    reference's bit for bit (the order of numpy's scalar-times-array and
+    its pairwise ``sum`` is kept).  Walking the phase-1 merge prefix
+    rebuilds exactly the ``(w, u, size)`` state each surviving cluster
+    would carry, WPGMA's tree-dependent midpoints included.  Returns
+    ``(W, u, sizes, alive)`` over the shard's slots.
+    """
+    m = X.shape[0]
+    W = np.array(X, np.float32, copy=True)
+    u = np.zeros(m, np.float32)
+    sizes = np.ones(m, np.float32)
+    alive = np.ones(m, bool)
+    for row in np.asarray(merges):
+        i, j = int(round(row[0])), int(round(row[1]))
+        n_i, n_j = sizes[i], sizes[j]
+        tot = n_i + n_j
+        gap = np.float32(((W[i] - W[j]) ** 2).sum())
+        if method == "weighted":
+            w_new = np.float32(0.5) * (W[i] + W[j])
+            u_new = np.float32(0.5) * (u[i] + u[j]) + np.float32(0.25) * gap
+        elif method == "average":
+            w_new = (n_i * W[i] + n_j * W[j]) / tot
+            u_new = (n_i * u[i] + n_j * u[j]) / tot \
+                + (n_i * n_j) / (tot * tot) * gap
+        else:                                   # ward
+            w_new = (n_i * W[i] + n_j * W[j]) / tot
+            u_new = np.float32(0.0)
+        W[i], u[i], sizes[i], alive[j] = w_new, u_new, tot, False
+    return W, u, sizes, alive
+
+
+def two_phase_from_points(
+    X,
+    method: str = "ward",
+    *,
+    shards: int | None = None,
+    intermediate_k: int | None = None,
+    device=None,
+) -> LWResult:
+    """Approximate two-phase agglomeration (arXiv 1703.09823's scheme):
+    cluster each shard's block locally, agglomerate summaries globally, on
+    ``device`` (CUDA unless told otherwise).
+
+    Phase 1 runs the matrix-free chain
+    (:func:`repro_torch.core.nnchain.nn_chain_from_points`, B5's resident
+    trip on the card) on each of ``shards`` contiguous blocks (default: the
+    default process group's world size, 1 with no group) and truncates its
+    canonical merge list at ``intermediate_k`` clusters (default
+    ``round(√(block size))``); phase 2 replays those prefixes into
+    geometric summaries on the host (:func:`_replay_summaries`) and
+    agglomerates the surviving ``Σ intermediate_k`` summaries with
+    :func:`repro_torch.core.nnchain.nn_chain_from_summaries` (the same
+    trip).  Every shard runs in this process, on its device, one after
+    another, as in the JAX package.  The stitched result is a full
+    ``(n − 1, 4)`` merge list in the global slot convention, heights
+    monotone-repaired and height-sorted (on the CPU, as a tensor): a valid
+    dendrogram, but not the exact one, since no merge crosses shards below
+    the truncation level.
+    """
+    from repro_torch.core import dendrogram as dg
+    from repro_torch.core.nnchain import nn_chain_from_points, nn_chain_from_summaries
+
+    if method not in POINTS_METHODS:
+        raise ValueError(
+            f"the two-phase tier supports {POINTS_METHODS} (phase 2 "
+            f"agglomerates geometric summaries), got {method!r}"
+        )
+    X = np.asarray(X, np.float32)
+    if X.ndim != 2:
+        raise ValueError(f"expected (n, d) points, got {X.shape}")
+    n = X.shape[0]
+    if n < 2:
+        return LWResult(merges=torch.zeros((0, 4), dtype=torch.float32), n_merges=0)
+    p = int(shards) if shards is not None else group_size()
+    if p < 1:
+        raise ValueError(f"shards must be positive, got {shards}")
+    dev = resolve_device(device)
+    p = min(p, n)
+    base = math.ceil(n / p)
+
+    stitched: list = []
+    reps: list[int] = []
+    Wg, ug, szg = [], [], []
+    for o in range(0, n, base):
+        Xs = X[o:o + base]
+        m = Xs.shape[0]
+        k_s = (intermediate_k if intermediate_k is not None
+               else max(1, int(round(math.sqrt(m)))))
+        k_s = max(1, min(int(k_s), m))
+        if m >= 2 and m - k_s > 0:
+            res = nn_chain_from_points(Xs, method, device=dev)
+            if res.n_merges != m - 1:
+                raise RuntimeError(
+                    f"phase-1 chain on shard at offset {o} hit its "
+                    "iteration cap (NaNs in the input?)"
+                )
+            local = dg.canonical_order(res.merges.cpu().numpy(), n=m)[: m - k_s]
+        else:
+            local = np.zeros((0, 4), np.float32)
+        W, u, sizes, alive = _replay_summaries(Xs, local, method)
+        for row in local:
+            stitched.append((o + row[0], o + row[1], row[2], row[3]))
+        for s in np.flatnonzero(alive):
+            reps.append(o + int(s))
+            Wg.append(W[s])
+            ug.append(u[s])
+            szg.append(sizes[s])
+
+    K = len(reps)
+    if K >= 2:
+        res2 = nn_chain_from_summaries(np.stack(Wg), np.array(ug, np.float32),
+                                       np.array(szg, np.float32), method, device=dev)
+        if res2.n_merges != K - 1:
+            raise RuntimeError(
+                "phase-2 summary chain hit its iteration cap "
+                "(NaNs in the input?)"
+            )
+        m2 = res2.merges.cpu().numpy()
+        reps_arr = np.asarray(reps, np.float32)
+        # summaries are enumerated in ascending global-slot order, so the
+        # i < j slot convention survives the index mapping unchanged
+        mapped = m2.copy()
+        mapped[:, 0] = reps_arr[m2[:, 0].astype(np.int64)]
+        mapped[:, 1] = reps_arr[m2[:, 1].astype(np.int64)]
+        stitched.extend(map(tuple, mapped))
+
+    merges = np.asarray(stitched, np.float32).reshape(-1, 4)
+    # monotone repair (unbounded clamp budget) and the canonical height
+    # sort: emission order is dependency order, so the repaired stable sort
+    # is a valid dendrogram by construction (canonical_order validates it)
+    merges = dg.canonical_order(merges, n=n, rtol=1e30)
+    return LWResult(merges=torch.from_numpy(merges), n_merges=merges.shape[0])

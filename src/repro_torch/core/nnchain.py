@@ -18,6 +18,10 @@ first index of the minimum; a NaN row stops the run):
   geometric summary ``(w, u, size)`` per slot.  No ``(n, n)`` tensor
   exists.
 
+:func:`nn_chain_from_summaries` runs the points composition from whole
+clusters (sizes other than 1, scatter terms ``u``): phase 2 of the
+two-phase tier (:func:`repro_torch.core.distributed.two_phase_from_points`).
+
 The reference runs the chain as one ``lax.while_loop``.  The matrix-free
 chain keeps its whole state on the device: each trip is one call of
 :func:`repro_torch.kernels.pairwise.chain_trip` (one launch of kernel B5
@@ -331,10 +335,12 @@ def _chain_loop(ops: NNChainOps, state: NNState, n_steps: int) -> ChainResult:
     return ChainResult(merges=merges, n_merges=len(pairs), iters=iters)
 
 
-def _init_state(rep: tuple, n: int, device) -> NNState:
-    """Fresh carry: every slot a live leaf of size 1."""
-    return NNState(rep=rep, alive=torch.ones(n, dtype=torch.bool, device=device),
-                   sizes=torch.ones(n, dtype=torch.float32, device=device))
+def _init_state(rep: tuple, n: int, device, sizes=None) -> NNState:
+    """Fresh carry: every slot live, of size 1 (leaves) or of ``sizes``
+    (whole clusters, kept, not copied)."""
+    if sizes is None:
+        sizes = torch.ones(n, dtype=torch.float32, device=device)
+    return NNState(rep=rep, alive=torch.ones(n, dtype=torch.bool, device=device), sizes=sizes)
 
 
 # ---------------------------------------------------------------------------
@@ -500,6 +506,41 @@ def nn_chain_from_points(X, method: str = "ward", *, device=None) -> ChainResult
     W = W.contiguous().clone()              # merges rewrite summaries in place
     state = _init_state((W, torch.zeros(n, dtype=torch.float32, device=dev)), n, dev)
     return _resident_chain(method, state, n - 1)
+
+
+def nn_chain_from_summaries(W, u, sizes, method: str = "ward", *, device=None) -> ChainResult:
+    """Agglomerate ``k`` pre-accumulated geometric summaries on ``device``
+    (CUDA unless told otherwise).
+
+    Each slot is a whole cluster: ``W[k]`` its summary point (centroid or
+    WPGMA midpoint), ``u[k]`` its scatter term, ``sizes[k]`` its member
+    count.  The chain runs the recursions of :func:`nn_chain_from_points`
+    (which is this call with unit sizes and ``u = 0``) on the same
+    resident trip (:func:`_resident_chain`).  Phase 2 of the two-phase
+    tier (:func:`repro_torch.core.distributed.two_phase_from_points`).
+    Merges are in chain order over summary slots; recorded sizes are
+    summed member counts.  The caller's tensors are not modified.
+    """
+    if method not in POINTS_METHODS:
+        raise ValueError(
+            f"summary agglomeration supports {POINTS_METHODS} (their LW "
+            f"distance is a geometric-summary function), got {method!r}"
+        )
+    dev = resolve_device(device)
+    W = torch.as_tensor(W, dtype=torch.float32, device=dev)
+    if W.ndim != 2:
+        raise ValueError(f"expected (k, d) summary points, got {tuple(W.shape)}")
+    k = W.shape[0]
+    u = torch.as_tensor(u, dtype=torch.float32, device=dev)
+    sizes = torch.as_tensor(sizes, dtype=torch.float32, device=dev)
+    if u.shape != (k,) or sizes.shape != (k,):
+        raise ValueError(
+            f"u and sizes must be ({k},) to match the summaries, got "
+            f"{tuple(u.shape)} and {tuple(sizes.shape)}"
+        )
+    # the trip rewrites the summaries in place, and the buffers keep their tensors
+    state = _init_state((W.contiguous().clone(), u.clone()), k, dev, sizes=sizes.clone())
+    return _resident_chain(method, state, k - 1)
 
 
 # ---------------------------------------------------------------------------

@@ -114,15 +114,6 @@ def test_lw_knobs_match_reference(n, method, knobs):
     np.testing.assert_allclose(got.merges[:, 2], want.merges[:, 2], rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("method,knobs", [
-    ("complete", dict(algorithm="twophase")),
-])
-def test_knobs_not_ported_raise(method, knobs):
-    X = np.zeros((6, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        cluster(X, method, device="cpu", **knobs)
-
-
 def test_distributed_chain_route():
     """``algorithm="nnchain", backend="distributed"`` is the sharded
     matrix-free chain on the default ring (a world-size-1 gloo group for

@@ -1869,3 +1869,95 @@ def test_cuda_distributed_chain_one_read_back_a_trip(nccl_ring):
     where = collections.Counter(f"{w.filename}:{w.lineno}" for w in syncs)
     assert torch.equal(got.merges, want.merges)
     assert got.iters <= len(syncs) <= got.iters + 2, (len(syncs), got.iters, where.most_common(8))
+
+
+# ---------------------------------------------------------------------------
+# the two-phase tier: phase 2 seeds B5's trip with whole clusters
+# ---------------------------------------------------------------------------
+
+
+def summary_seed(rng, k, d):
+    """``k`` summaries as phase 2 finds them: points, ``u >= 0`` and
+    integer sizes >= 1, as float32 numpy arrays."""
+    W = (rng.normal(size=(k, d)) * 3).astype(np.float32)
+    u = np.abs(rng.normal(size=k)).astype(np.float32)
+    sizes = rng.integers(1, 9, size=k).astype(np.float32)
+    return W, u, sizes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", nnchain.POINTS_METHODS)
+@pytest.mark.parametrize("d", (16, 128, 7))
+def test_cuda_chain_trip_from_a_summary_seed(method, d, cuda, rng):
+    """One trip of the kernel against its plain twin from every state of a
+    run that starts from whole clusters (sizes other than 1, ``u`` other
+    than 0), as phase 2 of the two-phase tier starts it."""
+    k = 97
+    W, u, sizes = summary_seed(rng, k, d)
+    b = pairwise.chain_buffers(torch.tensor(W), torch.tensor(u), torch.ones(k, dtype=torch.bool),
+                               torch.tensor(sizes), k - 1)
+    kinds = set()
+    for _ in range(150):
+        got = to_device(b, cuda)
+        before = b.count.tolist()
+        pairwise.chain_trip(method, got)
+        pairwise.chain_trip_plain(method, b)
+        torch.cuda.synchronize()
+        assert_same_trip(got, b)
+        kinds.add("merge" if b.count.tolist()[1] > before[1] else "push")
+    assert kinds == {"push", "merge"}
+    assert float(b.sizes.sum()) == float(sizes.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", nnchain.POINTS_METHODS)
+def test_cuda_summaries_chain_matches_cpu(method, cuda, rng):
+    """Phase 2's chain on the card: the CPU run's chain-order merges over
+    summary slots (sizes are member counts, not leaves) and trips, one
+    trip launch a trip from whole graph replays; the inputs unchanged."""
+    k = 1024
+    W, u, sizes = summary_seed(rng, k, 64)
+    Wt = torch.tensor(W, device=cuda)
+    reset_trips()
+    got = nnchain.nn_chain_from_summaries(Wt, u, sizes, method)
+    assert got.merges.device.type == "cuda" and got.n_merges == k - 1
+    assert_trip_counts(got.iters)
+    assert torch.equal(Wt.cpu(), torch.tensor(W))
+    want = nnchain.nn_chain_from_summaries(W, u, sizes, method, device="cpu")
+    assert got.iters == want.iters
+    gm, wm = got.merges.cpu().numpy(), want.merges.numpy()
+    np.testing.assert_array_equal(gm[:, [0, 1, 3]], wm[:, [0, 1, 3]])
+    np.testing.assert_allclose(gm[:, 2], wm[:, 2], rtol=1e-4, atol=1e-5)
+    assert gm[:, 3].max() == sizes.sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", nnchain.POINTS_METHODS)
+def test_cuda_two_phase_matches_cpu(method, cuda):
+    """The two-phase tier at n = 600, 4 shards: the card's run (both
+    phases on B5's resident trip, no other kernel) equals the CPU's slot
+    for slot, heights within rtol 1e-4 / atol 1e-5; ``cluster()`` reports
+    it on both backends it takes."""
+    from repro_torch.core import cluster
+    from repro_torch.core.distributed import two_phase_from_points
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    n = 600
+    X = gaussian_mixture(seed=8, n=n, dim=32, return_labels=False)
+    reset_trips()
+    others = kernel_launches()
+    got = two_phase_from_points(X, method, shards=4)
+    assert got.n_merges == n - 1 and pairwise.chain_trip.launches > 0
+    assert pairwise.chain_trip.launches == pairwise.TripGraph.replays * nnchain.CHAIN_GRAPH_TRIPS
+    assert kernel_launches() == others and pairwise.row_sq_euclidean.launches == 0
+    want = two_phase_from_points(X, method, shards=4, device="cpu")
+    gm, wm = got.merges.numpy(), want.merges.numpy()
+    np.testing.assert_array_equal(gm[:, [0, 1, 3]], wm[:, [0, 1, 3]])
+    np.testing.assert_allclose(gm[:, 2], wm[:, 2], rtol=1e-4, atol=1e-5)
+    metric = None if method == "ward" else "sqeuclidean"
+    for backend in ("auto", "distributed"):
+        res = cluster(X, method, metric=metric, algorithm="twophase", backend=backend)
+        assert (res.algorithm, res.backend) == ("twophase", backend.replace("auto", "serial"))
+        np.testing.assert_array_equal(res.merges[:, [0, 1, 3]],
+                                      two_phase_from_points(X, method)
+                                      .merges.numpy()[:, [0, 1, 3]])
