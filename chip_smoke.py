@@ -13,9 +13,12 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    both: the LW kernels on a mid-run state with dead slots at n = 1968 and
    n = 16384 (the step kernel through both its entries, the per-row step
    and the resident merge, with the bytes it reads and the rate it reaches;
-   the row update checked for all 7 methods), the row kernel at
+   the row update checked for all 7 methods; B1's single entry also on
+   the all-live state a stage's seed finds), the row kernel at
    (m, d) = (1968, 64), (8192, 128) and (32768, 128) (phase 16's shard
-   shapes), its trip entry (a whole chain trip,
+   shapes), and there its vote entry (a rank's vote of a sharded trip) bit
+   for bit the composition it replaces (the row entry, then the torch
+   epilogue), timed beside it, its trip entry (a whole chain trip,
    the matrix-free chain's main path) at (32768, 128), (6155, 128) and
    (1968, 64) against its plain twin over 64 trips from the first state of
    a run, timed over 20 trips from the state they reach and over a graph
@@ -157,10 +160,12 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     (n = 16384, staged) alone: the wall, the peak memory and the block's
     bytes at each stage, the slots the kernel backend's.
 16. The sharded matrix-free NN chain (``distributed_nn_chain_from_points``)
-    on a world-size-1 NCCL group, B5's row entry launched once a trip (the
+    on a world-size-1 NCCL group, B5's vote entry launched once a trip (the
     trips), no other kernel, three collectives a trip: at the paper's size
     (n = 1968, d = 64) for ward, average and weighted, bit for bit the
-    host-driven chain loop with B5's row on the card, with its wall; the
+    host-driven chain loop with B5's row entry on the card, with its wall
+    (ward's with busy time, idle share and host and device ms a trip over a
+    profiled window of 500 merges, in a process of its own); the
     ward run again segmented (segments of 500 merges, a shard lost at
     segment 1, a straggler deadline), equal to the unsegmented one, with
     its restarts, stragglers and segments; ``cluster(...,
@@ -194,7 +199,8 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     modes) each exit 0 at their defaults, their lines carried here.
 18. One line ``{"kernels": [...]}`` with each kernel's numbers (the batch
     entries beside the others, with their launches in the service's card
-    mix; B5's row entry with its launches in phase 16; B5's trip entry
+    mix; B5's vote entry with its launches in phase 16, its row entry with
+    those of phase 16's host-driven reference loop; B5's trip entry
     from phase 17's summary seeds), the card's ``nvidia-smi`` line, and
     last ``{"ok": true, "device": {...}}``.
 
@@ -305,7 +311,7 @@ ENTRY_POINTS = {"quickstart": ("examples/quickstart_torch.py",),
 RTOL, ATOL = 1e-4, 1e-5        # height tolerance of the JAX package's kernel tests
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once a launch
-    "masked_argmin": ("masked_row_min", "first_min_over_rows"),
+    "masked_argmin": ("masked_row_min",),
     "masked_argmin_batch": ("argmin_batch_kernel",),
     "lw_merge_batch": ("lw_merge_batch_kernel",),
     "lazy_merge_batch": ("lazy_merge_batch_kernel",),
@@ -316,6 +322,7 @@ KERNEL_SYMBOLS = {             # wrapper -> its device functions, the first once
     "lazy_rescan": ("lazy_rescan_kernel",),
     "row_sq_euclidean": ("row_sq_kernel",),
     "chain_trip": ("chain_trip_kernel",),
+    "chain_vote": ("chain_vote_kernel",),
     "pairwise_sq_euclidean": ("pairwise_sq_kernel",),
 }
 NO_LAUNCHES = dict.fromkeys(KERNEL_SYMBOLS, 0)
@@ -456,20 +463,9 @@ def phase_kernels(torch, n: int, l2_rate: float) -> dict:
 
     out = {}
     D, alive, sizes, i, j, _ = mid_run_state(torch, n, squared=False, seed=1)
-    live = int(alive.sum())
-    v, flat = minscan.masked_argmin(D, alive)
-    vp, flatp = minscan.masked_argmin_plain(D, alive)
-    if (float(v), int(flat)) != (float(vp), int(flatp)):
-        raise AssertionError(f"masked_argmin n={n}: kernel {(float(v), int(flat))} "
-                             f"!= plain {(float(vp), int(flatp))}")
-    # read the live submatrix and alive, write one value and one index;
-    # one compare a live cell; the timed launches keep touching D
-    out["masked_argmin"] = dict(
-        n=n, live=live, max_abs_err=abs(float(v) - float(vp)),
-        ms=time_ms(torch, lambda: minscan.masked_argmin(D, alive)),
-        plain_ms=time_ms(torch, lambda: minscan.masked_argmin_plain(D, alive)),
-        **bound(torch, 4 * live * live + n + 12, live * live, 4 * n * n, l2_rate),
-    )
+    out["masked_argmin"] = argmin_row(torch, D, alive, l2_rate)
+    # the state a stage's seed finds: compaction leaves every slot live
+    out["masked_argmin/seed"] = argmin_row(torch, D, torch.ones_like(alive), l2_rate)
 
     for method in ("complete", "ward"):
         state = mid_run_state(torch, n, squared=method == "ward", seed=2)
@@ -478,6 +474,26 @@ def phase_kernels(torch, n: int, l2_rate: float) -> dict:
         del state
     out["lw_update/complete"] = phase_row_update(torch, n, l2_rate)
     return out
+
+
+def argmin_row(torch, D, alive, l2_rate: float) -> dict:
+    """B1's single entry against its plain version on ``(D, alive)``, bit
+    for bit, and timed."""
+    from repro_torch.kernels import minscan
+
+    n, live = D.shape[0], int(alive.sum())
+    v, flat = minscan.masked_argmin(D, alive)
+    vp, flatp = minscan.masked_argmin_plain(D, alive)
+    if not (torch.equal(v, vp) and torch.equal(flat, flatp)):
+        raise AssertionError(f"masked_argmin n={n} live={live}: kernel "
+                             f"{(float(v), int(flat))} != plain {(float(vp), int(flatp))}")
+    # read the live submatrix and alive, write one value and one index;
+    # one compare a live cell; the timed launches keep touching D
+    return dict(n=n, live=live, max_abs_err=abs(float(v) - float(vp)),
+                ms=time_ms(torch, lambda: minscan.masked_argmin(D, alive)),
+                plain_ms=time_ms(torch, lambda: minscan.masked_argmin_plain(D, alive)),
+                host_us=host_us(torch, lambda: minscan.masked_argmin(D, alive)),
+                **bound(torch, 4 * live * live + n + 12, live * live, 4 * n * n, l2_rate))
 
 
 def step_bound(torch, n: int, live: float, l2_rate: float) -> dict:
@@ -1016,6 +1032,75 @@ def phase_row(torch, m: int, d: int, l2_rate: float) -> dict:
                 **bound(torch, n_bytes, 3 * m * d, n_bytes, l2_rate))
 
 
+def phase_vote(torch, m: int, d: int, l2_rate: float) -> dict:
+    """B5's vote entry at phase 16's block shape (m, d), one NCCL rank's
+    whole block, on the first state of a ward run (unit sizes, every slot
+    live; the tip m // 3, prev m // 2): bit for bit the composition it
+    replaces (B5's row entry, then the torch epilogue), and timed beside
+    it (``composition_ms``, the "before") and beside the plain twin; each
+    one's host time to enqueue a call.  Then both again with half the
+    slots dead, as a run finds them half way (``half_dead_ms``)."""
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.kernels import pairwise
+
+    W = torch.as_tensor(gaussian_mixture(seed=3, n=m, dim=d, return_labels=False),
+                        dtype=torch.float32, device="cuda")
+    u, sizes = torch.zeros(m, device="cuda"), torch.ones(m, device="cuda")
+    alive = torch.ones(m, dtype=torch.bool, device="cuda")
+    top, prev = m // 3, m // 2
+    tip = W[top].clone()
+    buf, ref = pairwise.vote_buffers("cuda"), pairwise.vote_buffers("cuda")
+    args = ("ward", tip, W, u, sizes, alive, top, prev, 0)
+
+    def vote():
+        return pairwise.chain_vote(*args, buf)
+
+    def composed():
+        return pairwise.chain_vote_plain(*args, ref, row_sq=pairwise.row_sq_euclidean)
+
+    got, want = vote().clone(), composed().clone()
+    plain = pairwise.chain_vote_plain(*args, pairwise.vote_buffers("cuda"))
+    if not torch.equal(got, want):
+        raise AssertionError(f"chain_vote m={m} d={d}: {got.tolist()} != the composition's "
+                             f"{want.tolist()}")
+    values = [0, 2]         # the plain row sums in torch's order: its slot may part at a near-tie
+    if not torch.allclose(got[values], plain[values], rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+        raise AssertionError(f"chain_vote m={m} d={d}: {got.tolist()} far from the plain "
+                             f"twin's {plain.tolist()}")
+    if buf.sync[:2].tolist() != [-1, 0]:
+        raise AssertionError(f"chain_vote m={m} d={d}: left its key/ticket at {buf.sync}")
+    # read the block, the sizes, alive and the tip once, write the triple; a
+    # subtract, a multiply and an add an element and the summary distance a row
+    n_bytes = 4 * (m * d + m + d) + m + 12
+    return dict(m=m, d=d, max_abs_err=float((got[values] - plain[values]).abs().max()),
+                ms=time_ms(torch, vote), composition_ms=time_ms(torch, composed),
+                plain_ms=time_ms(torch, lambda: pairwise.chain_vote_plain(*args, ref)),
+                library_ms=None, host_us=host_us(torch, vote),
+                composition_host_us=host_us(torch, composed),
+                **bound(torch, n_bytes, 3 * m * d + 5 * m, n_bytes, l2_rate),
+                **half_dead_vote(torch, args, buf, ref))
+
+
+def half_dead_vote(torch, args, buf, ref) -> dict:
+    """:func:`phase_vote`'s vote and composition with every other slot
+    dead (the tip and prev live), bit for bit and timed."""
+    from repro_torch.kernels import pairwise
+
+    method, tip, W, u, sizes, alive, top, prev, offset = args
+    alive = alive.clone()
+    alive[1::2] = False
+    alive[[top, prev]] = True
+    args = (method, tip, W, u, torch.where(alive, sizes, 0.0), alive, top, prev, offset)
+    got = pairwise.chain_vote(*args, buf).clone()
+    want = pairwise.chain_vote_plain(*args, ref, row_sq=pairwise.row_sq_euclidean)
+    if not torch.equal(got, want):
+        raise AssertionError(f"chain_vote, half dead: {got.tolist()} != the composition's "
+                             f"{want.tolist()}")
+    return dict(half_dead_ms=time_ms(torch, lambda: pairwise.chain_vote(*args, buf)),
+                half_dead_composition_ms=time_ms(torch, lambda: pairwise.chain_vote_plain(
+                    *args, ref, row_sq=pairwise.row_sq_euclidean)))
+
+
 def trip_bytes(m: int, d: int) -> float:
     """The bytes one chain trip must move at (m, d): the summaries read
     once, ward's one per-slot scalar (the sizes; u for average and
@@ -1153,6 +1238,7 @@ def reset_counters() -> None:
     lw_update.lazy_merge_batch.launches = 0
     pairwise.row_sq_euclidean.launches = 0
     pairwise.chain_trip.launches = pairwise.TripGraph.replays = 0
+    pairwise.chain_vote.launches = 0
     pairwise.pairwise_sq_euclidean.launches = 0
 
 
@@ -1168,6 +1254,7 @@ def read_counters() -> dict:
             "lazy_merge_batch": lw_update.lazy_merge_batch.launches,
             "row_sq_euclidean": pairwise.row_sq_euclidean.launches,
             "chain_trip": pairwise.chain_trip.launches,
+            "chain_vote": pairwise.chain_vote.launches,
             "pairwise_sq_euclidean": pairwise.pairwise_sq_euclidean.launches}
 
 
@@ -2510,25 +2597,23 @@ def sharded_window(torch, ring, X, method: str, what: str) -> dict:
         return s
 
     s, stats = timed(torch, window)
-    check_launches(stats["launches"], {"row_sq_euclidean": s.iters}, f"{what}, window")
+    check_launches(stats["launches"], {"chain_vote": s.iters}, f"{what}, window")
     busy = device_busy(torch, window, stats["wall_s"], stats["launches"])[1]
     return dict(merges=len(s.pairs), wall_s=stats["wall_s"],
                 device_busy_s=busy["device_busy_s"], idle_share=busy["idle_share"],
                 profiler_tries=busy["profiler_tries"],
-                row_ms_mean=busy["kernel_ms_mean"]["row_sq_euclidean"],
-                row_busy_share=busy["kernel_busy_share"]["row_sq_euclidean"],
+                vote_ms_mean=busy["kernel_ms_mean"]["chain_vote"],
+                vote_busy_share=busy["kernel_busy_share"]["chain_vote"],
                 **per_step(dict(stats, device_busy_s=busy["device_busy_s"]), s.iters, "trip"))
 
 
 def sharded_chain_run(torch, np, ring, X, method: str, what: str, want=None,
-                      profile: bool = False, **knobs) -> tuple:
+                      **knobs) -> tuple:
     """One ``distributed_nn_chain_from_points`` run of ``X`` on ``ring``, as
-    phase 16 drives it: :func:`timed`; B5's row entry launched once a trip
-    and no other kernel; three collectives a trip; every merge made; the
-    merges ``want`` (the host-driven loop's) bit for bit when given.  With
-    ``profile``, busy time, idle share and the host's and the device's ms
-    a trip over a profiled window (:func:`sharded_window`).  Returns the
-    result and the numbers."""
+    phase 16 drives it: :func:`timed`; B5's vote entry launched once a
+    trip and no other kernel; three collectives a trip; every merge made; the
+    merges ``want`` (the host-driven loop's) bit for bit when given.
+    Returns the result and the numbers."""
     from repro_torch.core.distributed import distributed_nn_chain_from_points
 
     def call():
@@ -2537,7 +2622,7 @@ def sharded_chain_run(torch, np, ring, X, method: str, what: str, want=None,
     before = ring.collectives
     res, stats = timed(torch, call)
     collectives = ring.collectives - before
-    check_launches(stats["launches"], {"row_sq_euclidean": res.iters}, what)
+    check_launches(stats["launches"], {"chain_vote": res.iters}, what)
     n = X.shape[0]
     if res.n_merges != n - 1 or collectives != 3 * res.iters:
         raise AssertionError(f"{what}: {res.n_merges} merges and {collectives} collectives in "
@@ -2546,11 +2631,9 @@ def sharded_chain_run(torch, np, ring, X, method: str, what: str, want=None,
         check_bit_equal(np, res.merges.cpu().numpy(), want, f"{what} vs the host-driven loop")
     out = dict(n=n, d=X.shape[1], wall_s=stats["wall_s"], peak_gib=stats["peak_gib"],
                trips=res.iters, collectives=collectives,
-               launches={"row_sq_euclidean": res.iters},      # and no other kernel
+               launches={"chain_vote": res.iters},      # and no other kernel
                wall_ms_per_trip=stats["wall_s"] / res.iters * 1e3, restarts=res.restarts,
                stragglers=res.stragglers, segments=res.segments)
-    if profile:
-        out["window"] = sharded_window(torch, ring, X, method, what)
     return res, out
 
 
@@ -2559,7 +2642,9 @@ def sharded_chain_full(torch, np, ring) -> dict:
     n = 32768, d = 128 ward points), once: its launches and collectives,
     its peak memory under PEAK_LIMIT_GIB (no (n, n) and no (n/p, n)
     tensor), its dendrogram equal to the resident chain's on the same
-    points, and a profiled window."""
+    points, and a profiled window in a process of its own (on an H100, a
+    session after the whole run in the same process saw 1499 of the
+    window's 1502 vote launches, three tries running)."""
     from repro_torch.core.dendrogram import canonical_order
     from repro_torch.core.nnchain import nn_chain_from_points
     from repro_torch.data.synthetic import gaussian_mixture
@@ -2567,7 +2652,7 @@ def sharded_chain_full(torch, np, ring) -> dict:
     n = CHAIN_N
     X = gaussian_mixture(seed=0, n=n, dim=CHAIN_DIM, return_labels=False)
     what = f"sharded chain n={n} d={CHAIN_DIM} ward"
-    res, out = sharded_chain_run(torch, np, ring, X, "ward", what, profile=True)
+    res, out = sharded_chain_run(torch, np, ring, X, "ward", what)
     if out["peak_gib"] >= PEAK_LIMIT_GIB:
         raise AssertionError(f"{what}: peak memory {out['peak_gib']:.4f} GiB, "
                              f"limit {PEAK_LIMIT_GIB} GiB")
@@ -2575,6 +2660,7 @@ def sharded_chain_full(torch, np, ring) -> dict:
     resident = canonical_order(nn_chain_from_points(X, "ward").merges.cpu().numpy(), n=n)
     check_equivalent(np, got, resident, n, f"{what} vs the resident chain")
     out["canonical_slots_equal"] = bool(np.array_equal(got[:, :2], resident[:, :2]))
+    out["window"] = run_child(torch, SHARDED_WINDOW_FLAG, dict(method="ward", n=n, d=CHAIN_DIM))
     return out
 
 
@@ -2623,6 +2709,7 @@ def sharded_methods(torch, np, ring, n: int, d: int, phase: str,
         if res.iters != host.iters:
             raise AssertionError(f"{what}: {res.iters} trips, the host loop {host.iters}")
         out[method]["host_loop_wall_s"] = hs["wall_s"]
+        out[method]["host_loop_launches"] = {"row_sq_euclidean": host.iters}
         merges[method] = res.merges.cpu().numpy()
         say(f"{phase} {what}: " + json.dumps(out[method]))
     torch.cuda.empty_cache()
@@ -2632,10 +2719,12 @@ def sharded_methods(torch, np, ring, n: int, d: int, phase: str,
 def phase_sharded_chain(torch, np, spec: dict) -> dict:
     """Phase 16, in a process of its own: the sharded matrix-free chain
     (``distributed_nn_chain_from_points``) on a world-size-1 NCCL group, B5's
-    row entry launched once a trip.  At the paper's size (n = 1968, d = 64)
-    for ward, average and weighted (:func:`sharded_methods`): bit for bit
-    the host-driven chain loop with B5's row on the card (their profiled
-    windows are ``--distributed-full``'s); the ward run again segmented, with a lost shard at segment 1 and a straggler
+    vote entry launched once a trip and B5's row entry never.  At the paper's
+    size (n = 1968, d = 64) for ward, average and weighted
+    (:func:`sharded_methods`): bit for bit the host-driven chain loop with
+    B5's row on the card, ward with a profiled window of its own (host and
+    device ms a trip; average's and weighted's windows are
+    ``--distributed-full``'s); the ward run again segmented, with a lost shard at segment 1 and a straggler
     deadline, equal to the unsegmented run; and ``cluster(...,
     algorithm="nnchain", backend="distributed")``.  The group is torn down
     at the end.  The n = 8192 runs are ``--distributed-full``."""
@@ -2653,10 +2742,11 @@ def phase_sharded_chain(torch, np, spec: dict) -> dict:
         raise AssertionError(f"ring of {ring.size} on {backend}/{ring.device}, want 1 on nccl")
     out = dict(backend=backend, world_size=ring.size)
     try:
-        # loads B5's row kernel and warms NCCL up
+        # loads B5's vote kernel and warms NCCL up
         distributed_nn_chain_from_points(
             gaussian_mixture(seed=1, n=300, dim=DIM, return_labels=False), "ward", ring)
-        runs, merges = sharded_methods(torch, np, ring, PAPER_N, DIM, "phase 16", windows=())
+        runs, merges = sharded_methods(torch, np, ring, PAPER_N, DIM, "phase 16",
+                                       windows=("ward",))
         out.update(runs)
         whole = merges["ward"]
 
@@ -2679,7 +2769,7 @@ def phase_sharded_chain(torch, np, spec: dict) -> dict:
 
         res, cs = timed(torch, lambda: cluster(Xp, "ward", algorithm="nnchain",
                                                backend="distributed", keep_inputs=False))
-        check_launches(cs["launches"], {"row_sq_euclidean": seg.iters},
+        check_launches(cs["launches"], {"chain_vote": seg.iters},
                        "cluster() on the sharded chain")
         if (res.backend, res.algorithm, res.distances) != ("distributed", "nnchain", None):
             raise AssertionError(f"cluster() ran {res.algorithm}/{res.backend}")
@@ -3243,8 +3333,9 @@ def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assign
     # B2, B3 and B5 launch through their second entries on the main path (the
     # merge, the lazy merge, the chain trip): a kernel's line gives that
     # entry's launches and times, and lists every entry under "entries";
-    # B5's row entry runs once a trip of the sharded chain (phase 16's ward
-    # run, at its shard shape); B5's trip entry also from phase 2's seed of the
+    # B5's vote entry runs once a trip of the sharded chain (phase 16's ward
+    # run, at its shard shape), its row entry once a trip of phase 16's
+    # host-driven reference loop; B5's trip entry also from phase 2's seed of the
     # two-phase tier (phase 17: ward's launches in the full-width run, average's
     # and weighted's in the paper-size runs)
     # "stages": the compaction stages of the LW run the launches were
@@ -3262,7 +3353,7 @@ def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assign
     b_kernel, b_lazy = batch["full"]["kernel"], batch["full"]["kernel_lazy"]
     inventory = []
     for name, entries in (
-            ("masked_argmin", [("masked_argmin", ("masked_argmin", FULL_N), full),
+            ("masked_argmin", [("masked_argmin", ("masked_argmin/seed", FULL_N), full),
                                ("masked_argmin_batch", ("masked_argmin_batch/seed", full_b),
                                 b_kernel)]),
             ("lw_step", [("lw_merge", ("lw_merge/complete", FULL_N), full),
@@ -3273,8 +3364,9 @@ def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assign
                            ("lazy_merge_batch", ("lazy_merge_batch/complete", full_b),
                             b_lazy)]),
             ("row_sq_euclidean", [("chain_trip", ("chain_trip", CHAIN_N), points),
+                                  ("chain_vote", ("chain_vote", row_main["n"]), row_main),
                                   ("row_sq_euclidean", ("row_sq_euclidean", row_main["n"]),
-                                   row_main)]),
+                                   dict(launches=row_main["host_loop_launches"]))]),
             ("pairwise_sq_euclidean", [("pairwise_sq_euclidean",
                                         ("pairwise_sq_euclidean", QUERY_N),
                                         assigned["centroid"]["kernel"])])):
@@ -3284,6 +3376,8 @@ def kernel_inventory(kernels: dict, full: dict, lazy: dict, points: dict, assign
                 row["service_launches"] = service["card"]["launches"][row["entry"]]
             if row["entry"] == "lazy_merge":
                 row["rescan_launches"] = lazy["launches"]["lazy_rescan"]
+            if row["entry"] == "masked_argmin":        # the seed's all-live state, and mid-run
+                row["mid_run_ms"] = kernels[("masked_argmin", FULL_N)]["ms"]
         if name == "row_sq_euclidean":
             for method, row in two_phase["rows"].items():
                 launches = (two_phase["full"]["launches"] if method == "ward" else
@@ -3351,6 +3445,9 @@ def main() -> int:
         row = phase_row(torch, m, d, l2_rate)
         say(f"phase 2 row_sq_euclidean m={m} d={d}: " + json.dumps(row))
         kernels[("row_sq_euclidean", m)] = row
+        row = phase_vote(torch, m, d, l2_rate)
+        say(f"phase 2 chain_vote m={m} d={d}: " + json.dumps(row))
+        kernels[("chain_vote", m)] = row
     for m, d in TRIP_SHAPES:
         row = phase_trip(torch, m, d, l2_rate)
         say(f"phase 2 chain_trip m={m} d={d}: " + json.dumps(row))
@@ -3501,7 +3598,8 @@ SINGLE_TIMES_FLAG = "--single-kernel-times"
 
 def single_kernel_times(src: str | None) -> int:
     """``python3 chip_smoke.py --single-kernel-times [SRC]``: phase 2's rows of
-    the single-problem entries of B1, B2 and B3 (their checks included) for
+    the single-problem entries of B1, B2 and B3, and B5's vote entry where
+    the tree has one (their checks included) for
     the ``repro_torch`` under ``SRC`` (default: this checkout's), one JSON
     line each.  Run it for two trees in one call, in the order A, B, B, A,
     to compare their kernels on one card."""
@@ -3526,6 +3624,14 @@ def single_kernel_times(src: str | None) -> int:
     for n in LAZY_SHAPES:
         rows[f"lazy_merge/complete n={n}"] = phase_lazy_merge(torch, n, l2_rate)["ms"]
         torch.cuda.empty_cache()
+    from repro_torch.kernels import pairwise
+
+    if hasattr(pairwise, "chain_vote"):         # B5's vote entry, and the composition it replaced
+        for m, d in ROW_SHAPES:
+            row = phase_vote(torch, m, d, l2_rate)
+            rows[f"chain_vote m={m} d={d}"] = row["ms"]
+            rows[f"chain_vote composition m={m} d={d}"] = row["composition_ms"]
+            rows[f"chain_vote half dead m={m} d={d}"] = row["half_dead_ms"]
     print(json.dumps({"src": str(Path(repro_torch.__file__).parents[1]), "ms": rows,
                       "card": gpu_line()}))
     return 0

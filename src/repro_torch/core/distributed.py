@@ -25,10 +25,12 @@ bit for bit, for every method and variant.
 The sharded **matrix-free NN chain** (:func:`distributed_nn_chain_from_points`)
 takes the paper's storage argument past n²/p: the ``(n, d)`` points are
 block-row sharded, the O(n) summary bookkeeping is replicated, and each
-trip builds only the rank's slice of the chain tip's row (kernel B5's row
-entry on the card), with three small collectives a trip: O(n·d/p + n) a
-rank.  A segmented driver retries a segment after a simulated shard loss
-and can shrink onto a smaller ring (:mod:`repro_torch.checkpoint.elastic`).
+trip builds only the rank's slice of the chain tip's row, folded into the
+rank's vote as it is built (kernel B5's vote entry on the card: one launch
+a trip, the row never written), with three small collectives a trip:
+O(n·d/p + n) a rank.  A segmented driver retries a segment after a
+simulated shard loss and can shrink onto a smaller ring
+(:mod:`repro_torch.checkpoint.elastic`).
 
 The **two-phase approximate tier** (:func:`two_phase_from_points`) runs
 in one process: the matrix-free chain on each contiguous block of points,
@@ -77,7 +79,7 @@ from repro_torch.core.engine import (
     run_sharded,
     symmetrize,
 )
-from repro_torch.core.nnchain import POINTS_METHODS, summary_distance, summary_merge
+from repro_torch.core.nnchain import POINTS_METHODS, summary_merge
 from repro_torch.distributed.fault import SimulatedFailure, StepDeadline
 from repro_torch.distributed.sharding import shard_rows
 from repro_torch.obs import NULL_TRACER, Tracer, get_registry
@@ -405,7 +407,7 @@ class _ChainState:
     ``sizes`` and the merge record (heights and sizes) on the device; the
     chain stack, the merged slots, a host mirror of ``alive`` and the trip
     count on the host.  Each trip's decision comes from collectives, so
-    every rank holds the same of all but ``W``."""
+    every rank holds the same of all but ``W`` (and the vote)."""
 
     W: torch.Tensor
     u: torch.Tensor
@@ -415,7 +417,7 @@ class _ChainState:
     live: np.ndarray
     chain: list
     pairs: list
-    inf: torch.Tensor               # a 0-d inf: prev's value on a rank that does not own it
+    vote: Any                       # pairwise.VoteBuffers: the vote's send buffer and scratch
     iters: int = 0
     stopped: bool = False           # a NaN row: no candidate
 
@@ -432,6 +434,8 @@ def _chain_state(X: torch.Tensor, ring: Ring) -> _ChainState:
     ``ring``: ``X`` padded to :func:`pad_to_mesh` (padding slots born dead,
     of size 0), this rank's block of rows copied to its device, every slot
     a leaf."""
+    from repro_torch.kernels.pairwise import vote_buffers
+
     n, d = X.shape
     n_pad = pad_to_mesh(n, ring.size)
     if n_pad != n:
@@ -442,7 +446,7 @@ def _chain_state(X: torch.Tensor, ring: Ring) -> _ChainState:
                        alive=alive, sizes=alive.to(torch.float32),
                        merges=torch.zeros((n - 1, 4), dtype=torch.float32, device=dev),
                        live=np.arange(n_pad) < n, chain=[], pairs=[],
-                       inf=torch.full((), torch.inf, device=dev))
+                       vote=vote_buffers(dev))
 
 
 def _owner_row(ring: Ring, W: torch.Tensor, slot: int) -> torch.Tensor:
@@ -462,15 +466,16 @@ def _chain_trip(method: str, s: _ChainState, ring: Ring) -> None:
     value at prev)`` as float32 (the slot is exact below 2²⁴), read back:
     the trip's one wait for the device; the elected candidate's summary by
     another owner-contributes ``all_reduce``, made on a push as on a merge.
-    The rank's slice of the row is
-    :func:`~repro_torch.kernels.pairwise.row_sq_euclidean` (B5 on a CUDA
-    tensor) and the summary distance, masked as the serial loop masks it.
-    Every rank elects on the host from the same values: the global
-    minimum, the first rank attaining it and its first local slot; the
-    previous chain element wins a tie, and a NaN minimum stops the chain.
-    Scalars go to the device by ``fill_``, which copies nothing from the
-    host."""
-    from repro_torch.kernels.pairwise import row_sq_euclidean
+    The rank's vote is :func:`~repro_torch.kernels.pairwise.chain_vote`
+    (B5's vote entry on a CUDA tensor, one launch into the state's send
+    buffer; its plain twin on the CPU): the rank's slice of the tip's row,
+    the summary distance, masked as the serial loop masks it, the first
+    minimum and prev's value.  Every rank elects on the host from the same
+    values: the global minimum, the first rank attaining it and its first
+    local slot; the previous chain element wins a tie, and a NaN minimum
+    stops the chain.  Scalars go to the device by ``fill_``, which copies
+    nothing from the host."""
+    from repro_torch.kernels.pairwise import chain_vote
 
     W = s.W
     rows = W.shape[0]
@@ -480,17 +485,10 @@ def _chain_trip(method: str, s: _ChainState, ring: Ring) -> None:
         s.chain.append(int(np.argmax(s.live)))             # first live slot
     top = s.chain[-1]
     prev = s.chain[-2] if len(s.chain) >= 2 else None
-    mine = slice(offset, offset + rows)
     w_top = _owner_row(ring, W, top)                        # collective 1
-    sq = row_sq_euclidean(w_top, W)
-    row = summary_distance(method, sq, s.u[mine], s.u[top], s.sizes[mine], s.sizes[top])
-    row = torch.where(s.alive[mine], row, torch.inf)
-    if offset <= top < offset + rows:
-        row[top - offset].fill_(torch.inf)
-    lmin, larg = row.min(0)                                # the first index of the minimum
-    pval = row[prev - offset] if prev is not None and offset <= prev < offset + rows else s.inf
+    vote = chain_vote(method, w_top, W, s.u, s.sizes, s.alive, top, prev, offset, s.vote)
     # collective 2: every rank's (min, first argmin, prev's value), read back
-    votes = ring.all_gather(torch.stack((lmin, larg.to(torch.float32), pval)))
+    votes = ring.all_gather(vote)
     v = votes.tolist()
     mins = v[0::3]
     if any(x != x for x in mins):                          # a NaN row: no candidate
@@ -625,7 +623,8 @@ def distributed_nn_chain_from_points(
     (:func:`_chain_trip`).  Merges come back in chain order on every rank,
     equal bit for bit to the serial host-driven points chain with the same
     row build (:func:`repro_torch.core.nnchain._chain_loop` over
-    ``_points_nnchain_ops``); canonicalize with
+    ``_points_nnchain_ops``; on the card B5's row entry, whose sum the vote
+    entry shares); canonicalize with
     :func:`repro_torch.core.dendrogram.canonical_order` before cutting
     (``cluster(algorithm="nnchain", backend="distributed")`` does).  The
     reference's TPU knobs (``use_pallas``, ``block_n``, ``interpret``) are

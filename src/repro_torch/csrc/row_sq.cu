@@ -1,7 +1,8 @@
-// One row of squared Euclidean distances, (d,) x (m, d) -> (m,), and one
-// whole trip of the matrix-free NN chain, for sm_90a.
+// One row of squared Euclidean distances, (d,) x (m, d) -> (m,), one whole
+// trip of the matrix-free NN chain, and one rank's vote of a trip of the
+// sharded chain, for sm_90a.
 //
-// Both replace the Pallas TPU kernel
+// All three replace the Pallas TPU kernel
 // repro/kernels/pairwise.py::row_sq_euclidean_pallas, which builds one row
 // of the matrix-free chain a trip: the chain tip against every geometric
 // summary.  out[k] = sum_c (Y[k, c] - x[c])^2 in float32.
@@ -60,6 +61,31 @@
 //     the plain version's order: the merged summaries equal the plain
 //     twin's but for the order of the gap's sum.  The row's sum runs in
 //     another order than torch's, so the two agree to a tolerance.
+//
+// chain_vote: one rank's vote of one trip of the sharded chain
+// (core/distributed.py), in one launch: the front half of a trip over the
+// rank's block of rows at an offset, stopped at the vote that the ranks'
+// all_gather elects from.  It writes (local min, first local slot, prev's
+// masked value) into a (3,) send buffer, bit for bit what the row entry
+// followed by the torch epilogue gives (the row, summary_distance, the
+// masks, min and the prev index: ~10 launches).  Bound: bytes, 4 (rows d +
+// rows + d) + rows + 12 (the block, u or the sizes, alive, the tip, the
+// triple), at the L2 read rate where the block stays there from trip to
+// trip.  Design:
+//   - The row entry's per-row sum (warp_rows_sq: a warp a row, the same
+//     lane partition, sq_diff4 partial and xor tree), with 4 rows' loads in
+//     flight a warp, where the row entry has one; dead slots and the tip
+//     load nothing.  On an H100, 8 rows a warp took ~0.5 us less at
+//     (32768, 128) and ~0.6 us more at (1968, 64), whose 31 blocks then
+//     leave most SMs idle; loads issued before the rows' liveness was
+//     known were no faster.
+//   - The epilogue rounds each operation in summary_distance's order, as
+//     chain_trip's does; the row is never written: each masked value goes
+//     into the block's first minimum, then one 64-bit atomicMin on (value
+//     bits, local slot), a NaN keyed first.  The warp that holds prev
+//     stores its value, fenced; the last block by ticket writes the triple
+//     and resets the key and the ticket.
+//   - A grid of one wave, at most two blocks an SM, as chain_trip's.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <cstdint>
@@ -78,6 +104,51 @@ __device__ __forceinline__ float sq_diff4(float4 a, float4 b) {
     return t0 * t0 + t1 * t1 + t2 * t2 + t3 * t3;
 }
 
+// The per-row sum of both the row entry and the vote: ||y[r] - x||^2 for R
+// rows of d floats, one warp each.  Lane `lane` adds its chunks in order
+// from 0 (kVec4: float4 q = lane, lane + 32, ...; else floats c = lane,
+// lane + 32, ...), the R rows' loads of a chunk issued together; then each
+// row's xor-shuffle tree, which leaves every lane the same sum.  A row that
+// is not live loads nothing, and its sum means nothing.
+template <bool kVec4, int R>
+__device__ __forceinline__ void warp_rows_sq(const float* __restrict__ x,
+                                             const float* const (&y)[R], const bool (&live)[R],
+                                             long long d, int lane, float (&sum)[R]) {
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+    if (kVec4) {
+        const float4* x4 = reinterpret_cast<const float4*>(x);
+        for (long long q = lane; q < d / 4; q += 32) {
+            float4 t[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+                t[r] = live[r] ? __ldg(reinterpret_cast<const float4*>(y[r]) + q)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            const float4 xq = __ldg(x4 + q);
+#pragma unroll
+            for (int r = 0; r < R; ++r) acc[r] += sq_diff4(t[r], xq);
+        }
+    } else {
+        for (long long c = lane; c < d; c += 32) {
+            float t[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) t[r] = live[r] ? __ldg(y[r] + c) : 0.0f;
+            const float xc = __ldg(x + c);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                const float s = t[r] - xc;
+                acc[r] += s * s;
+            }
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        for (int off = 16; off > 0; off >>= 1) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+        sum[r] = acc[r];
+    }
+}
+
 template <bool kVec4>
 __global__ void __launch_bounds__(kThreads)
 row_sq_kernel(const float* __restrict__ x, const float* __restrict__ Y, long long m,
@@ -85,21 +156,11 @@ row_sq_kernel(const float* __restrict__ x, const float* __restrict__ Y, long lon
     const int lane = threadIdx.x & 31;
     const long long stride = (long long)gridDim.x * kWarps;
     for (long long k = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); k < m; k += stride) {
-        const float* y = Y + k * d;
-        float acc = 0.0f;
-        if (kVec4) {
-            const float4* y4 = reinterpret_cast<const float4*>(y);
-            const float4* x4 = reinterpret_cast<const float4*>(x);
-            for (long long q = lane; q < d / 4; q += 32)
-                acc += sq_diff4(__ldg(y4 + q), __ldg(x4 + q));
-        } else {
-            for (long long c = lane; c < d; c += 32) {
-                const float t = __ldg(y + c) - __ldg(x + c);
-                acc += t * t;
-            }
-        }
-        for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-        if (lane == 0) out[k] = acc;
+        const float* y[1] = {Y + k * d};
+        const bool live[1] = {true};
+        float sum[1];
+        warp_rows_sq<kVec4, 1>(x, y, live, d, lane, sum);
+        if (lane == 0) out[k] = sum[0];
     }
 }
 
@@ -491,4 +552,120 @@ extern "C" int chain_trip_load(int device, int method, const float* W, long long
     a.W = const_cast<float*>(W);
     a.d = (int)d;
     return (int)trip(method, a, device, 0, true);
+}
+
+namespace {
+
+constexpr int kVoteRows = 4;   // rows a warp has in flight
+
+struct Vote {
+    const float* tip;            // (d,) the tip's summary
+    const float* W;              // (rows, d) this rank's block of summaries
+    const float* u;              // (n,) replicated
+    const float* sizes;          // (n,) replicated
+    const unsigned char* alive;  // (n,) bool, replicated
+    float* out;                  // (3,) the vote: local min, first local argmin, prev's value
+    unsigned long long* sync;    // the running minimum's key, the block ticket, prev's value
+    long long rows, d, offset;   // the block holds slots [offset, offset + rows)
+    long long top, prev;         // global slots; prev < 0: no previous element
+};
+
+// One rank's vote of one trip of the sharded chain: the masked row of the
+// tip over the block, folded as it is built into the block's first minimum
+// and one 64-bit atomicMin; the warp that holds prev stores its value; the
+// last block by ticket writes the triple and resets the key and the ticket.
+template <int M, bool kVec4>
+__global__ void __launch_bounds__(kTripThreads, kTripBlocksPerSM) chain_vote_kernel(const Vote a) {
+    const int lane = threadIdx.x & 31;
+    const float u_top = __ldg(a.u + a.top), n_top = __ldg(a.sizes + a.top);
+    const float* side_of = (M == kWard ? a.sizes : a.u) + a.offset;
+    const unsigned char* alive = a.alive + a.offset;
+    const long long top = a.top - a.offset, prev = a.prev < 0 ? -1 : a.prev - a.offset;
+    const long long step = (long long)gridDim.x * kTripWarps * kVoteRows;
+    unsigned long long best = kTripKeyInit;
+    for (long long base = ((long long)blockIdx.x * kTripWarps + (threadIdx.x >> 5)) * kVoteRows;
+         base < a.rows; base += step) {
+        const float* y[kVoteRows];
+        bool live[kVoteRows];
+        float side[kVoteRows], sq[kVoteRows];
+#pragma unroll
+        for (int r = 0; r < kVoteRows; ++r) {
+            const long long k = base + r;
+            live[r] = k < a.rows && k != top && __ldg(alive + k);
+            y[r] = a.W + (live[r] ? k : 0) * a.d;
+            side[r] = live[r] ? __ldg(side_of + k) : 0.0f;
+        }
+        warp_rows_sq<kVec4, kVoteRows>(a.tip, y, live, a.d, lane, sq);
+#pragma unroll
+        for (int r = 0; r < kVoteRows; ++r) {
+            const long long k = base + r;
+            if (k >= a.rows) break;
+            float v = CUDART_INF_F;
+            if (live[r]) v = M == kWard ? summary_distance<M>(sq[r], 0.0f, u_top, side[r], n_top)
+                                        : summary_distance<M>(sq[r], side[r], u_top, 0.0f, n_top);
+            const unsigned long long key = trip_key(v, (int)k);
+            best = key < best ? key : best;
+            if (k == prev && lane == 0) {
+                a.sync[2] = __float_as_uint(v);
+                __threadfence();
+            }
+        }
+    }
+    const unsigned long long key = block_min_key(best);
+    __shared__ bool last;
+    if (threadIdx.x == 0) {
+        if (key != kTripKeyInit) atomicMin(a.sync, key);
+        last = draw_ticket(a.sync + 1);
+    }
+    __syncthreads();
+    if (!last || threadIdx.x != 0) return;
+    const bool mine = prev >= 0 && prev < a.rows;
+    const float pv = mine ? __uint_as_float((unsigned)__ldcg(
+                                reinterpret_cast<const long long*>(a.sync + 2)))
+                          : CUDART_INF_F;
+    const unsigned long long won = atomicExch(a.sync, kTripKeyInit);
+    a.sync[1] = 0;
+    a.out[0] = (won >> 32) == 0 ? CUDART_NAN_F : key_value(won);   // a NaN in the row: NaN
+    a.out[1] = (float)(unsigned)(won & 0xffffffffull);
+    a.out[2] = pv;
+}
+
+template <int M>
+cudaError_t vote(const Vote& a, int device, cudaStream_t stream) {
+    const bool vec4 = a.d % 4 == 0 && reinterpret_cast<uintptr_t>(a.tip) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(a.W) % 16 == 0;
+    const long long rows = (long long)kTripWarps * kVoteRows;
+    const long long want = (a.rows + rows - 1) / rows;
+    const long long most = (long long)kTripBlocksPerSM * sm_count(device);
+    const unsigned blocks = (unsigned)(want < most ? want : most);
+    if (vec4) chain_vote_kernel<M, true><<<blocks, kTripThreads, 0, stream>>>(a);
+    else chain_vote_kernel<M, false><<<blocks, kTripThreads, 0, stream>>>(a);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+// One rank's vote of one trip of the sharded matrix-free chain, in one
+// launch.  tip: (d,) float32; W: (rows, d) float32, the rank's block, slots
+// [offset, offset + rows); u, sizes: (n,) float32 and alive: (n,) bool,
+// replicated; top and prev global slots (prev -1: none).  Writes into out
+// (3,) float32 the masked row's minimum (dead slots and the tip +inf; NaN
+// if the row holds one), its first local slot, and prev's masked value (+inf
+// when prev is not in the block).  sync: three int64, (~0, 0, any) between
+// launches.  `method` indexes linkage.METHODS (average, weighted or ward).
+// Launches on `stream` of CUDA device `device`; returns the CUDA error.
+extern "C" int chain_vote(int device, int method, const float* tip, const float* W,
+                          const float* u, const float* sizes, const unsigned char* alive,
+                          float* out, unsigned long long* sync, long long rows, long long d,
+                          long long offset, long long top, long long prev, cudaStream_t stream) {
+    const cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+    const Vote a{tip, W, u, sizes, alive, out, sync, rows, d, offset, top, prev};
+    switch (method) {
+        case kAverage: return (int)vote<kAverage>(a, device, stream);
+        case kWeighted: return (int)vote<kWeighted>(a, device, stream);
+        case kWard: return (int)vote<kWard>(a, device, stream);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

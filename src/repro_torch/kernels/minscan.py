@@ -6,10 +6,13 @@ columns and the diagonal are excluded; ties go to the first minimum in
 row-major order; a fully masked matrix gives ``(inf, 0)``.
 
 Bound: bytes, one read of the ``L × L`` live cells, ``4·L²`` bytes, at
-3.35 TB/s.  The kernel gives each row its own block (one coalesced read of
-the whole row, dead rows skipped: ``4·L·n`` bytes) and reduces the row
-results in a second one-block pass; both passes break ties on the index,
-so block order does not matter.
+3.35 TB/s.  The kernel gives each row a warp (16-byte loads of the whole
+row, dead rows skipped: ``4·L·n`` bytes); each block of 8 rows folds its
+rows' first minima into one 64-bit ``atomicMin`` keyed on (value, row),
+and the last block to draw a ticket writes the result: one launch a call,
+ties broken on the index, so block order does not matter.  The key and
+the ticket live in a scratch word pair a device and stream
+(:func:`_sync_words`), which every launch leaves as it found it.
 
 :func:`masked_argmin_batch` is the kernel's batch-grid form, the seed of the
 batched kernel engine (once a compaction stage of a shape bucket): ``B``
@@ -36,7 +39,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import INT_OUT, sm_count
-from repro_torch.kernels.lw_step import merge_batch_plan
+from repro_torch.kernels.lw_step import device_words, merge_batch_plan
 
 #: The most slots a lane of the batch kernel may have: its liveness bitmask
 #: holds 128 words in shared memory, and its flat indices are 32-bit.
@@ -99,12 +102,14 @@ def masked_argmin(D: torch.Tensor, alive: torch.Tensor):
     if D.device.type == "cpu":
         return masked_argmin_plain(D, alive)
     _build.check_cuda(D, torch.float32, alive)
-    rmin = torch.empty(n, dtype=torch.float32, device=D.device)
-    rarg = torch.empty(n, dtype=torch.int64, device=D.device)
+    dev = D.device.index
+    stream = _build.raw_stream(dev)
+    rows = torch.empty(n, dtype=torch.int64, device=D.device)
     v = torch.empty((), dtype=torch.float32, device=D.device)
     flat = torch.empty((), dtype=torch.int64, device=D.device)
-    err = _lib().masked_argmin(D.device.index, D.data_ptr(), alive.data_ptr(), n, rmin.data_ptr(), rarg.data_ptr(),
-                    v.data_ptr(), flat.data_ptr(), _build.raw_stream(D.device.index))
+    err = _lib().masked_argmin(dev, D.data_ptr(), alive.data_ptr(), n, rows.data_ptr(),
+                               _sync_words(dev, stream).data_ptr(), v.data_ptr(),
+                               flat.data_ptr(), stream)
     if err:
         raise RuntimeError(f"masked_argmin kernel launch failed: CUDA error {err}")
     masked_argmin.launches += 1
@@ -113,6 +118,14 @@ def masked_argmin(D: torch.Tensor, alive: torch.Tensor):
 
 masked_argmin.launches = 0
 
+
+@functools.cache
+def _sync_words(device_index: int, stream: int) -> torch.Tensor:
+    """:func:`masked_argmin`'s running key and block ticket on one device
+    and stream, ``(~0, 0)``: made once (by fills, no copy from the host)
+    and left so by every launch, whose last block resets them.  One pair a
+    stream, so that launches on two streams never share one."""
+    return device_words((-1, 0), torch.device("cuda", device_index))
 
 
 class ArgminPlan(NamedTuple):

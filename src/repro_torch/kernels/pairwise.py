@@ -37,6 +37,17 @@ liveness and the counts kept on the device; :class:`TripGraph` captures a
 chunk of trips as a CUDA graph and replays it.  Bound: bytes, the
 summaries and one per-slot scalar read once, ``4·m·d + 4·m + m/8`` plus
 O(d), at the L2 read rate (about 2 µs at (32768, 128)).
+
+Its third entry, :func:`chain_vote`, is one rank's part of a trip of the
+sharded chain (:mod:`repro_torch.core.distributed`), in one launch: the
+tip's masked row over the rank's block of summaries, folded into the
+triple that the ranks' ``all_gather`` elects from (the local minimum, its
+first local slot, the previous chain element's value), written in place
+into :class:`VoteBuffers`.  The row is never written.  Bit for bit
+:func:`chain_vote_plain` with :func:`row_sq_euclidean` as its row, the
+composition it replaces.  Bound: bytes, ``4·(m·d + m + d) + m + 12`` (the
+block, ``u`` or the sizes, ``alive``, the tip, the triple), at the L2 read
+rate where the block stays there.
 """
 
 from __future__ import annotations
@@ -299,6 +310,105 @@ class TripGraph:
         self.graph.replay()
         chain_trip.launches += self.trips
         TripGraph.replays += 1
+
+
+class VoteBuffers(NamedTuple):
+    """:func:`chain_vote`'s send buffer and scratch, made once a run:
+    ``out`` ``(3,)`` float32, the vote; ``sync`` ``(3,)`` int64, the
+    kernel's running-minimum key, block ticket and value at the previous
+    chain element, ``(~0, 0, ·)`` between launches."""
+
+    out: torch.Tensor
+    sync: torch.Tensor
+
+
+def vote_buffers(device) -> VoteBuffers:
+    """Fresh :class:`VoteBuffers` on ``device``, written by fills (no copy
+    from the host)."""
+    from repro_torch.kernels.lw_step import device_words
+
+    return VoteBuffers(out=torch.zeros(3, dtype=torch.float32, device=device),
+                       sync=device_words((-1, 0, 0), device))
+
+
+def chain_vote_plain(method: str, tip: torch.Tensor, W: torch.Tensor, u: torch.Tensor,
+                     sizes: torch.Tensor, alive: torch.Tensor, top: int, prev: int | None,
+                     offset: int, buf: VoteBuffers,
+                     row_sq=row_sq_euclidean_plain) -> torch.Tensor:
+    """The plain torch version of :func:`chain_vote`, on any device, its
+    row built by ``row_sq``: the row over the block ``W`` (slots
+    ``[offset, offset + rows)``), the summary distance, dead slots and the
+    tip masked to +inf, the first minimum, and prev's masked value (+inf
+    when prev is not in the block), written into ``buf.out``."""
+    from repro_torch.core.nnchain import summary_distance
+
+    rows = W.shape[0]
+    mine = slice(offset, offset + rows)
+    row = summary_distance(method, row_sq(tip, W), u[mine], u[top], sizes[mine], sizes[top])
+    row = torch.where(alive[mine], row, torch.inf)
+    if offset <= top < offset + rows:
+        row[top - offset].fill_(torch.inf)
+    lmin, larg = row.min(0)                                # the first index of the minimum
+    pval = (row[prev - offset] if prev is not None and offset <= prev < offset + rows
+            else torch.full((), torch.inf, device=W.device))
+    return buf.out.copy_(torch.stack((lmin, larg.to(torch.float32), pval)))
+
+
+@functools.cache
+def _vote_kernel():
+    fn = _build.load("row_sq").chain_vote
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * 7, *[ctypes.c_longlong] * 5,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def chain_vote(method: str, tip: torch.Tensor, W: torch.Tensor, u: torch.Tensor,
+               sizes: torch.Tensor, alive: torch.Tensor, top: int, prev: int | None,
+               offset: int, buf: VoteBuffers) -> torch.Tensor:
+    """One rank's vote of one trip of the sharded chain, in place into
+    ``buf.out``: ``(local min, first local slot, prev's masked value)`` of
+    the tip ``(d,)`` against the rank's block ``W`` ``(rows, d)`` of slots
+    ``[offset, offset + rows)``, with the replicated ``u``, ``sizes`` and
+    ``alive`` ``(n,)``; dead slots and the tip are +inf, prev's value +inf
+    when prev (a global slot, or None) is not in the block, and a NaN in the
+    row gives a NaN minimum (its slot then means nothing).
+
+    One launch that allocates nothing and reads nothing back.  A CUDA
+    tensor launches the kernel; a CPU tensor takes the plain version.
+    """
+    from repro_torch.core.nnchain import POINTS_METHODS
+
+    if method not in POINTS_METHODS:
+        raise ValueError(f"a chain vote takes the methods {POINTS_METHODS}, got {method!r}")
+    if W.ndim != 2 or tip.shape != W.shape[1:] or W.shape[0] == 0:
+        raise ValueError(f"chain_vote needs a tip (d,) and a block W (rows, d), got "
+                         f"{tuple(tip.shape)} and {tuple(W.shape)}")
+    (rows, d), n = W.shape, alive.shape[0]
+    if not (0 <= offset <= n - rows and 0 <= top < n and (prev is None or 0 <= prev < n)):
+        raise ValueError(f"chain_vote: slots out of range (offset {offset}, rows {rows}, "
+                         f"top {top}, prev {prev}, n {n})")
+    if W.device.type == "cpu":
+        return chain_vote_plain(method, tip, W, u, sizes, alive, top, prev, offset, buf)
+    _build.check_cuda(W, torch.float32, tip, u, sizes, alive, *buf)
+    specs = ((tip, torch.float32, d), (u, torch.float32, n), (sizes, torch.float32, n),
+             (alive, torch.bool, n), (buf.out, torch.float32, 3), (buf.sync, torch.int64, 3))
+    for t, dtype, numel in specs:
+        if t.dtype != dtype or t.numel() != numel:
+            raise ValueError(f"chain_vote operand: expected {numel} x {dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    dev = W.device.index
+    err = _vote_kernel()(dev, METHODS.index(method), tip.data_ptr(), W.data_ptr(), u.data_ptr(),
+                         sizes.data_ptr(), alive.data_ptr(), buf.out.data_ptr(),
+                         buf.sync.data_ptr(), rows, d, offset, top,
+                         -1 if prev is None else prev, _build.raw_stream(dev))
+    if err:
+        raise RuntimeError(f"chain_vote kernel launch failed: CUDA error {err}")
+    chain_vote.launches += 1
+    return buf.out
+
+
+chain_vote.launches = 0
 
 
 def pairwise_sq_euclidean_plain(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:

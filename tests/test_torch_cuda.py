@@ -100,6 +100,51 @@ def assert_same_merges(got, want):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("state", ("all live", "dead rows", "fully masked", "ties"))
+@pytest.mark.parametrize("n", (1, 2, 3, 1968, 4099))
+def test_cuda_masked_argmin_states(state, n, cuda, rng):
+    """B1 in one launch, bit for bit its plain twin: the all-live seed that
+    a stage's seed finds, dead rows (row 0 among them), a fully masked
+    matrix ((+inf, 0)), and ties across rows (the first row wins)."""
+    D = torch.tensor(random_distance_matrix(rng, n).astype(np.float32), device=cuda)
+    alive = torch.ones(n, dtype=torch.bool, device=cuda)
+    if state == "dead rows":
+        alive = torch.tensor(rng.random(n) > 0.5, device=cuda)
+        alive[0] = False
+    elif state == "fully masked":
+        alive[:] = n == 1
+    elif state == "ties":
+        D.fill_(2.5)
+        D[n - 1, 0] = D[0, n - 1] = 2.5
+    launches = minscan.masked_argmin.launches
+    v, f = minscan.masked_argmin(D, alive)
+    vp, fp = minscan.masked_argmin_plain(D, alive)
+    torch.cuda.synchronize()
+    assert minscan.masked_argmin.launches == launches + 1
+    assert torch.equal(v, vp) and torch.equal(f, fp), (float(v), int(f), float(vp), int(fp))
+    if state == "fully masked" or n == 1:
+        assert (float(v), int(f)) == (float("inf"), 0)
+
+
+@pytest.mark.cuda
+def test_cuda_masked_argmin_back_to_back(cuda, rng):
+    """Launches queued one after another on one stream, no synchronise
+    between them, share the key and ticket words: each result is its
+    plain twin's, and the words end as they began."""
+    outs = []
+    for n in (1968, 2, 300, 1, 4099, 1968):
+        D = torch.tensor(random_distance_matrix(rng, n).astype(np.float32), device=cuda)
+        alive = torch.tensor(rng.random(n) > 0.3, device=cuda)
+        outs.append((minscan.masked_argmin(D, alive), minscan.masked_argmin_plain(D, alive)))
+    torch.cuda.synchronize()
+    for (v, f), (vp, fp) in outs:
+        assert torch.equal(v, vp) and torch.equal(f, fp)
+    words = minscan._sync_words(torch.cuda.current_device(),
+                                torch.cuda.current_stream().cuda_stream)
+    assert words.tolist() == [-1, 0]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", (1, 97, 1968))
 def test_cuda_masked_argmin_matches_plain(n, cuda, rng):
     D = torch.tensor(random_distance_matrix(rng, n).astype(np.float32), device=cuda)
@@ -540,6 +585,121 @@ def test_cuda_row_sq_rejects_bad_operands(cuda):
         pairwise.row_sq_euclidean(Y[0].cpu(), Y)
     with pytest.raises(ValueError, match=r"\(d,\)"):
         pairwise.row_sq_euclidean(Y[0, :4], Y)
+
+
+def vote_case(rng, method, rows, d, ranks=3, device="cuda"):
+    """A mid-run sharded-chain state of ``ranks`` blocks of ``rows`` slots:
+    summaries of whole clusters, ~15% of the slots dead (size 0; every
+    other slot live), ``u >= 0`` for average and weighted.  Returns (W, u, sizes, alive) on ``device``."""
+    n = ranks * rows
+    W = torch.tensor(rng.normal(size=(n, d)).astype(np.float32), device=device)
+    alive = torch.tensor(rng.random(n) > 0.3, device=device)
+    alive[::2] = True
+    sizes = torch.where(alive, torch.tensor(rng.integers(1, 9, n).astype(np.float32),
+                                            device=device), 0.0)
+    u = torch.zeros(n, device=device)
+    if method != "ward":
+        u = torch.where(alive, torch.tensor(rng.uniform(0, 0.5, n).astype(np.float32),
+                                            device=device), 0.0)
+    return W, u, sizes, alive
+
+
+def vote_both(method, W, u, sizes, alive, top, prev, rank, rows, buf=None):
+    """B5's vote entry and the composition it replaces (B5's row entry, then
+    the torch epilogue) on one block; returns both triples."""
+    offset = rank * rows
+    block, tip = W[offset:offset + rows].contiguous(), W[top].clone()
+    buf = buf or pairwise.vote_buffers("cuda")
+    got = pairwise.chain_vote(method, tip, block, u, sizes, alive, top, prev, offset, buf).clone()
+    want = pairwise.chain_vote_plain(method, tip, block, u, sizes, alive, top, prev, offset,
+                                     pairwise.vote_buffers("cuda"),
+                                     row_sq=pairwise.row_sq_euclidean)
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", nnchain.POINTS_METHODS)
+@pytest.mark.parametrize("rows,d", [(1, 3), (1968, 64), (4097, 130), (8192, 128), (32768, 128),
+                                    (700, 200)])
+def test_cuda_chain_vote_matches_composition(method, rows, d, cuda, rng):
+    """B5's vote entry bit for bit its composition on the card, on its
+    vector path (d % 4 == 0, d = 200 in two passes of a warp) and its scalar
+    path (d = 3, 130), for a block at offset 0, in the middle and last, the
+    tip on and off the block, prev on, off and absent; one launch each."""
+    W, u, sizes, alive = vote_case(rng, method, rows, d)
+    live = torch.nonzero(alive).flatten().tolist()
+    launches = pairwise.chain_vote.launches
+    cases = 0
+    for rank in range(3):
+        on = [k for k in live if rank * rows <= k < (rank + 1) * rows]
+        off = [k for k in live if not rank * rows <= k < (rank + 1) * rows]
+        for top, prev in ((off[0], on[-1] if on else None), (on[0] if on else off[1], off[-1]),
+                          (off[-1], None)):
+            got, want = vote_both(method, W, u, sizes, alive, top, prev, rank, rows)
+            assert torch.equal(got, want), (rank, top, prev, got, want)
+            cases += 1
+    torch.cuda.synchronize()
+    assert pairwise.chain_vote.launches == launches + cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", nnchain.POINTS_METHODS)
+def test_cuda_chain_vote_ties_nan_and_reused_scratch(method, cuda, rng):
+    """Back-to-back launches on one VoteBuffers, with no synchronise
+    between them: exact ties (the first slot wins, prev's value equals
+    the minimum), a NaN row (NaN minimum, prev's value its own), prev on
+    and off the block; each bit for bit the composition; the kernel leaves
+    its key and ticket as it found them."""
+    rows, d = 3000, 64
+    W, u, sizes, alive = vote_case(rng, method, rows, d)
+    alive[rows:2 * rows] = True
+    sizes[rows:2 * rows] = sizes[rows:2 * rows].clamp_min(1.0)
+    top = 5
+    alive[top] = True
+    sizes[top] = 3.0
+    for k in (rows + 100, rows + 2500):              # a tie at the least distance
+        W[k] = W[top] + 0.125
+        sizes[k], u[k] = 2.0, 0.0
+    Wn = W.clone()
+    Wn[rows + 1700, 9] = float("nan")
+    buf = pairwise.vote_buffers("cuda")
+    outs = []
+    for X, prev in ((W, rows + 2500), (W, rows + 7), (Wn, rows + 2500), (W, 2 * rows + 1),
+                    (Wn, None), (W, rows + 100)):
+        outs.append((prev, *vote_both(method, X, u, sizes, alive, top, prev, 1, rows, buf)))
+    torch.cuda.synchronize()
+    for prev, got, want in outs:
+        if torch.isnan(want[0]):
+            assert torch.isnan(got[0]) and torch.equal(got[2], want[2]), (prev, got, want)
+        else:
+            assert torch.equal(got, want), (prev, got, want)
+    assert outs[0][1].tolist()[:2] == [outs[0][1][2].item(), 100.0]
+    assert buf.sync[:2].tolist() == [-1, 0]
+
+
+@pytest.mark.cuda
+def test_cuda_chain_vote_rejects_bad_operands(cuda):
+    W = torch.zeros(32, 8, device=cuda)
+    u, sizes = torch.zeros(32, device=cuda), torch.ones(32, device=cuda)
+    alive = torch.ones(32, dtype=torch.bool, device=cuda)
+    buf = pairwise.vote_buffers("cuda")
+    block = W[:16]
+    with pytest.raises(ValueError, match="float32"):
+        pairwise.chain_vote("ward", W[20].double(), block.double(), u, sizes, alive, 20, None,
+                            0, buf)
+    with pytest.raises(ValueError, match="contiguous"):
+        pairwise.chain_vote("ward", W[20], torch.zeros(16, 16, device=cuda)[:, :8], u, sizes,
+                            alive, 20, None, 0, buf)
+    with pytest.raises(ValueError, match="one device"):
+        pairwise.chain_vote("ward", W[20].cpu(), block, u, sizes, alive, 20, None, 0, buf)
+    with pytest.raises(ValueError, match="operand"):
+        pairwise.chain_vote("ward", W[20], block, u, sizes, alive.to(torch.uint8), 20, None, 0,
+                            buf)
+    with pytest.raises(ValueError, match="operand"):
+        pairwise.chain_vote("ward", W[20], block, u, sizes, alive, 20, None, 0,
+                            buf._replace(sync=buf.sync.to(torch.int32)))
+    with pytest.raises(ValueError, match="out of range"):
+        pairwise.chain_vote("ward", W[20], block, u, sizes, alive, 20, None, 17, buf)
 
 
 def reset_trips():
@@ -1795,8 +1955,8 @@ def host_points_chain(X, method):
 def test_cuda_distributed_chain_matches_host_loop(method, nccl_ring):
     """The sharded chain on one NCCL rank at the paper's size (n = 1968,
     d = 64): bit for bit the host-driven loop with B5's row on the card,
-    trips included; one B5 row launch and three collectives a trip, no
-    other kernel; the resident chain's dendrogram."""
+    trips included; one launch of B5's vote entry and three collectives a
+    trip, no other kernel; the resident chain's dendrogram."""
     from repro_torch.core.dendrogram import canonical_order, merges_equivalent
     from repro_torch.core.distributed import distributed_nn_chain_from_points
     from repro_torch.data.synthetic import gaussian_mixture
@@ -1804,15 +1964,16 @@ def test_cuda_distributed_chain_matches_host_loop(method, nccl_ring):
     n = 1968
     X = gaussian_mixture(seed=5, n=n, dim=64, return_labels=False)
     want = host_points_chain(X, method)
-    rows, collectives = pairwise.row_sq_euclidean.launches, nccl_ring.collectives
-    others = (kernel_launches(), pairwise.chain_trip.launches)
+    votes, collectives = pairwise.chain_vote.launches, nccl_ring.collectives
+    others = (kernel_launches(), pairwise.chain_trip.launches, pairwise.row_sq_euclidean.launches)
     got = distributed_nn_chain_from_points(X, method, nccl_ring)
     assert got.merges.device.type == "cuda" and got.n_merges == n - 1
     assert torch.equal(got.merges, want.merges)
     assert got.iters == want.iters
-    assert pairwise.row_sq_euclidean.launches - rows == got.iters
+    assert pairwise.chain_vote.launches - votes == got.iters
     assert nccl_ring.collectives - collectives == 3 * got.iters
-    assert (kernel_launches(), pairwise.chain_trip.launches) == others
+    assert (kernel_launches(), pairwise.chain_trip.launches,
+            pairwise.row_sq_euclidean.launches) == others
     resident = nnchain.nn_chain_from_points(X, method)
     assert merges_equivalent(canonical_order(got.merges.cpu().numpy(), n=n),
                              canonical_order(resident.merges.cpu().numpy(), n=n), n=n)
@@ -1822,7 +1983,7 @@ def test_cuda_distributed_chain_matches_host_loop(method, nccl_ring):
 def test_cuda_distributed_chain_segmented(nccl_ring):
     """A segmented run with a lost shard at segment 1 and a deadline that
     flags every segment after the first: the unsegmented run's merges, one
-    restart, four segments, and B5's launches still the trips."""
+    restart, four segments, and B5's vote launches still the trips."""
     from repro_torch.core.distributed import distributed_nn_chain_from_points
     from repro_torch.data.synthetic import gaussian_mixture
     from repro_torch.distributed.fault import FailurePlan, StepDeadline
@@ -1830,7 +1991,7 @@ def test_cuda_distributed_chain_segmented(nccl_ring):
     n = 1968
     X = gaussian_mixture(seed=6, n=n, dim=64, return_labels=False)
     whole = distributed_nn_chain_from_points(X, "ward", nccl_ring)
-    events, rows = [], pairwise.row_sq_euclidean.launches
+    events, votes = [], pairwise.chain_vote.launches
     seg = distributed_nn_chain_from_points(X, "ward", nccl_ring, segment_steps=500,
                                            failure_plan=FailurePlan(fail_at=(1,)),
                                            deadline=StepDeadline(factor=0.0, warmup=1),
@@ -1839,7 +2000,7 @@ def test_cuda_distributed_chain_segmented(nccl_ring):
     assert (seg.restarts, seg.segments, seg.iters) == (1, 4, whole.iters)
     assert seg.stragglers >= 1
     assert any("retrying segment" in e for e in events)
-    assert pairwise.row_sq_euclidean.launches - rows == seg.iters
+    assert pairwise.chain_vote.launches - votes == seg.iters
 
 
 @pytest.mark.cuda
