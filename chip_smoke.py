@@ -44,7 +44,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
    way.  A kernel whose operands fit in half the L2
    is timed on L2-resident data, as its caller finds them; its bound then
    takes the L2 read rate measured here (two torch reductions over a
-   16 MiB buffer), else the HBM rate.
+   16 MiB buffer), else the HBM rate.  Every bound counts its kernel's work
+   with ``repro_torch.roofline.cost`` and takes the card's peaks from
+   ``repro_torch.roofline.hw``.
 3. The paper's configuration: n = 1968 points in 64 dimensions, complete
    linkage, through ``cluster(..., algorithm="lw", backend="kernel")``,
    which stages the run by default (compaction: 1968, 984 and 492
@@ -134,7 +136,9 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     point sets in 64-D that go to the batched chain (buckets 64/128/256,
     ``max_batch`` 32, 3 s).  Each mix finds the rate a closed loop
     sustains for 3 s; the last two run open loop at 0.8 of it.  Each mix warms a
-    service (programs built, graphs captured, each program's bytes), runs
+    service (programs built, graphs captured, each program's bytes and
+    cost profile: its analytic flops and bytes a dispatch, one for every
+    cached program), runs
     open loop (requests a second, p50/p99 latency, pad waste) and again
     under the profiler (busy time and idle share of the steady window).
     Gates: no program built and no graph captured after warmup; no
@@ -197,7 +201,21 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     with the same merges.  The entry points (ENTRY_POINTS: the quickstart
     and protein examples, ``repro_torch.launch.cluster_run`` in both
     modes) each exit 0 at their defaults, their lines carried here.
-18. One line ``{"kernels": [...]}`` with each kernel's numbers (the batch
+18. The paper's baselines (``repro_torch.core.baselines``), no kernel of
+    the port: ``kmeans`` (50 Lloyd iterations) on the paper's points
+    (n = 1968, d = 64, k = 8) and on 65536 points in 128-D at k = 64: wall,
+    busy, idle, peak, inertia; the same seed gives the same result bit for
+    bit; each of the CPU's 50 Lloyd steps from the card's seeds against the
+    card's step from the same centroids (labels equal but on near-ties,
+    new centroids within rtol/atol 1e-5 of the CPU's update of the card's
+    labels), and the CPU's final inertia within rtol 1e-4 of the card's
+    run; a Lloyd iteration's ms against its roofline.  ``mst_single_linkage`` on phase
+    3's and phase 4's matrices (n = 1968 and 16384): wall, peak, launches
+    (busy and idle at n = 1968); its merges the CPU's bit for bit, the LW
+    loop's single linkage on the card its sorted heights (rtol 1e-4 / atol
+    1e-5) and its cuts at every k (a run of merges tied within twice the
+    largest height gap between the two ends on the same partition).
+19. One line ``{"kernels": [...]}`` with each kernel's numbers (the batch
     entries beside the others, with their launches in the service's card
     mix; B5's vote entry with its launches in phase 16, its row entry with
     those of phase 16's host-driven reference loop; B5's trip entry
@@ -208,8 +226,9 @@ Every path is driven with the launch counters set to 0 just before it
 and read just after.  Phase 6's profiled chain run (``--profile-chain``),
 phases 10-12 (``--later-phases``), phase 13 (``--batch``), phase 14
 (``--service``), phase 15 (``--distributed``), phase 16
-(``--sharded-chain``) and phase 17 (``--two-phase``) run in child
-processes of this script, for the profiler's sake (``run_child``).
+(``--sharded-chain``), phase 17 (``--two-phase``) and phase 18
+(``--baselines``) run in child processes of this script, for the
+profiler's sake (``run_child``).
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.
 """
@@ -227,9 +246,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 L2_PROBE_MIB, L2_PROBE_REPS = 16, 16   # the L2 probe reads a 16 MiB buffer 16 times a launch
-FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 PAPER_N, FULL_N, DIM = 1968, 16384, 64
 CHAIN_N, CHAIN_DIM = 32768, 128  # matrix-free run: 16 MiB of summaries, no 4 GiB matrix
 CROSS_SHAPES = ((4096, 128), (1968, 64))   # matrix-free ward held against the LW loop
@@ -389,18 +406,20 @@ def l2_read_rate(torch) -> float:
                n_bytes / (time_ms(torch, lambda: buf.sum()) * 1e-3))
 
 
-def bound(torch, n_bytes: float, n_ops: float, resident_bytes: float,
-          l2_rate: float) -> dict:
-    """The least ms the card could take, what bounds it, and the byte rate
-    taken: the L2 read rate when the ``resident_bytes`` that a timed run
-    keeps touching fit in half the L2 (they stay there between launches),
-    else the HBM rate."""
-    in_l2 = resident_bytes <= torch.cuda.get_device_properties(0).L2_cache_size / 2
-    rate = l2_rate if in_l2 else HBM_BYTES_PER_S
-    t_bytes, t_ops = n_bytes / rate, n_ops / FP32_OPS_PER_S
-    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_bytes_per_s=rate, hbm_bound_ms=max(n_bytes / HBM_BYTES_PER_S, t_ops) * 1e3)
+def bound(torch, work, resident_bytes: float, l2_rate: float) -> dict:
+    """The least ms the card could take for the ``work`` (a
+    ``repro_torch.roofline.Cost``: its bytes and its float32 operations),
+    what bounds it, and the byte rate taken: the L2 read rate when the
+    ``resident_bytes`` that a timed run keeps touching fit in half the L2
+    (they stay there between launches), else the HBM rate; and the bound
+    at the HBM rate."""
+    from repro_torch.roofline import analyze, hw
+
+    in_l2 = resident_bytes <= hw.l2_bytes(0) / 2
+    roof = analyze(work, byte_rate=l2_rate if in_l2 else hw.HBM_BW)
+    return dict(bound_ms=roof.bound_s * 1e3,
+                bound_by="bytes" if roof.memory_s >= roof.compute_s else "operations",
+                bound_bytes_per_s=roof.byte_rate, hbm_bound_ms=analyze(work).bound_s * 1e3)
 
 
 def check_equivalent(np, got, want, n: int, what: str, near_ties: bool = False) -> bool:
@@ -480,6 +499,7 @@ def argmin_row(torch, D, alive, l2_rate: float) -> dict:
     """B1's single entry against its plain version on ``(D, alive)``, bit
     for bit, and timed."""
     from repro_torch.kernels import minscan
+    from repro_torch.roofline import cost
 
     n, live = D.shape[0], int(alive.sum())
     v, flat = minscan.masked_argmin(D, alive)
@@ -493,17 +513,15 @@ def argmin_row(torch, D, alive, l2_rate: float) -> dict:
                 ms=time_ms(torch, lambda: minscan.masked_argmin(D, alive)),
                 plain_ms=time_ms(torch, lambda: minscan.masked_argmin_plain(D, alive)),
                 host_us=host_us(torch, lambda: minscan.masked_argmin(D, alive)),
-                **bound(torch, 4 * live * live + n + 12, live * live, 4 * n * n, l2_rate))
+                **bound(torch, cost.masked_argmin(n, live), 4 * n * n, l2_rate))
 
 
 def step_bound(torch, n: int, live: float, l2_rate: float) -> dict:
-    """The step's bound with ``live`` slots live after the merge: read the
-    live submatrix, write row and column i, read the sizes and the
-    liveness, write each row's (min, first column); a compare and a select
-    a live cell, about a dozen operations for the recurrence of each lane.
-    The timed launches keep touching D."""
-    return bound(torch, 4 * live * live + 8 * live + 17 * n, 2 * live * live + 12 * n,
-                 4 * n * n, l2_rate)
+    """The step's bound with ``live`` slots live after the merge
+    (``cost.lw_step``); the timed launches keep touching D."""
+    from repro_torch.roofline import cost
+
+    return bound(torch, cost.lw_step(n, live), 4 * n * n, l2_rate)
 
 
 def phase_step(torch, method: str, D, alive, sizes, i: int, j: int, dmin, l2_rate: float) -> dict:
@@ -594,6 +612,7 @@ def phase_row_update(torch, n: int, l2_rate: float) -> dict:
     every method; ``complete`` timed, with the host's time to enqueue it."""
     from repro_torch.core.linkage import METHODS
     from repro_torch.kernels import lw_update
+    from repro_torch.roofline import cost
 
     D, alive, sizes, i, j, dmin = mid_run_state(torch, n, squared=False, seed=3)
     ij = torch.tensor([i, j], device="cuda")
@@ -612,7 +631,7 @@ def phase_row_update(torch, n: int, l2_rate: float) -> dict:
         err = max(err, float((got - want).abs().max()))
         bit_equal &= torch.equal(got, want)
     a, live = args("complete"), int(keep.sum())
-    n_bytes = lw_update_bytes("complete", n, live)
+    work = cost.lw_update("complete", n, live)
     return dict(n=n, live=live, methods_checked=len(METHODS), max_abs_err=err,
                 bit_equal=bit_equal,
                 ms=time_ms(torch, lambda: lw_update.lw_update(*a)),
@@ -620,7 +639,7 @@ def phase_row_update(torch, n: int, l2_rate: float) -> dict:
                 library_ms=None,
                 host_us=host_us(torch, lambda: lw_update.lw_update(*a)),
                 plain_host_us=host_us(torch, lambda: lw_update.lw_update_plain(*a)),
-                **bound(torch, n_bytes, 10 * live, n_bytes, l2_rate))
+                **bound(torch, work, work.bytes, l2_rate))
 
 
 def lazy_state(torch, n: int, method: str):
@@ -636,18 +655,6 @@ def lazy_state(torch, n: int, method: str):
     cand = engine._cached_cand(alive, rmin, rarg, ks)
     return lw_update.lazy_buffers(D, alive, sizes, torch.zeros((n, 4), device="cuda"), cand,
                                   (rmin, rarg), 0)
-
-
-def lazy_merge_bytes(n: int, stale, changed):
-    """The bytes one resident lazy merge must move with ``stale`` rows to
-    rescan and ``changed`` cache entries rewritten by its update (the
-    columns whose cached minimum the invalidation lowers, and row i): rows
-    i and j, alive, sizes and both caches read once (25 n), row and column
-    i written (8 n), both caches written for each changed entry and each
-    stale row (12 each), and each stale row read (4 n).  Where a kernel
-    lists its stale rows is its own choice, and not counted.  Numbers, or
-    tensors of a lane's."""
-    return 33 * n + 12 * changed + stale * (4 * n + 12)
 
 
 def lazy_cache_changes(torch, method: str, b, update, rescan, reps: int):
@@ -676,6 +683,7 @@ def phase_lazy_merge(torch, n: int, l2_rate: float) -> dict:
     from repro_torch.core.engine import THRESHOLD_CHECK_TRIPS
     from repro_torch.core.linkage import METHODS
     from repro_torch.kernels import lw_step, lw_update
+    from repro_torch.roofline import cost
 
     err = 0.0
     for method in METHODS:
@@ -711,13 +719,12 @@ def phase_lazy_merge(torch, n: int, l2_rate: float) -> dict:
         dst.copy_(src)
     graph = lw_step.MergeGraph("complete", b, THRESHOLD_CHECK_TRIPS, merge=lw_update.lazy_merge)
     replay_ms = time_merges(torch, lambda _: graph.replay(), b0, b, reps=1)
-    n_bytes = lazy_merge_bytes(n, stale, changed)
     return dict(n=n, live=live, methods_checked=len(METHODS), checked_merges=LAZY_CHECKS,
                 max_abs_err=err, bit_equal=True, ms=ms, plain_ms=plain_ms,
                 graph_ms_per_merge=replay_ms / THRESHOLD_CHECK_TRIPS,
                 stale_rows_per_merge=stale, changed_entries_per_merge=changed, library_ms=None,
                 host_us=host_us(torch, lambda: lw_update.lazy_merge("complete", b)),
-                **bound(torch, n_bytes, 12 * live + 2 * stale * n, 4 * n * n, l2_rate))
+                **bound(torch, cost.lazy_merge(n, live, stale, changed), 4 * n * n, l2_rate))
 
 
 def batch_mid_state(torch, B: int, n: int, reps: int, seed: int, dead: float = 0.4):
@@ -872,6 +879,7 @@ def batch_argmin_row(torch, D, alive, live, resident: float, l2_rate: float) -> 
     bit, timed; with the plan it took, the matrix bytes it reads
     (:func:`argmin_read_bytes`) and its rate on them."""
     from repro_torch.kernels import minscan
+    from repro_torch.roofline import cost
 
     B, n = alive.shape
     plan = argmin_plan(torch, B, n)
@@ -891,8 +899,7 @@ def batch_argmin_row(torch, D, alive, live, resident: float, l2_rate: float) -> 
         bit_equal=True, single_checked=B, ms=ms,
         plain_ms=time_ms(torch, lambda: minscan.masked_argmin_batch_plain(D, alive)),
         library_ms=None, read_bytes=read, read_bytes_per_s=read / (ms * 1e-3),
-        **bound(torch, float((4 * live * live + n + 12).sum()), float((live * live).sum()),
-                resident, l2_rate))
+        **bound(torch, cost.masked_argmin_batch(n, live), resident, l2_rate))
 
 
 def phase_argmin_seed(torch, B: int, n: int, ragged: bool, l2_rate: float) -> dict:
@@ -909,6 +916,7 @@ def batch_merge_row(torch, method: str, D, alive, sizes, limit, cand, live, reps
     and its single merge entry, bit for bit, timed; with the ownership path
     it took and the rate at which it read the live rows."""
     from repro_torch.kernels import lw_step
+    from repro_torch.roofline import cost
 
     B, n = alive.shape
     b0 = lw_step.merge_batch_buffers(D, alive, sizes, torch.zeros((B, n, 4), device="cuda"),
@@ -941,8 +949,7 @@ def batch_merge_row(torch, method: str, D, alive, sizes, limit, cand, live, reps
         live_mean=float(live_mean.mean()), max_abs_err=err, bit_equal=True,
         single_checked=B, merges_checked=reps, ms=ms, plain_ms=plain_ms, library_ms=None,
         read_bytes=read, read_bytes_per_s=read / (ms * 1e-3),
-        **bound(torch, float((4 * live_mean ** 2 + 8 * live_mean + 17 * n).sum()),
-                float((2 * live_mean ** 2 + 12 * n).sum()), resident, l2_rate))
+        **bound(torch, cost.lw_merge_batch(n, live_mean), resident, l2_rate))
 
 
 def batch_lazy_row(torch, method: str, D, alive, sizes, limit, live, reps: int,
@@ -953,6 +960,7 @@ def batch_lazy_row(torch, method: str, D, alive, sizes, limit, live, reps: int,
     at the rate it reached."""
     from repro_torch.core.batch_engine import cached_cand_batch, masked_row_mins_batch
     from repro_torch.kernels import lw_update
+    from repro_torch.roofline import cost
 
     B, n = alive.shape
     live_mean = live - 1 - (reps - 1) / 2
@@ -982,28 +990,16 @@ def batch_lazy_row(torch, method: str, D, alive, sizes, limit, live, reps: int,
     ms = time_merges(torch, lambda b: lw_update.lazy_merge_batch(method, b), b0, bk, reps=reps)
     plain_ms = time_merges(torch, lambda b: lw_update.lazy_merge_batch_plain(method, b), b0, bk,
                            reps=reps)
-    n_bytes = float(lazy_merge_bytes(n, stale, changed).sum())
+    work = cost.lazy_merge_batch(n, live_mean, stale, changed)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return dict(
         B=B, n=n, path=str(lw_update.lazy_batch_plan(B, n, sms)),
         live_mean=float(live_mean.mean()), max_abs_err=err, bit_equal=True, single_checked=B,
         merges_checked=reps, stale_rows_per_merge=float(stale.mean()),
         changed_entries_per_merge=float(changed.mean()), ms=ms, plain_ms=plain_ms,
-        library_ms=None, bytes_per_s=n_bytes / (ms * 1e-3),
+        library_ms=None, bytes_per_s=work.bytes / (ms * 1e-3),
         **lw_update.lazy_batch_resources(method, n, lanes=B),
-        **bound(torch, n_bytes, float((12 * live_mean + 2 * stale * n).sum()), resident, l2_rate))
-
-
-def lw_update_bytes(method: str, n: int, live: int) -> int:
-    """The bytes one row update must move for ``method`` with ``live`` kept
-    lanes of ``n``: the bool mask read and the row written on every lane;
-    rows i and j (and, for ward, the sizes) read on the kept lanes only; and
-    of the merge scalars only those the method's coefficients use (D(i,j)
-    always, n_i and n_j for the size-weighted methods).  About ten
-    operations a kept lane."""
-    per_kept = 12 if method == "ward" else 8
-    scalars = 12 if method in ("average", "centroid", "ward") else 4
-    return 5 * n + per_kept * live + scalars
+        **bound(torch, work, resident, l2_rate))
 
 
 def phase_row(torch, m: int, d: int, l2_rate: float) -> dict:
@@ -1012,6 +1008,7 @@ def phase_row(torch, m: int, d: int, l2_rate: float) -> dict:
     takes the square root), and each one's host time to enqueue a call."""
     from repro_torch.data.synthetic import gaussian_mixture
     from repro_torch.kernels import pairwise
+    from repro_torch.roofline import cost
 
     Y = torch.as_tensor(gaussian_mixture(seed=3, n=m, dim=d, return_labels=False),
                         dtype=torch.float32, device="cuda")
@@ -1021,15 +1018,14 @@ def phase_row(torch, m: int, d: int, l2_rate: float) -> dict:
     torch.cuda.synchronize()
     if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
         raise AssertionError(f"row_sq_euclidean m={m} d={d}: kernel differs from plain")
-    # read Y and x once, write the row; a subtract, a multiply and an add an element
-    n_bytes = 4 * (m * d + m + d)
+    work = cost.row_sq_euclidean(m, d)
     return dict(m=m, d=d, max_abs_err=float((got - want).abs().max()),
                 ms=time_ms(torch, lambda: pairwise.row_sq_euclidean(x, Y)),
                 plain_ms=time_ms(torch, lambda: pairwise.row_sq_euclidean_plain(x, Y)),
                 library_ms=time_ms(torch, lambda: torch.cdist(x[None], Y)),
                 host_us=host_us(torch, lambda: pairwise.row_sq_euclidean(x, Y)),
                 plain_host_us=host_us(torch, lambda: pairwise.row_sq_euclidean_plain(x, Y)),
-                **bound(torch, n_bytes, 3 * m * d, n_bytes, l2_rate))
+                **bound(torch, work, work.bytes, l2_rate))
 
 
 def phase_vote(torch, m: int, d: int, l2_rate: float) -> dict:
@@ -1042,6 +1038,7 @@ def phase_vote(torch, m: int, d: int, l2_rate: float) -> dict:
     slots dead, as a run finds them half way (``half_dead_ms``)."""
     from repro_torch.data.synthetic import gaussian_mixture
     from repro_torch.kernels import pairwise
+    from repro_torch.roofline import cost
 
     W = torch.as_tensor(gaussian_mixture(seed=3, n=m, dim=d, return_labels=False),
                         dtype=torch.float32, device="cuda")
@@ -1069,15 +1066,13 @@ def phase_vote(torch, m: int, d: int, l2_rate: float) -> dict:
                              f"twin's {plain.tolist()}")
     if buf.sync[:2].tolist() != [-1, 0]:
         raise AssertionError(f"chain_vote m={m} d={d}: left its key/ticket at {buf.sync}")
-    # read the block, the sizes, alive and the tip once, write the triple; a
-    # subtract, a multiply and an add an element and the summary distance a row
-    n_bytes = 4 * (m * d + m + d) + m + 12
+    work = cost.chain_vote(m, d)
     return dict(m=m, d=d, max_abs_err=float((got[values] - plain[values]).abs().max()),
                 ms=time_ms(torch, vote), composition_ms=time_ms(torch, composed),
                 plain_ms=time_ms(torch, lambda: pairwise.chain_vote_plain(*args, ref)),
                 library_ms=None, host_us=host_us(torch, vote),
                 composition_host_us=host_us(torch, composed),
-                **bound(torch, n_bytes, 3 * m * d + 5 * m, n_bytes, l2_rate),
+                **bound(torch, work, work.bytes, l2_rate),
                 **half_dead_vote(torch, args, buf, ref))
 
 
@@ -1099,14 +1094,6 @@ def half_dead_vote(torch, args, buf, ref) -> dict:
     return dict(half_dead_ms=time_ms(torch, lambda: pairwise.chain_vote(*args, buf)),
                 half_dead_composition_ms=time_ms(torch, lambda: pairwise.chain_vote_plain(
                     *args, ref, row_sq=pairwise.row_sq_euclidean)))
-
-
-def trip_bytes(m: int, d: int) -> float:
-    """The bytes one chain trip must move at (m, d): the summaries read
-    once, ward's one per-slot scalar (the sizes; u for average and
-    weighted), the liveness bitmask, and O(d) for the tip and a merge's
-    two rows read and one written."""
-    return 4 * m * d + 4 * m + m / 8 + 16 * d
 
 
 def phase_trip(torch, m: int, d: int, l2_rate: float) -> dict:
@@ -1131,6 +1118,7 @@ def trip_row(torch, method: str, W, u, sizes, what: str, l2_rate: float) -> dict
     with ``cdist``'s row as the library call."""
     from repro_torch.core.nnchain import CHAIN_GRAPH_TRIPS
     from repro_torch.kernels import pairwise
+    from repro_torch.roofline import cost
 
     m, d = W.shape
 
@@ -1165,13 +1153,13 @@ def trip_row(torch, method: str, W, u, sizes, what: str, l2_rate: float) -> dict
     graph = pairwise.TripGraph(method, bk, CHAIN_GRAPH_TRIPS)
     replay_ms = time_merges(torch, lambda _: graph.replay(), b0, bk[:9], reps=1)
     x = W[m // 3]
-    n_bytes = trip_bytes(m, d)
+    work = cost.chain_trip(m, d)
     return dict(m=m, d=d, method=method, checked_trips=TRIP_CHECKS, merges_in_check=merged,
                 chain_length=length, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 graph_ms_per_trip=replay_ms / CHAIN_GRAPH_TRIPS,
                 library_ms=time_ms(torch, lambda: torch.cdist(x[None], W)),
                 host_us=host_us(torch, lambda: pairwise.chain_trip(method, bk)),
-                **bound(torch, n_bytes, 3 * m * d + 8 * m, n_bytes, l2_rate))
+                **bound(torch, work, work.bytes, l2_rate))
 
 
 def pairwise_atol(X, Y) -> float:
@@ -1188,6 +1176,7 @@ def phase_pairwise(torch, n: int, m: int, d: int, l2_rate: float) -> dict:
     one's host time to enqueue a call."""
     from repro_torch.data.synthetic import gaussian_mixture
     from repro_torch.kernels import pairwise
+    from repro_torch.roofline import cost
 
     P = torch.as_tensor(gaussian_mixture(seed=4, n=n + m, dim=d, return_labels=False),
                         device="cuda")
@@ -1200,16 +1189,14 @@ def phase_pairwise(torch, n: int, m: int, d: int, l2_rate: float) -> dict:
         raise AssertionError(f"pairwise_sq_euclidean {(n, m, d)}: kernel differs from plain")
     err = float((got - want).abs().max())
     del got, want
-    # read X and Y once, write the matrix; a multiply and an add per element
-    # of the product (the norms and the epilogue are O(n m + (n + m) d) more)
-    n_bytes = 4 * (n * d + m * d + n * m)
+    work = cost.pairwise_sq_euclidean(n, m, d)
     return dict(n=n, m=m, d=d, max_abs_err=err, rtol=PAIRWISE_RTOL, atol=atol,
                 ms=time_ms(torch, lambda: pairwise.pairwise_sq_euclidean(X, Y), reps=5),
                 plain_ms=time_ms(torch, lambda: pairwise.pairwise_sq_euclidean_plain(X, Y), reps=5),
                 library_ms=time_ms(torch, lambda: torch.cdist(X, Y), reps=5),
                 host_us=host_us(torch, lambda: pairwise.pairwise_sq_euclidean(X, Y)),
                 plain_host_us=host_us(torch, lambda: pairwise.pairwise_sq_euclidean_plain(X, Y)),
-                **bound(torch, n_bytes, 2 * n * m * d, n_bytes, l2_rate))
+                **bound(torch, work, work.bytes, l2_rate))
 
 
 def plain_engine_merges(torch, X, method: str, n_steps: int):
@@ -2398,7 +2385,8 @@ def service_mix(torch, np, name: str, mix: dict) -> dict:
                    warmup_captures=built[1] - built0[1],
                    program_bytes={f"n{p.sig.bucket_n}/B{p.sig.bucket_B}": p.nbytes
                                   for p in progs},
-                   programs_gib=sum(p.nbytes for p in progs) / 2**30)
+                   programs_gib=sum(p.nbytes for p in progs) / 2**30,
+                   cost_profiles=cost_profiles(svc.cache, progs, f"service {name}"))
         futures, run = service_load(torch, svc, mix, rate, duration, seed=2)
         snap = svc.metrics.snapshot(svc.cache)
         out.update(run, p50_ms=snap.p50_ms, p99_ms=snap.p99_ms, pad_waste=snap.pad_waste,
@@ -2433,6 +2421,22 @@ def service_mix(torch, np, name: str, mix: dict) -> dict:
     out.update(peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     del out["bucket_ns"]
     return out
+
+
+def cost_profiles(cache, progs, what: str) -> dict:
+    """Each warmed program's cost profile as the cache keeps it (its
+    analytic flops, bytes and collective bytes for one dispatch at the
+    bucket's full width), with its intensity and its bound at the HBM rate
+    and the float32 peak; every program has one, and no other signature."""
+    from repro_torch.roofline import Cost, analyze
+
+    if set(cache.cost_profiles) != {p.sig for p in progs}:
+        raise AssertionError(f"{what}: cost profiles for {len(cache.cost_profiles)} signatures, "
+                             f"{len(progs)} programs cached")
+    return {f"n{p.sig.bucket_n}/B{p.sig.bucket_B}": dict(
+        flops=c.flops, bytes=c.bytes, coll_bytes=c.coll_bytes, intensity=c.intensity,
+        hbm_bound_ms=analyze(Cost(c.flops, c.bytes, c.coll_bytes)).bound_s * 1e3)
+        for p in progs for c in (cache.cost_profiles[p.sig],)}
 
 
 def phase_service(torch, np, spec: dict) -> dict:
@@ -3106,6 +3110,235 @@ def phase_two_phase(torch, np, spec: dict) -> dict:
                 entry_points=entries)
 
 
+#: Phase 18's k-means cells: (n, d, k, the mixture's seed and components).
+#: The paper's points (configs/paper_lw.py: gaussian_mixture(seed=0), 8
+#: components) at k = 8, and 65536 points in 128-D of 64 components at k = 64.
+KMEANS_CELLS = ((PAPER_N, DIM, 8, 0, 8), (65536, CHAIN_DIM, 64, 1, 64))
+KMEANS_ITERS = 50
+
+
+def kmeans_cell(torch, np, n: int, d: int, k: int, seed: int, parts: int,
+                l2_rate: float) -> dict:
+    """``kmeans`` on the card at (n, d, k), ``KMEANS_ITERS`` Lloyd
+    iterations: wall (and ``warm_wall_s``, a third run), peak and launches
+    (none: no kernel of the port), busy and idle over a profiled second run
+    (the same result bit for bit), the card's ``_lloyd`` from the run's own
+    seeds bit for bit the run.  Then every Lloyd step of the CPU's run from
+    those seeds held against the card's step from the same centroids
+    (:func:`lloyd_against_cpu`), and the CPU's final inertia within rtol
+    1e-4 of the card's own run (with the rows whose final labels differ).
+    A Lloyd iteration timed from the final centroids, with its roofline
+    (``cost.lloyd_step``)."""
+    from repro_torch.core import baselines
+    from repro_torch.data.synthetic import gaussian_mixture
+    from repro_torch.roofline import cost
+
+    what = f"kmeans n={n} d={d} k={k}"
+    X = torch.as_tensor(gaussian_mixture(seed=seed, n=n, dim=d, k=parts, return_labels=False),
+                        dtype=torch.float32, device="cuda")
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def call():
+        return baselines.kmeans(gen(), X, k, KMEANS_ITERS)
+
+    res, stats = timed(torch, call)
+    check_launches(stats["launches"], {}, what)
+    again, busy = device_busy(torch, call, stats["wall_s"], stats["launches"])
+    warm = timed(torch, call)[1]
+    seeds = baselines._kmeans_pp_init(gen(), X, k)
+    lloyd = baselines._lloyd(X, seeds, KMEANS_ITERS)
+    for name, a, b, c in zip(baselines.KMeansResult._fields, res, again, lloyd):
+        if not (torch.equal(a, b) and torch.equal(a, c)):
+            raise AssertionError(f"{what}: {name} differs between two runs of one seed")
+    cpu = lloyd_against_cpu(torch, np, X, seeds, what)
+    np.testing.assert_allclose(float(res.inertia), cpu.pop("cpu_inertia"), rtol=RTOL,
+                               err_msg=f"{what}: inertia, card vs CPU")
+    cpu["final_differing_rows"] = int((res.labels.cpu() != cpu.pop("cpu_labels")).sum())
+    cents = res.centroids
+    work = cost.lloyd_step(n, k, d)
+    return dict(n=n, d=d, k=k, iters=KMEANS_ITERS, wall_s=stats["wall_s"],
+                warm_wall_s=warm["wall_s"], device_busy_s=busy["device_busy_s"],
+                idle_share=busy["idle_share"], peak_gib=stats["peak_gib"],
+                inertia=float(res.inertia), **cpu,
+                lloyd_ms=time_ms(torch, lambda: baselines._lloyd_step(X, cents)),
+                lloyd_flops=work.flops, lloyd_bytes=work.bytes,
+                **bound(torch, work, work.bytes, l2_rate))
+
+
+def lloyd_against_cpu(torch, np, X, seeds, what: str) -> dict:
+    """Every one of the KMEANS_ITERS Lloyd steps on the card and on the
+    CPU from the same centroids: the CPU's run from ``seeds``, each of
+    its steps' centroids also given to the card.  The card's labels equal
+    the CPU's but on near-ties (:func:`check_labels` against the step's
+    centroids), and the card's new centroids are within rtol/atol 1e-5 of
+    the CPU's update of the card's labels (the CPU's own new centroids
+    where the labels agree).  Returns the steps whose labels differed, the
+    most near-tie and differing rows of a step, the CPU's wall, and its
+    final labels and inertia."""
+    from repro_torch.core import baselines
+    from repro_torch.kernels.pairwise import pairwise_sq_euclidean_plain
+
+    Xh, host = X.cpu(), seeds.cpu()
+    out = dict(steps_with_differing_labels=0, near_tie_rows=0, differing_rows=0)
+    cpu_s = 0.0
+    for it in range(KMEANS_ITERS):
+        card = host.to(X.device)
+        got = baselines._first_argmin(pairwise_sq_euclidean_plain(X, card))
+        got_cents = baselines._centroids(X, got, card).cpu()
+        got = got.cpu()
+        t0 = time.perf_counter()
+        want = baselines._first_argmin(pairwise_sq_euclidean_plain(Xh, host))
+        nxt = baselines._centroids(Xh, want, host)
+        cpu_s += time.perf_counter() - t0
+        ref = nxt
+        if not torch.equal(got, want):
+            c = check_labels(torch, np, got.numpy(), want.numpy(), X, host,
+                             f"{what}: card vs CPU at Lloyd step {it}")
+            out.update(steps_with_differing_labels=out["steps_with_differing_labels"] + 1,
+                       near_tie_rows=max(out["near_tie_rows"], c["near_tie_rows"]),
+                       differing_rows=max(out["differing_rows"], c["differing_rows"]))
+            ref = baselines._centroids(Xh, got, host)
+        if not torch.allclose(got_cents, ref, rtol=1e-5, atol=1e-5):
+            err = float((got_cents - ref).abs().max())
+            raise AssertionError(f"{what}: centroids of Lloyd step {it} differ, card vs CPU, "
+                                 f"by up to {err:.3g}")
+        host = nxt
+    t0 = time.perf_counter()
+    d2 = pairwise_sq_euclidean_plain(Xh, host)
+    labels, inertia = baselines._first_argmin(d2), float(d2.amin(1).sum())
+    return dict(out, cpu_wall_s=cpu_s + time.perf_counter() - t0, cpu_labels=labels,
+                cpu_inertia=inertia)
+
+
+def check_same_cuts(np, got, want, n: int, tol: float, what: str) -> dict:
+    """Two single-linkage merge lists (in height order) cut the tree the
+    same way at every k: merge by merge both join the same two clusters,
+    but inside a run of merges whose heights lie within ``tol`` of the
+    next, where the order of a run's merges is down to rounding and
+    tie-breaking and only the partition the run ends on must be the same.
+    One union-find over the leaves (a cluster holds its slot's leaf), the
+    runs read from ``want``'s heights.  Returns the runs of more than one
+    merge and the merges in them."""
+    got, want = np.asarray(got), np.asarray(want)
+    parent = np.arange(n)
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    def ends(pairs, roots):
+        """Where each of ``roots`` ends after joining ``pairs`` of clusters."""
+        sub = {}
+
+        def top(r):
+            while sub.get(r, r) != r:
+                r = sub[r]
+            return r
+
+        for a, b in pairs:
+            a, b = top(a), top(b)
+            if a == b:
+                raise AssertionError(f"{what}: a merge joins a cluster to itself")
+            sub[max(a, b)] = min(a, b)
+        return {r: top(r) for r in roots}
+
+    h, t, runs, tied = want[:, 2], 0, 0, 0
+    while t < n - 1:
+        e = t + 1
+        while e < n - 1 and h[e] - h[e - 1] <= tol:
+            e += 1
+        pg = [(find(int(i)), find(int(j))) for i, j in got[t:e, :2]]
+        pw = [(find(int(i)), find(int(j))) for i, j in want[t:e, :2]]
+        roots = {r for pair in pg + pw for r in pair}
+        if ends(pg, roots) != ends(pw, roots):
+            raise AssertionError(f"{what}: the cuts differ after merge {e - 1} "
+                                 f"(height {h[e - 1]:.9g}, a run of {e - t} merges)")
+        for a, b in pw:
+            a, b = find(a), find(b)
+            parent[max(a, b)] = min(a, b)
+        if e - t > 1:
+            runs, tied = runs + 1, tied + e - t
+        t = e
+    return dict(tied_runs=runs, merges_in_tied_runs=tied)
+
+
+def mst_cell(torch, np, D, what: str, profile: bool) -> dict:
+    """``mst_single_linkage`` on the card on the matrix ``D`` (on the card):
+    wall, peak, launches (none: no kernel of the port), with ``profile``
+    busy and idle over a profiled second run (the same merges), its merges
+    bit for bit the CPU's on the same
+    matrix; sorted heights within RTOL/ATOL of the port's LW single linkage
+    on the card, and the same cuts (:func:`check_same_cuts`), merges whose
+    heights lie within twice the largest gap between the two sorted height
+    lists (``height_gap``: the LW loop rounds its heights in float32) taken
+    as tied."""
+    from repro_torch.core import baselines, cluster
+
+    n = D.shape[0]
+    res, stats = timed(torch, lambda: baselines.mst_single_linkage(D))
+    check_launches(stats["launches"], {}, what)
+    busy = {}
+    if profile:
+        again, busy = device_busy(torch, lambda: baselines.mst_single_linkage(D),
+                                  stats["wall_s"], stats["launches"])
+        check_bit_equal(np, again, res, f"{what}: two runs on the card")
+        busy = dict(device_busy_s=busy["device_busy_s"], idle_share=busy["idle_share"])
+    t0 = time.perf_counter()
+    cpu = baselines.mst_single_linkage(D.cpu(), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check_bit_equal(np, res, cpu, f"{what}: card vs CPU")
+    D_host = D.cpu().numpy()            # cluster() takes host arrays
+    lw, lw_stats = timed(torch, lambda: cluster(D_host, "single", algorithm="lw",
+                                                backend="kernel", is_distance=True,
+                                                keep_inputs=False))
+    del D_host
+    heights = np.sort(lw.heights()), np.sort(res[:, 2])
+    np.testing.assert_allclose(*heights, rtol=RTOL, atol=ATOL,
+                               err_msg=f"{what}: heights vs LW single")
+    gap = float(np.abs(heights[0] - heights[1]).max())
+    cuts = check_same_cuts(np, lw.merges, res, n, 2 * gap, f"{what} vs LW single")
+    return dict(n=n, wall_s=stats["wall_s"], **busy, peak_gib=stats["peak_gib"],
+                launches=stats["launches"], cpu_wall_s=cpu_s, lw_single_wall_s=lw_stats["wall_s"],
+                height_gap=gap, **cuts)
+
+
+def phase_baselines(torch, np, spec: dict) -> dict:
+    """Phase 18, in a process of its own: the paper's baselines on the card
+    (``repro_torch.core.baselines``), k-means at KMEANS_CELLS
+    (:func:`kmeans_cell`) and MST single linkage on phase 3's and phase
+    4's matrices (:func:`mst_cell`; profiled at the paper's size only: a
+    run at n = 16384 makes ~2.5·10⁵ device records, and the profile adds a
+    second run of ~6 s to the smoke)."""
+    from repro_torch.core import baselines
+    from repro_torch.core.api import build_distance_matrix
+    from repro_torch.data.synthetic import gaussian_mixture
+
+
+    # loads cuBLAS and the float64 paths before any timed run
+    W = torch.rand(64, 8, device="cuda")
+    baselines.kmeans(torch.Generator(device="cuda").manual_seed(0), W, 4, 2)
+    baselines.mst_single_linkage(torch.cdist(W, W))
+    out = {}
+    for n, d, k, seed, parts in KMEANS_CELLS:
+        out[f"kmeans n={n}"] = row = kmeans_cell(torch, np, n, d, k, seed, parts,
+                                                  spec["l2_rate"])
+        say(f"phase 18 kmeans n={n} d={d} k={k}: " + json.dumps(row))
+        torch.cuda.empty_cache()
+    for n in (PAPER_N, FULL_N):
+        D = build_distance_matrix(gaussian_mixture(seed=0, n=n, dim=DIM, return_labels=False),
+                                  "euclidean")
+        out[f"mst n={n}"] = row = mst_cell(torch, np, D, f"mst_single_linkage n={n}",
+                                           profile=n == PAPER_N)
+        say(f"phase 18 mst_single_linkage n={n}: " + json.dumps(row))
+        del D
+        torch.cuda.empty_cache()
+    return out
+
+
 LATER_PHASES_FLAG, PROFILE_CHAIN_FLAG = "--later-phases", "--profile-chain"
 BATCH_FLAG = "--batch"
 SERVICE_FLAG = "--service"
@@ -3113,6 +3346,7 @@ DISTRIBUTED_FLAG = "--distributed"
 SHARDED_CHAIN_FLAG = "--sharded-chain"
 SHARDED_WINDOW_FLAG = "--sharded-window"
 TWO_PHASE_FLAG = "--two-phase"
+BASELINES_FLAG = "--baselines"
 
 
 def run_child(torch, flag: str, spec: dict) -> dict:
@@ -3180,7 +3414,8 @@ def phases_10_to_12(torch, np, spec: dict) -> dict:
 CHILDREN = {LATER_PHASES_FLAG: phases_10_to_12, PROFILE_CHAIN_FLAG: profile_chain,
             BATCH_FLAG: phase_batch, SERVICE_FLAG: phase_service,
             DISTRIBUTED_FLAG: phase_distributed, SHARDED_CHAIN_FLAG: phase_sharded_chain,
-            SHARDED_WINDOW_FLAG: sharded_window_child, TWO_PHASE_FLAG: phase_two_phase}
+            SHARDED_WINDOW_FLAG: sharded_window_child, TWO_PHASE_FLAG: phase_two_phase,
+            BASELINES_FLAG: phase_baselines}
 
 
 def child(flag: str) -> int:
@@ -3200,7 +3435,7 @@ def child(flag: str) -> int:
 def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
             serial: dict, lazy: dict, assigned: dict, landmark: dict, rmsd: dict,
             batch: dict, service: dict, distributed: dict, sharded: dict,
-            two_phase: dict) -> str:
+            two_phase: dict, baselines: dict) -> str:
     """The numbers a reader checks first, on one line near the end."""
     def g(x):
         return f"{x:.6g}"
@@ -3315,7 +3550,16 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
                  + f"; card vs CPU n="
                  f"{PAPER_N} max height diff " + ", ".join(
                      f"{k} {g(v['max_abs_height_diff'])}"
-                     for k, v in two_phase["against_cpu"].items()))
+                     for k, v in two_phase["against_cpu"].items() if "cpu_wall_s" in v))
+    for label, s in baselines.items():
+        parts.append(f"{label} wall_s {g(s['wall_s'])}"
+                     + (f" busy_s {g(s['device_busy_s'])} idle {g(s['idle_share'])}"
+                        if "device_busy_s" in s else "")
+                     + f" peak_gib {g(s['peak_gib'])}"
+                     + (f" inertia {g(s['inertia'])} Lloyd steps with near-tie labels "
+                        f"{s['steps_with_differing_labels']} Lloyd ms "
+                        f"{g(s['lloyd_ms'])} bound {g(s['bound_ms'])}" if "inertia" in s else
+                        f" tied runs {s['tied_runs']}"))
     return "summary: " + "; ".join(parts)
 
 
@@ -3523,12 +3767,13 @@ def main() -> int:
     distributed = run_child(torch, DISTRIBUTED_FLAG, dict(paper_serial=paper_serial))
     sharded = run_child(torch, SHARDED_CHAIN_FLAG, {})
     two_phase = run_child(torch, TWO_PHASE_FLAG, dict(l2_rate=l2_rate))
+    baselines = run_child(torch, BASELINES_FLAG, dict(l2_rate=l2_rate))
 
-    # 18. inventory, card, result
+    # 19. inventory, card, result
     inventory = kernel_inventory(kernels, full, lazy, points, assigned, batch, service, sharded,
                                  two_phase)
     print(summary(kernels, paper, full, dense, points, serial, lazy, assigned, landmark, rmsd,
-                  batch, service, distributed, sharded, two_phase))
+                  batch, service, distributed, sharded, two_phase, baselines))
     print(json.dumps({"kernels": inventory}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -46,7 +46,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core import engine
 from repro_torch.core.engine import (
     _INF,
     RESCAN_ROWS,
@@ -57,8 +56,8 @@ from repro_torch.core.engine import (
     _cache_invalidate,
     _live_perm,
     check_knobs,
-    plan_stages,
     premask,
+    stage_plan,
 )
 from repro_torch.core.linkage import update_row
 
@@ -280,7 +279,7 @@ def run_dense_batch(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_step
     check_knobs(method, variant)
     n, dev = alive.shape[1], D.device
     return run_batch_loop(
-        plan_stages(n, n_steps) if compaction else ((n, n_steps),),
+        stage_plan("serial", n, n_steps, compaction),
         _init_batch_state(premask(D, alive), alive, n_steps), lane_limits(alive, n_steps),
         distance_threshold,
         ops_for=lambda size: dense_batch_ops(method, size, variant, dev),
@@ -320,8 +319,7 @@ class KernelBatchLoop:
         check_knobs(method, variant)
         B, n, dev = D.shape[0], D.shape[-1], D.device
         self.method, self.variant, self.D = method, variant, D
-        self.stages = (plan_stages(n, n_steps, min_stage=engine.KERNEL_MIN_STAGE)
-                       if compaction else ((n, n_steps),))
+        self.stages = stage_plan("kernel", n, n_steps, compaction)
         self.alive = torch.zeros((B, n), dtype=torch.bool, device=dev)
         self.sizes = torch.zeros((B, n), dtype=torch.float32, device=dev)
         self.merges = torch.zeros((B, n_steps, 4), dtype=torch.float32, device=dev)

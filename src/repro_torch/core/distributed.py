@@ -61,7 +61,7 @@ import math
 import os
 import time
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -83,6 +83,7 @@ from repro_torch.core.nnchain import POINTS_METHODS, summary_merge
 from repro_torch.distributed.fault import SimulatedFailure, StepDeadline
 from repro_torch.distributed.sharding import shard_rows
 from repro_torch.obs import NULL_TRACER, Tracer, get_registry
+from repro_torch.roofline.cost import wire_bytes
 
 #: ``kind`` of :func:`distributed_pairwise`.
 PAIRWISE_KINDS = ("sqeuclidean", "euclidean", "cosine", "rmsd")
@@ -97,13 +98,21 @@ class Ring:
     """The paper's processor ring: a process group, this process's rank in
     it, its size ``p`` and the device this rank's tensors live on.  Its
     methods are the engine's collectives, each counted in
-    :attr:`collectives`."""
+    :attr:`collectives`, and the bytes each puts on the wire from this rank
+    added to :attr:`wire_bytes` under the reference's op name, by the ring
+    model of :func:`repro_torch.roofline.cost.wire_bytes`."""
 
     group: Any
     rank: int
     size: int
     device: torch.device
     collectives: int = 0
+    wire_bytes: dict = field(default_factory=dict)
+
+    def _count(self, op: str, out: torch.Tensor) -> None:
+        self.collectives += 1
+        wire = wire_bytes(op, out.numel() * out.element_size(), self.size)
+        self.wire_bytes[op] = self.wire_bytes.get(op, 0.0) + wire
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """The ranks' ``t`` concatenated along the first dimension, in rank
@@ -111,13 +120,13 @@ class Ring:
         out = torch.empty((self.size * t.shape[0], *t.shape[1:]), dtype=t.dtype, device=t.device)
         _collective("all_gather_single", "all_gather_into_tensor")(out, t.contiguous(),
                                                                    group=self.group)
-        self.collectives += 1
+        self._count("all-gather", out)
         return out
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the ranks, in place."""
         dist.all_reduce(t, group=self.group)
-        self.collectives += 1
+        self._count("all-reduce", t)
         return t
 
     def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
@@ -127,7 +136,7 @@ class Ring:
                           device=t.device)
         _collective("reduce_scatter_single", "reduce_scatter_tensor")(out, t.contiguous(),
                                                                       group=self.group)
-        self.collectives += 1
+        self._count("reduce-scatter", out)
         return out
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
@@ -135,7 +144,7 @@ class Ring:
         to rank ``q``; chunk ``q`` of the result came from rank ``q``."""
         out = torch.empty_like(t)
         dist.all_to_all_single(out, t.contiguous(), group=self.group)
-        self.collectives += 1
+        self._count("all-to-all", out)
         return out
 
 

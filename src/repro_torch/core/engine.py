@@ -143,6 +143,18 @@ def plan_stages(n: int, n_steps: int, *, min_stage: int = MIN_STAGE_N,
         size = half
 
 
+def stage_plan(backend: str, n: int, n_steps: int, compaction: bool) -> tuple[tuple[int, int], ...]:
+    """The stages ``((size, steps), ...)`` that an LW run of ``n_steps``
+    merges on ``n`` slots follows on ``backend`` (``"serial"`` or
+    ``"kernel"``, single or batched): with ``compaction``,
+    :func:`plan_stages` down to the backend's floor (:data:`MIN_STAGE_N`,
+    :data:`KERNEL_MIN_STAGE`); without, one stage."""
+    if not compaction:
+        return ((n, n_steps),)
+    return plan_stages(n, n_steps,
+                       min_stage=KERNEL_MIN_STAGE if backend == "kernel" else MIN_STAGE_N)
+
+
 def resolve_compaction(flag, n: int, n_steps: int, *, min_stage: int = MIN_STAGE_N,
                        align: int = 1) -> bool:
     """The compaction switch of a run, as the JAX engine resolves it:
@@ -610,7 +622,7 @@ def run_dense(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_steps: int
     n = D.shape[-1]
     dev = D.device
     out = staged_merge_loop(
-        plan_stages(n, n_steps) if compaction else ((n, n_steps),),
+        stage_plan("serial", n, n_steps, compaction),
         _init_state(premask(D, alive), alive, n_steps),
         torch.arange(n, device=dev), distance_threshold,
         ops_for=lambda size: dense_ops(method, size, variant, dev),
@@ -922,7 +934,7 @@ def run_kernel(D: torch.Tensor, alive: torch.Tensor, *, method: str, n_steps: in
     n = D.shape[-1]
     dev = D.device
     out = staged_merge_loop(
-        plan_stages(n, n_steps, min_stage=KERNEL_MIN_STAGE) if compaction else ((n, n_steps),),
+        stage_plan("kernel", n, n_steps, compaction),
         _init_state(D, alive, n_steps),
         torch.arange(n, device=dev), distance_threshold,
         ops_for=lambda size: kernel_ops(method, size, variant, dev),

@@ -39,6 +39,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict
+from dataclasses import dataclass
 from typing import Iterable, Sequence
 
 import torch
@@ -50,7 +51,7 @@ from repro_torch.core.batched import (
     bucket_batch,
     bucket_signature,
 )
-from repro_torch.core.engine import resolve_device
+from repro_torch.core.engine import resolve_device, stage_plan
 from repro_torch.obs import NULL_TRACER, MetricsRegistry, Tracer
 
 #: Engines the program cache can build.
@@ -95,6 +96,44 @@ class CacheStats:
         return self.hits / total if total else 0.0
 
 
+@dataclass(frozen=True)
+class CostProfile:
+    """Static per-dispatch cost of one bucket program, attached to its
+    :class:`BucketSignature` when the program is built.  The JAX package
+    reads it from the executable's optimized HLO; the port counts it
+    analytically (:func:`profile_program`), under the same names.
+    """
+
+    flops: float
+    bytes: float
+    coll_bytes: float
+
+    @property
+    def intensity(self) -> float:
+        """Arithmetic intensity (flop/byte) — <1 means memory-bound."""
+        return self.flops / self.bytes if self.bytes else 0.0
+
+
+def profile_program(sig: BucketSignature) -> CostProfile:
+    """The analytic cost of one dispatch of ``sig``'s program at the
+    bucket's full width (:mod:`repro_torch.roofline.cost`), counted as
+    the same work whatever engine implements it: every lane of an LW
+    bucket runs ``n_steps`` merges, each at the live width that the
+    signature's stage plan gives, plus one seed a stage; every lane of a
+    chain bucket runs the loop's cap of ``4n + 8`` trips."""
+    from repro_torch.roofline import cost
+
+    n = sig.bucket_n
+    if sig.algorithm == "nnchain":
+        lane = cost.nn_chain(n, 4 * n + 8, sig.points_dim, sig.method)
+    else:
+        lane = cost.lw_merge_loop(n, sig.n_steps,
+                                  stage_plan(sig.engine, n, sig.n_steps, sig.compaction))
+    total = sig.bucket_B * lane
+    return CostProfile(flops=float(total.flops), bytes=float(total.bytes),
+                       coll_bytes=float(total.coll_bytes))
+
+
 def _sig_label(sig: BucketSignature) -> str:
     """Compact span/metric label for one signature."""
     return (f"{sig.algorithm}/{sig.method}/{sig.engine}"
@@ -126,9 +165,12 @@ class CompileCache:
     owning service passes its own), each build is timed into a
     ``service_compile_seconds`` histogram and recorded as a ``compile``
     span on ``tracer``, and ``service_cache_entries`` gauges the live
-    programs.  :attr:`cost_profiles` stays empty: the JAX package reads
-    each executable's cost from its HLO, and the port's analytic roofline
-    comes with ROADMAP.md A8.
+    programs.  :attr:`cost_profiles` holds each cached program's
+    :class:`CostProfile` (:func:`profile_program`), put in at build and
+    popped on eviction, and the ``compile`` span carries it as
+    ``hlo_flops``, ``hlo_bytes`` and ``hlo_coll_bytes``: the JAX package's
+    names, so that one telemetry schema serves both packages, though the
+    port's counts are analytic, not read from HLO.
     """
 
     def __init__(self, capacity: int = 64, *,
@@ -142,7 +184,7 @@ class CompileCache:
         self.registry = registry or MetricsRegistry()
         self.tracer = tracer or NULL_TRACER
         self.stats = CacheStats(self.registry)
-        self.cost_profiles: dict = {}
+        self.cost_profiles: dict[BucketSignature, CostProfile] = {}
         self._entries: OrderedDict[BucketSignature, BucketProgram] = OrderedDict()
         self._lock = threading.Lock()
         self._build_lock = threading.Lock()
@@ -191,14 +233,19 @@ class CompileCache:
             t0 = time.perf_counter()
             prog = _build(sig, self.device)
             t1 = time.perf_counter()
+            profile = profile_program(sig)
             self._compile_hist.observe(t1 - t0)
             self.tracer.add_span("compile", t0, t1, cat="cache", signature=_sig_label(sig),
-                                 compile_s=round(t1 - t0, 6), program_bytes=prog.nbytes)
+                                 compile_s=round(t1 - t0, 6), program_bytes=prog.nbytes,
+                                 hlo_flops=profile.flops, hlo_bytes=profile.bytes,
+                                 hlo_coll_bytes=profile.coll_bytes)
             with self._lock:
                 self.stats.record("compile")
                 self._entries[sig] = prog
+                self.cost_profiles[sig] = profile
                 while len(self._entries) > self.capacity:
-                    self._entries.popitem(last=False)
+                    old, _ = self._entries.popitem(last=False)
+                    self.cost_profiles.pop(old, None)
                     self.stats.record("eviction")
                 self._entries_gauge.set(len(self._entries))
             return prog

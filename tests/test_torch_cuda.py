@@ -2122,3 +2122,125 @@ def test_cuda_two_phase_matches_cpu(method, cuda):
         np.testing.assert_array_equal(res.merges[:, [0, 1, 3]],
                                       two_phase_from_points(X, method)
                                       .merges.numpy()[:, [0, 1, 3]])
+
+
+# ---------------------------------------------------------------------------
+# The paper's baselines and the roofline's counts, on the card
+
+
+def kmeans_points(n=400, d=8, seed=0):
+    """A well-separated mixture: no point near a tie between two centroids."""
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    return gaussian_mixture(seed=seed, n=n, dim=d, k=5, spread=8.0, return_labels=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", (2, 5, 8))
+def test_cuda_lloyd_matches_cpu(k, cuda):
+    """Lloyd's iterations on the card from the CPU's k-means++ seeds: the
+    CPU's labels, centroids and inertia within rtol/atol 1e-5."""
+    from repro_torch.core import baselines
+
+    X = torch.as_tensor(kmeans_points(), dtype=torch.float32)
+    seeds = baselines._kmeans_pp_init(torch.Generator().manual_seed(k), X, k)
+    want = baselines._lloyd(X, seeds, 40)
+    got = baselines._lloyd(X.to(cuda), seeds.to(cuda), 40)
+    assert torch.equal(got.labels.cpu(), want.labels)
+    torch.testing.assert_close(got.centroids.cpu(), want.centroids, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.inertia.cpu(), want.inertia, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_reads_nothing_back(cuda):
+    """k-means on the card under the sync debug mode "error": neither the
+    seeding nor the Lloyd loop waits for the card; one seed gives one
+    result, bit for bit, on the card."""
+    from repro_torch.core import baselines
+
+    X = torch.as_tensor(kmeans_points(n=2000, d=16, seed=1), dtype=torch.float32, device=cuda)
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runs.append(baselines.kmeans(gen, X, 6, 20))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(*runs):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+    hits = (runs[0].centroids[:, None, :] == X[None]).all(-1).any(1)
+    assert float(runs[0].inertia) > 0 and hits.sum() < 6        # the centroids moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ("random", "float32", "tie_dense", "upper"))
+def test_cuda_mst_matches_cpu(kind, cuda):
+    """Prim's loop on the card in float64: the CPU's merges bit for bit,
+    on a tie-dense integer matrix too."""
+    from repro_torch.core import baselines
+
+    rng = np.random.default_rng(5)
+    D = random_distance_matrix(rng, 300)
+    if kind == "float32":
+        D = D.astype(np.float32)
+    elif kind == "tie_dense":
+        ints = rng.integers(0, 5, size=(300, 300)).astype(np.float64)
+        D = ints + ints.T
+    elif kind == "upper":
+        D = np.triu(D, 1)
+    want = baselines.mst_single_linkage(D, device="cpu")
+    got = baselines.mst_single_linkage(torch.as_tensor(D, device=cuda))
+    assert np.array_equal(got, want)
+    assert np.array_equal(baselines.mst_single_linkage(D), want)
+
+
+def chip_smoke_module():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_tests", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the HBM bounds chip_smoke's phase 2 printed before its counts moved into
+# repro_torch.roofline (NVIDIA H100 80GB HBM3, 700.00 W)
+PHASE_2_HBM_BOUNDS = {
+    1968: {"masked_argmin": 0.001629515223880597, "masked_argmin/seed": 0.004625097313432835,
+           "lw_step": 0.0017065397014925374, "lw_merge": 0.0016796050746268657,
+           "lw_update": 5.7325373134328354e-06},
+    16384: {"masked_argmin": 0.11346579462686568, "masked_argmin/seed": 0.3205248417910448,
+            "lw_step": 0.11508564417910448, "lw_merge": 0.11486310597014926,
+            "lw_update": 4.8146865671641795e-05},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1968, 16384))
+def test_cuda_phase_2_bounds_unchanged(n, cuda):
+    """Phase 2's single-problem rows on the states it builds on the card:
+    the counts of ``repro_torch.roofline.cost`` give the bounds chip_smoke
+    printed from its private formulas."""
+    from repro_torch.roofline import cost
+
+    smoke = chip_smoke_module()
+    l2 = smoke.l2_read_rate(torch)
+    resident = 4 * n * n
+    _, alive, *_ = smoke.mid_run_state(torch, n, squared=False, seed=1)
+    live = int(alive.sum())
+    got = {"masked_argmin": smoke.bound(torch, cost.masked_argmin(n, live), resident, l2),
+           "masked_argmin/seed": smoke.bound(torch, cost.masked_argmin(n, n), resident, l2)}
+    _, alive, *_ = smoke.mid_run_state(torch, n, squared=False, seed=2)
+    live = int(alive.sum()) - 1
+    got["lw_step"] = smoke.step_bound(torch, n, live, l2)
+    got["lw_merge"] = smoke.step_bound(torch, n, live - (smoke.MERGE_REPS - 1) / 2, l2)
+    _, alive, _, i, j, _ = smoke.mid_run_state(torch, n, squared=False, seed=3)
+    keep = alive.index_fill(0, torch.tensor([i, j], device=cuda), False)
+    work = cost.lw_update("complete", n, int(keep.sum()))
+    got["lw_update"] = smoke.bound(torch, work, work.bytes, l2)
+    assert {k: v["hbm_bound_ms"] for k, v in got.items()} == PHASE_2_HBM_BOUNDS[n]
+    assert all(v["bound_by"] == "bytes" for v in got.values())

@@ -5,11 +5,12 @@ spans and metrics on ``device="cpu"``.
 
 The service tests re-prove the zero-build contract with tracing ON:
 instrumentation that silently perturbed the programs would invalidate
-every number the layer reports.  Left out until their modules are
-ported: the compile span's HLO cost (the JAX package reads it from XLA's
-HLO; the port's analytic roofline is ROADMAP.md A8) and the benchmark
-regression gate (A8).  The sharded chain's telemetry (the reference's
-p = 1 cases) is held in ``test_torch_distributed_chain.py``.
+every number the layer reports.  The compile span carries the program's
+cost under the JAX package's names (``hlo_flops``, ``hlo_bytes``), counted
+analytically by the port's roofline where the reference reads XLA's HLO.
+Left out until the port's benchmark: the benchmark regression gate.  The
+sharded chain's telemetry (the reference's p = 1 cases) is held in
+``test_torch_distributed_chain.py``.
 """
 
 import json
@@ -299,8 +300,9 @@ def test_service_trace_covers_every_request_and_stays_build_free(rng):
 
 def test_compile_span_carries_the_program(rng):
     """An unwarmed request builds its program once, on the worker: one
-    ``compile`` span with the build time and the program's device bytes.
-    The cost profile waits for the port's roofline (ROADMAP.md A8)."""
+    ``compile`` span with the build time, the program's device bytes and
+    its cost profile, which the cache keeps for the cached signature (as
+    ``tests/test_obs.py`` holds the reference's HLO cost)."""
     tracer = Tracer()
     with _service(tracer=tracer) as svc:
         fut = svc.submit(random_distance_matrix(rng, 6), is_distance=True)
@@ -312,7 +314,14 @@ def test_compile_span_carries_the_program(rng):
         (prog,) = svc.cache.programs()
         assert args["program_bytes"] == prog.nbytes > 0
         assert args["signature"].startswith("lw/complete/serial/n8/B1")
-        assert svc.cache.cost_profiles == {}
+        assert args["hlo_flops"] > 0 and args["hlo_bytes"] > 0
+        assert args["hlo_coll_bytes"] == 0.0
+        # ... and the cache keeps the profile for the cached signature
+        (sig,) = svc.cache.cost_profiles
+        prof = svc.cache.cost_profiles[sig]
+        assert sig == prog.sig
+        assert (prof.flops, prof.bytes, prof.coll_bytes) == (
+            args["hlo_flops"], args["hlo_bytes"], args["hlo_coll_bytes"])
 
 
 def test_service_metrics_snapshot_timebase(rng):
