@@ -215,7 +215,31 @@ Phases, in order; a failing phase raises and the script exits non-zero:
     loop's single linkage on the card its sorted heights (rtol 1e-4 / atol
     1e-5) and its cuts at every k (a run of merges tied within twice the
     largest height gap between the two ends on the same partition).
-19. One line ``{"kernels": [...]}`` with each kernel's numbers (the batch
+19. The LM stack's serving path (``repro_torch.launch.serve``: prefill,
+    then greedy decode), no kernel of the port launched: (a) gemma3-1b at
+    full width and all 26 layers in float32, weights from a seeded
+    generator, 4 prompts of 1024 tokens (past the 512 window) and 16 new
+    tokens, each step's logits within rtol/atol 2e-3 of the full forward's
+    at that position, and the cache's ``cur`` and ``kv_pos`` advancing; (b)
+    the same weights cut to 2 layers on the card and on the CPU, TF32 off:
+    prefill logits and 4 decode steps within rtol/atol 1e-4; (c) gemma3-1b's
+    own config in bf16 serving 16 requests in batches of 8 (prompts of 1024,
+    64 new tokens): from a run that keeps no logits, prefill ms, decode ms
+    a step, tokens a second and peak memory; the busy time and idle share
+    of a window of the decode loop (LM_LOOP_STEPS steps of the first batch,
+    profiled); prefill's ``model_flops`` over the bf16 peak; from a second
+    run that keeps every step's logits, every logit finite and every
+    request answered, and the first token's logits against the float32
+    run's (gap and top-1 agreement, reported); (d) chatglm3-6b and
+    deepseek-coder-33b (2 layers) and llama3-405b (1 layer) at full width
+    in float32, 2 prompts of 256, 4 decode steps.  With the spec's init
+    the float32 gaps to the full forward are reported (its attention is a
+    hard argmax at these widths: ``lm_unit_attention``), and the check is
+    gated in float64, every op of the model in float64
+    (``lm_float64_witness``), where the model fits the card so, else in
+    float32; then, with the attention weights rescaled to a true fan-in,
+    each float32 step within 2e-3 of the full forward.
+20. One line ``{"kernels": [...]}`` with each kernel's numbers (the batch
     entries beside the others, with their launches in the service's card
     mix; B5's vote entry with its launches in phase 16, its row entry with
     those of phase 16's host-driven reference loop; B5's trip entry
@@ -226,9 +250,9 @@ Every path is driven with the launch counters set to 0 just before it
 and read just after.  Phase 6's profiled chain run (``--profile-chain``),
 phases 10-12 (``--later-phases``), phase 13 (``--batch``), phase 14
 (``--service``), phase 15 (``--distributed``), phase 16
-(``--sharded-chain``), phase 17 (``--two-phase``) and phase 18
-(``--baselines``) run in child processes of this script, for the
-profiler's sake (``run_child``).
+(``--sharded-chain``), phase 17 (``--two-phase``), phase 18
+(``--baselines``) and phase 19 (``--lm-serve``) run in child processes of
+this script, for the profiler's sake (``run_child``).
 
 Needs one CUDA device and ``nvcc``; exits non-zero without them.
 """
@@ -3339,6 +3363,320 @@ def phase_baselines(torch, np, spec: dict) -> dict:
     return out
 
 
+LM_SEED = 0                      # the weights' generator and the prompts' seed
+LM_ARCH = "gemma3-1b"            # the full-width, full-depth model (~1.0 B parameters)
+LM_CHECK = (4, 1024, 16)         # (a) batch, prompt (past the 512 window), new tokens, fp32
+LM_CPU = (2, 1024, 4, 2)         # (b) batch, prompt, decode steps, layers: the card vs the CPU
+LM_SERVED = (16, 8, 1024, 64)    # (c) requests, batch, prompt, new tokens, bf16
+# (d), fp32: arch, layers, and whether the spec's init is also run in float64
+# (llama3-405b's layer and 2.1 B-entry embeddings in float64, 59 GB, do
+# not fit the card beside its float32 model)
+LM_OTHERS = (("chatglm3-6b", 2, True), ("deepseek-coder-33b", 2, True), ("llama3-405b", 1, False))
+LM_OTHER_SHAPE = (2, 256, 4)     # (d) batch, prompt, decode steps
+LM_LOOP_STEPS = 16               # (c) decode steps of the timed and profiled loop window
+LM_DECODE_TOL = 2e-3             # decode vs full forward: the reference's own tolerance
+LM_CPU_TOL = 1e-4                # the card vs the CPU, fp32
+
+
+def lm_prompts(np, cfg, requests: int, length: int, seed: int = LM_SEED):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (requests, length)).astype(np.int32)
+
+
+def lm_model(torch, cfg):
+    """The port's module for ``cfg`` on the card, from the seeded generator
+    (a bf16 config draws the fp32 config's values and casts them)."""
+    from repro_torch.models import model_api
+
+    return model_api.init_params(cfg, torch.Generator(device="cuda").manual_seed(LM_SEED))
+
+
+def lm_check_close(torch, got, want, tol: float, what: str, gate: bool = True) -> float:
+    """Both finite and, gated, |got - want| <= tol + tol |want| everywhere;
+    the largest gap."""
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    gap = (got - want).abs()
+    if gate and (gap > tol + tol * want.abs()).any():
+        raise AssertionError(f"{what}: largest gap {float(gap.max()):.3g} past rtol/atol {tol}")
+    return float(gap.max())
+
+
+def lm_unit_attention(torch, cfg, model) -> None:
+    """Rescale each block's attention weights in place to a true fan-in:
+    ``d_model`` for wq, wk and wv, ``n_heads · head_dim`` for wo.  The
+    reference's "scaled" init (which ``init_params`` follows) takes
+    ``shape[-2]`` as the fan-in, the head count of a ``(d, h, hd)`` weight:
+    at full width it makes queries and keys ~11 and ~45 (chatglm3-6b), the
+    softmax a hard argmax, and fp32 rounding decides its near-ties."""
+    d, h, n, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim_
+    with torch.no_grad():
+        for block in model.blocks:
+            block.wq.mul_((h / d) ** 0.5)
+            block.wk.mul_((n / d) ** 0.5)
+            block.wv.mul_((n / d) ** 0.5)
+            block.wo.mul_((1 / h) ** 0.5)
+
+
+def lm_forward_logits(torch, np, cfg, model, seq, prompt: int, new: int):
+    """The port's full forward (train mode) over ``seq``, the prompt and the
+    tokens generated but the last: the logits at the ``new`` positions
+    decoded.  ``seq`` is padded with token 0 to a whole number of the flash
+    core's 512-token q blocks (a causal model's logits at a position do not
+    see later tokens): at prompt + new - 1 = 1039, a prime, its halving rule
+    would take blocks of one token."""
+    from repro_torch.models import embedding, model_api
+
+    seq = torch.tensor(np.pad(seq, [(0, 0), (0, -seq.shape[1] % 512)]), device="cuda")
+    with torch.no_grad():
+        hidden = model_api.apply(cfg, model, {"tokens": seq}, "train")
+        return embedding.logits_fn(cfg, model.tree(), hidden[:, prompt - 1:prompt - 1 + new])
+
+
+def lm_decode_check(torch, np, cfg, model, batch: int, prompt: int, new: int, what: str,
+                    gate: bool = True):
+    """``serve`` of ``batch`` prompts with each step's logits, every step
+    within LM_DECODE_TOL of the port's full forward at the position it
+    decoded (``gate`` False: the gaps only); no kernel of the port
+    launched.  Returns (the row, the served logits, the sequence the full
+    forward read)."""
+    from repro_torch.launch.serve import serve
+
+    p = lm_prompts(np, cfg, batch, prompt)
+    reset_counters()
+    res = serve(cfg, model, p, batch=batch, max_new=new, return_logits=True)
+    check_launches(read_counters(), {}, what)
+    seq = np.concatenate([p, res.tokens[:, :-1]], axis=1)
+    want = lm_forward_logits(torch, np, cfg, model, seq, prompt, new)
+    gaps = [lm_check_close(torch, res.logits[:, t], want[:, t], LM_DECODE_TOL, f"{what} step {t}",
+                           gate) for t in range(new)]
+    row = dict(batch=batch, prompt=prompt, new=new, max_abs_err_per_step=gaps,
+               prefill_ms=res.prefill_s * 1e3, decode_ms_per_step=res.decode_s / res.decode_steps
+               * 1e3 if res.decode_steps else None)
+    return row, res.logits, seq
+
+
+def lm_float64_witness(torch, np, cfg, model, logits32, seq32, prompt: int, what: str) -> dict:
+    """The spec's init of ``cfg`` in float64 (the float32 draws, cast; every
+    op of the model in float64): its own decode within LM_DECODE_TOL of its
+    full forward (gated), and, on the float32 run's tokens, how far the
+    float32 decode's logits and the float32 full forward's each lie from the
+    float64 forward's (reported).  The decode agreeing with the forward in
+    float64 while both float32 paths part from it alike says their float32
+    gap is rounding, not the decode's cache, mask or self-token fold-in."""
+    batch, new = logits32.shape[:2]
+    cfg64 = cfg.replace(param_dtype="float64", compute_dtype="float64")
+    model64 = lm_model(torch, cfg64)
+    exact = lm_forward_logits(torch, np, cfg64, model64, seq32, prompt, new)
+    forward32 = lm_forward_logits(torch, np, cfg, model, seq32, prompt, new)
+    row64 = lm_decode_check(torch, np, cfg64, model64, batch, prompt, new,
+                            f"{what} in float64")[0]
+    del model64
+    torch.cuda.empty_cache()
+    return dict(
+        spec_init_fp64_max_abs_err_per_step=row64["max_abs_err_per_step"],
+        spec_init_fp32_decode_vs_fp64_forward=[float((logits32[:, t] - exact[:, t]).abs().max())
+                                               for t in range(new)],
+        spec_init_fp32_forward_vs_fp64_forward=[float((forward32[:, t] - exact[:, t]).abs().max())
+                                                for t in range(new)])
+
+
+def lm_cache_advances(torch, np, cfg, model, prompt: int, steps: int = 2) -> None:
+    """The prefill step's cache: ``cur`` at the prompt's length, the
+    prompt's positions, −1 beyond; each decode step writes its slot and
+    advances ``cur``."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    p = torch.tensor(lm_prompts(np, cfg, 2, prompt), device="cuda")
+    logits, cache = make_prefill_step(cfg, seq_len=prompt + steps)(model, {"tokens": p})
+    decode = make_decode_step(cfg)
+    kv_pos = cache["kv_pos"]
+    if int(cache["cur"]) != prompt or (kv_pos[:, prompt:] != -1).any() or \
+            (kv_pos[:, :prompt] != torch.arange(prompt, device="cuda")).any():
+        raise AssertionError("prefill cache: cur or kv_pos wrong")
+    for i in range(steps):
+        logits, cache = decode(model, cache, {"tokens": logits.argmax(-1)[:, None]})
+        if int(cache["cur"]) != prompt + i + 1 or (cache["kv_pos"][:, prompt + i] != prompt + i).any():
+            raise AssertionError(f"decode step {i}: cur or kv_pos did not advance")
+
+
+def lm_card_vs_cpu(torch, np, cfg32, model32) -> dict:
+    """(b) The fp32 weights cut to LM_CPU's layers, on the card and on the
+    CPU: prefill logits and each decode step (teacher-forced with the
+    card's greedy tokens) within LM_CPU_TOL; TF32 off for matmuls."""
+    import copy
+
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import DenseTransformer
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on for float32 matmuls")
+    batch, prompt, steps, layers = LM_CPU
+    cfg = cfg32.replace(n_layers=layers)
+    card = DenseTransformer(cfg, "cuda")
+    weights = dict(model32.named_parameters())
+    with torch.no_grad():
+        for name, param in card.named_parameters():
+            param.copy_(weights[name])
+    cpu = copy.deepcopy(card).to("cpu")
+    p = lm_prompts(np, cfg, batch, prompt)
+
+    def run(model, device, forced=None):
+        logits, cache = make_prefill_step(cfg, seq_len=prompt + steps)(
+            model, {"tokens": torch.tensor(p, device=device)})
+        decode, out, toks = make_decode_step(cfg), [logits], []
+        for i in range(steps):
+            tok = logits.argmax(-1) if forced is None else forced[i].to(device)
+            toks.append(tok)
+            logits, cache = decode(model, cache, {"tokens": tok[:, None]})
+            out.append(logits)
+        return torch.stack(out, 1), toks
+
+    got, toks = run(card, "cuda")
+    t0 = time.perf_counter()
+    want, _ = run(cpu, "cpu", toks)
+    cpu_s = time.perf_counter() - t0
+    gaps = [lm_check_close(torch, got[:, t].cpu(), want[:, t], LM_CPU_TOL, f"card vs CPU step {t}")
+            for t in range(steps + 1)]
+    return dict(layers=layers, batch=batch, prompt=prompt, steps=steps,
+                max_abs_err_per_step=gaps, cpu_s=cpu_s)
+
+
+def lm_served(torch, np, cfg, first32) -> dict:
+    """(c) ``serve`` of LM_SERVED's requests with ``cfg`` (bf16), keeping
+    no logits: prefill ms, decode ms a step, tokens a second, peak memory;
+    the decode loop of one batch again, timed and profiled (busy and idle);
+    prefill's ``model_flops`` over the bf16 peak.  The same requests served
+    again keeping every step's logits (1.07 GB in float32, not in the
+    peak): the first token's logits against the fp32 run's ``first32``
+    (reported).  Gates: every logit finite, every request answered in both
+    runs, no kernel of the port launched."""
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.roofline import hw, model_flops
+
+    requests, batch, prompt, new = LM_SERVED
+    model = lm_model(torch, cfg)
+    p = lm_prompts(np, cfg, requests, prompt)
+    serve(cfg, model, p[:1, :64], batch=1, max_new=2)              # loads cuBLAS' bf16 paths
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = serve(cfg, model, p, batch=batch, max_new=new)
+    wall = time.perf_counter() - t0
+    check_launches(read_counters(), {}, "served run")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reset_counters()
+    checked = serve(cfg, model, p, batch=batch, max_new=new, return_logits=True)
+    check_launches(read_counters(), {}, "served run keeping its logits")
+    for run in (res, checked):
+        if run.tokens.shape != (requests, new) or \
+                not ((0 <= run.tokens) & (run.tokens < cfg.vocab_padded)).all():
+            raise AssertionError(f"served run: tokens {run.tokens.shape}, want {(requests, new)}")
+    if not torch.isfinite(checked.logits).all():
+        raise AssertionError("served run: non-finite logits")
+    first = checked.logits[:batch, 0]
+    agree = float((first.argmax(-1) == first32.argmax(-1)).float().mean())
+    tokens_equal = bool((res.tokens == checked.tokens).all())
+    del checked
+
+    # the first LM_LOOP_STEPS decode steps of the first batch, alone: a
+    # fresh copy of the positions a run, so that each run decodes into
+    # unwritten slots
+    logits0, cache0 = make_prefill_step(cfg, seq_len=prompt + new)(
+        model, {"tokens": torch.tensor(p[:batch], device="cuda")})
+    decode, kv_pos0 = make_decode_step(cfg), cache0["kv_pos"].clone()
+
+    def loop():
+        cache, tok = dict(cache0, kv_pos=kv_pos0.clone()), logits0.argmax(-1)
+        for _ in range(LM_LOOP_STEPS):
+            logits, cache = decode(model, cache, {"tokens": tok[:, None]})
+            tok = logits.argmax(-1)
+        return tok
+
+    _, stats = timed(torch, loop)
+    check_launches(stats["launches"], {}, "decode loop")
+    busy = device_busy(torch, loop, stats["wall_s"], NO_LAUNCHES)[1]
+    prefill_batch_s = res.prefill_s / res.batches
+    flops = model_flops(cfg, Shape("served prefill", prompt, batch, "prefill"))
+    return dict(requests=requests, batch=batch, prompt=prompt, new=new, wall_s=wall,
+                prefill_ms=prefill_batch_s * 1e3,
+                decode_ms_per_step=res.decode_s / res.decode_steps * 1e3,
+                tokens_per_s=requests * new / wall,
+                decode_tokens_per_s=batch * res.decode_steps / res.decode_s,
+                peak_gib=peak, decode_loop_wall_s=stats["wall_s"],
+                decode_loop_busy_s=busy["device_busy_s"], decode_loop_idle_share=busy["idle_share"],
+                prefill_model_flops=flops,
+                prefill_flops_share_of_bf16_peak=flops / prefill_batch_s / hw.PEAK_FLOPS_BF16,
+                first_token_max_abs_gap_vs_fp32=float((first - first32).abs().max()),
+                first_token_top1_agreement_vs_fp32=agree,
+                tokens_equal_between_runs=tokens_equal)
+
+
+def phase_lm_serve(torch, np, spec: dict) -> dict:
+    """Phase 19, in a process of its own: the LM stack's serving path
+    (``repro_torch.launch.serve``: prefill, then greedy decode) on the card,
+    (a)-(d) as the module docstring says."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step
+
+    t0 = time.perf_counter()
+    cfg16 = get_config(LM_ARCH)
+    cfg32 = cfg16.replace(param_dtype="float32", compute_dtype="float32")
+    model32 = lm_model(torch, cfg32)
+    batch, prompt, new = LM_CHECK
+    check = lm_decode_check(torch, np, cfg32, model32, batch, prompt, new,
+                            f"{LM_ARCH} fp32 decode vs full forward")[0]
+    lm_cache_advances(torch, np, cfg32, model32, prompt)
+    check["seconds"] = time.perf_counter() - t0
+    say(f"phase 19 (a) {LM_ARCH} fp32 {cfg32.n_layers} layers decode vs full forward: "
+        + json.dumps(check))
+    requests, sbatch, sprompt, _ = LM_SERVED
+    first32, _ = make_prefill_step(cfg32, seq_len=sprompt)(
+        model32, {"tokens": torch.tensor(lm_prompts(np, cfg32, requests, sprompt)[:sbatch],
+                                         device="cuda")})
+
+    t0 = time.perf_counter()
+    against_cpu = lm_card_vs_cpu(torch, np, cfg32, model32)
+    against_cpu["seconds"] = time.perf_counter() - t0
+    say(f"phase 19 (b) {LM_ARCH} fp32 card vs CPU: " + json.dumps(against_cpu))
+    del model32
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    served = lm_served(torch, np, cfg16, first32)
+    served["seconds"] = time.perf_counter() - t0
+    say(f"phase 19 (c) {LM_ARCH} bf16 served: " + json.dumps(served))
+    torch.cuda.empty_cache()
+
+    others = {}
+    for arch, layers, in_float64 in LM_OTHERS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).replace(n_layers=layers, param_dtype="float32",
+                                       compute_dtype="float32")
+        model = lm_model(torch, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        batch, prompt, steps = LM_OTHER_SHAPE
+        # the spec's init: gated in float64 where it fits the card, else in float32
+        what = f"{arch} decode vs full forward, the spec's init"
+        spec_init, logits32, seq32 = lm_decode_check(torch, np, cfg, model, batch, prompt,
+                                                     steps + 1, what, gate=not in_float64)
+        witness = lm_float64_witness(torch, np, cfg, model, logits32, seq32, prompt, what) \
+            if in_float64 else {}
+        del logits32
+        lm_unit_attention(torch, cfg, model)
+        others[arch] = row = lm_decode_check(torch, np, cfg, model, batch, prompt, steps + 1,
+                                             f"{arch} decode vs full forward")[0]
+        row.update(layers=layers, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   spec_init_max_abs_err_per_step=spec_init["max_abs_err_per_step"],
+                   **witness, seconds=time.perf_counter() - t0)
+        say(f"phase 19 (d) {arch} fp32 {layers} layers decode vs full forward: " + json.dumps(row))
+        del model
+        torch.cuda.empty_cache()
+    return dict(check=check, against_cpu=against_cpu, served=served, others=others)
+
+
 LATER_PHASES_FLAG, PROFILE_CHAIN_FLAG = "--later-phases", "--profile-chain"
 BATCH_FLAG = "--batch"
 SERVICE_FLAG = "--service"
@@ -3347,6 +3685,7 @@ SHARDED_CHAIN_FLAG = "--sharded-chain"
 SHARDED_WINDOW_FLAG = "--sharded-window"
 TWO_PHASE_FLAG = "--two-phase"
 BASELINES_FLAG = "--baselines"
+LM_SERVE_FLAG = "--lm-serve"
 
 
 def run_child(torch, flag: str, spec: dict) -> dict:
@@ -3415,7 +3754,7 @@ CHILDREN = {LATER_PHASES_FLAG: phases_10_to_12, PROFILE_CHAIN_FLAG: profile_chai
             BATCH_FLAG: phase_batch, SERVICE_FLAG: phase_service,
             DISTRIBUTED_FLAG: phase_distributed, SHARDED_CHAIN_FLAG: phase_sharded_chain,
             SHARDED_WINDOW_FLAG: sharded_window_child, TWO_PHASE_FLAG: phase_two_phase,
-            BASELINES_FLAG: phase_baselines}
+            BASELINES_FLAG: phase_baselines, LM_SERVE_FLAG: phase_lm_serve}
 
 
 def child(flag: str) -> int:
@@ -3435,7 +3774,7 @@ def child(flag: str) -> int:
 def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
             serial: dict, lazy: dict, assigned: dict, landmark: dict, rmsd: dict,
             batch: dict, service: dict, distributed: dict, sharded: dict,
-            two_phase: dict, baselines: dict) -> str:
+            two_phase: dict, baselines: dict, lm: dict) -> str:
     """The numbers a reader checks first, on one line near the end."""
     def g(x):
         return f"{x:.6g}"
@@ -3560,6 +3899,19 @@ def summary(kernels: dict, paper: dict, full: dict, dense: dict, points: dict,
                         f"{s['steps_with_differing_labels']} Lloyd ms "
                         f"{g(s['lloyd_ms'])} bound {g(s['bound_ms'])}" if "inertia" in s else
                         f" tied runs {s['tied_runs']}"))
+    c, a, v = lm["check"], lm["against_cpu"], lm["served"]
+    parts.append(f"lm {LM_ARCH} fp32 decode vs forward max err {g(max(c['max_abs_err_per_step']))}; "
+                 f"card vs CPU max err {g(max(a['max_abs_err_per_step']))}; bf16 served "
+                 f"{v['requests']} requests prefill_ms {g(v['prefill_ms'])} decode ms/step "
+                 f"{g(v['decode_ms_per_step'])} tokens/s {g(v['tokens_per_s'])} peak_gib "
+                 f"{g(v['peak_gib'])} decode loop busy_s {g(v['decode_loop_busy_s'])} idle "
+                 f"{g(v['decode_loop_idle_share'])} prefill flops/bf16 peak "
+                 f"{g(v['prefill_flops_share_of_bf16_peak'])} first-token gap vs fp32 "
+                 f"{g(v['first_token_max_abs_gap_vs_fp32'])} top-1 agreement "
+                 f"{g(v['first_token_top1_agreement_vs_fp32'])}; " + ", ".join(
+                     f"{k} max err {g(max(r['max_abs_err_per_step']))} (spec init "
+                     f"{g(max(r['spec_init_max_abs_err_per_step']))}) peak_gib {g(r['peak_gib'])}"
+                     for k, r in lm["others"].items()))
     return "summary: " + "; ".join(parts)
 
 
@@ -3768,12 +4120,13 @@ def main() -> int:
     sharded = run_child(torch, SHARDED_CHAIN_FLAG, {})
     two_phase = run_child(torch, TWO_PHASE_FLAG, dict(l2_rate=l2_rate))
     baselines = run_child(torch, BASELINES_FLAG, dict(l2_rate=l2_rate))
+    lm = run_child(torch, LM_SERVE_FLAG, {})
 
-    # 19. inventory, card, result
+    # 20. inventory, card, result
     inventory = kernel_inventory(kernels, full, lazy, points, assigned, batch, service, sharded,
                                  two_phase)
     print(summary(kernels, paper, full, dense, points, serial, lazy, assigned, landmark, rmsd,
-                  batch, service, distributed, sharded, two_phase, baselines))
+                  batch, service, distributed, sharded, two_phase, baselines, lm))
     print(json.dumps({"kernels": inventory}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,6 +10,10 @@ summaries, so both packages can resume from the same mid-run state;
 :func:`to_numpy` turns the port's states and results back into numpy.
 The streaming labeler's ``AssignIndex`` and the landmark tier's results
 hold numpy arrays in both packages, so they need no conversion.
+
+The LM stack has weights: :func:`lm_params_from_numpy` loads the JAX
+package's parameter tree (numpy arrays, layers stacked on axis 0) into the
+port's module, and :func:`lm_cache_from_numpy` a decode cache.
 """
 
 from __future__ import annotations
@@ -17,8 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import LWState, resolve_device
 from repro_torch.core.nnchain import NNState
+from repro_torch.models import model_api, transformer
+from repro_torch.models.common import spec_leaves
 
 
 def lwstate_from_numpy(D, alive, sizes, merges, n_merges, cand, cache=(),
@@ -60,6 +67,37 @@ def summaries_from_numpy(W, u, sizes, alive, device=None) -> NNState:
 
     return NNState(rep=(f32(W), f32(u)), sizes=f32(sizes),
                    alive=torch.tensor(np.asarray(alive), dtype=torch.bool, device=dev))
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree: dict, device=None):
+    """The family's module for ``cfg`` on ``device`` (CUDA unless told
+    otherwise), its weights copied from ``tree``: the reference's parameter
+    tree as numpy arrays (or anything ``np.asarray`` takes, bf16 included),
+    layers stacked on axis 0, cast to ``cfg.param_dtype``."""
+    dev = resolve_device(device)
+    model = transformer.DenseTransformer(cfg, dev)
+    for path, spec in spec_leaves(model_api.param_specs(cfg)):
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        value = torch.tensor(np.asarray(leaf, np.float32))
+        if tuple(value.shape) != spec.shape:
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(value.shape)}, spec {spec.shape}")
+        transformer.set_leaf(model, path, value)
+    return model
+
+
+def lm_cache_from_numpy(cfg: ModelConfig, cache: dict, device=None) -> dict:
+    """A decode cache from the reference's (``k``, ``v``, ``kv_pos``,
+    ``cur`` as numpy arrays) on ``device`` (CUDA unless told otherwise):
+    ``k`` and ``v`` in ``cfg.compute_dtype``, ``kv_pos`` and ``cur`` int32."""
+    dev = resolve_device(device)
+    dt = getattr(torch, cfg.compute_dtype)
+    out = {key: torch.tensor(np.asarray(cache[key], np.float32), dtype=dt, device=dev)
+           for key in ("k", "v")}
+    for key in ("kv_pos", "cur"):
+        out[key] = torch.tensor(np.asarray(cache[key]), dtype=torch.int32, device=dev)
+    return out
 
 
 def to_numpy(value):

@@ -12,8 +12,8 @@ roofline from an analytic :class:`~repro_torch.roofline.cost.Cost`
 (:func:`analyze`).  A kernel whose operands stay in the L2 between
 launches is held to the L2 read rate that its caller measures on the card
 (``byte_rate``); a kernel on the tensor cores to their peak
-(``peak_flops``).  ``model_flops`` of the reference waits for the LM
-configs.
+(``peak_flops``).  :func:`model_flops` is the reference's 6·N·D count of
+an LM cell's work.
 """
 
 from __future__ import annotations
@@ -94,3 +94,19 @@ def collective_bytes(ring) -> dict[str, float]:
     """The wire bytes a :class:`~repro_torch.core.distributed.Ring`'s
     collectives put on the wire from this rank, by op."""
     return {op: ring.wire_bytes.get(op, 0.0) for op in COLLECTIVES}
+
+
+def model_flops(cfg, shape, steps: int = 1) -> float:
+    """6·N·D (dense) / 6·N_active·D (MoE) training FLOPs for the cell;
+    forward-only kinds use 2·N·D.  ``cfg`` is a
+    :class:`~repro_torch.configs.base.ModelConfig`, ``shape`` a
+    :class:`~repro_torch.configs.shapes.Shape`."""
+    n_active = cfg.active_param_count()
+    if shape.kind == "train":
+        tokens = shape.global_batch * shape.seq_len
+        return 6.0 * n_active * tokens * steps
+    if shape.kind == "prefill":
+        tokens = shape.global_batch * shape.seq_len
+        return 2.0 * n_active * tokens * steps
+    tokens = shape.global_batch  # decode: one token per sequence
+    return 2.0 * n_active * tokens * steps

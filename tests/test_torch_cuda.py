@@ -2244,3 +2244,110 @@ def test_cuda_phase_2_bounds_unchanged(n, cuda):
     got["lw_update"] = smoke.bound(torch, work, work.bytes, l2)
     assert {k: v["hbm_bound_ms"] for k, v in got.items()} == PHASE_2_HBM_BOUNDS[n]
     assert all(v["bound_by"] == "bytes" for v in got.values())
+
+
+# --- the LM stack: the dense transformer's serving path ------------------------------
+
+LM_DENSE = ("chatglm3-6b", "deepseek-coder-33b", "gemma3-1b", "llama3-405b")
+
+
+def lm_models(arch, seed=0):
+    """A reduced dense arch's module on the card, from a seeded generator,
+    and its copy on the CPU."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_api
+
+    cfg = get_config(arch, reduced=True)
+    card = model_api.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    return cfg, card, copy.deepcopy(card).to("cpu")
+
+
+def assert_close_scaled(got, want, what=""):
+    """rtol 1e-4; atol 1e-4 of ``want``'s largest magnitude (the reduced
+    models' sharp attention amplifies one-ulp differences past an
+    elementwise 1e-5, as between the JAX package's eager and jitted runs)."""
+    got, want = got.detach().cpu().numpy(), want.detach().cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * float(np.abs(want).max()),
+                               err_msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_DENSE)
+def test_cuda_lm_matches_cpu(arch, cuda):
+    """Train hidden, prefill logits and cache, and 4 decode steps (teacher-
+    forced) on the card against the same module on the CPU, TF32 off."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import model_api
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, card, cpu = lm_models(arch)
+    toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 28)))
+    with torch.no_grad():
+        assert_close_scaled(model_api.apply(cfg, card, {"tokens": toks.to(cuda)}, "train"),
+                            model_api.apply(cfg, cpu, {"tokens": toks}, "train"), "train hidden")
+    got, want = ({"cache": None}, {"cache": None})
+    for out, model, dev in ((got, card, cuda), (want, cpu, "cpu")):
+        logits, cache = make_prefill_step(cfg, seq_len=28)(model, {"tokens": toks[:, :24].to(dev)})
+        out["logits"] = [logits]
+        decode = make_decode_step(cfg)
+        for step in range(4):
+            logits, cache = decode(model, cache, {"tokens": toks[:, 24 + step:25 + step].to(dev)})
+            out["logits"].append(logits)
+        out["cache"] = cache
+    for step, (a, b) in enumerate(zip(got["logits"], want["logits"])):
+        assert a.dtype == torch.float32 and a.device.type == "cuda"
+        assert_close_scaled(a, b, f"step {step}")
+    for key in ("k", "v"):
+        assert_close_scaled(got["cache"][key], want["cache"][key], key)
+    assert got["cache"]["kv_pos"].cpu().equal(want["cache"]["kv_pos"])
+    assert int(got["cache"]["cur"]) == int(want["cache"]["cur"]) == 28
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_DENSE)
+def test_cuda_lm_decode_matches_full_forward(arch, cuda):
+    """``serve`` on the card: every step within 2e-3 of the full forward at
+    its position, the tokens its argmax, the padded final batch's requests
+    the same as alone."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import embedding, model_api
+
+    cfg, card, _ = lm_models(arch, seed=1)
+    p = np.random.default_rng(1).integers(0, cfg.vocab, (3, 20)).astype(np.int32)
+    res = serve(cfg, card, p, batch=2, max_new=6, return_logits=True)
+    assert res.logits.device.type == "cuda" and torch.isfinite(res.logits).all()
+    assert np.array_equal(res.tokens, res.logits.argmax(-1).cpu().numpy())
+    seq = torch.cat([torch.tensor(p), torch.tensor(res.tokens[:, :-1])], 1).to(cuda)
+    with torch.no_grad():
+        hidden = model_api.apply(cfg, card, {"tokens": seq}, "train")
+        want = embedding.logits_fn(cfg, card.tree(), hidden[:, 19:])
+    np.testing.assert_allclose(res.logits.cpu().numpy(), want.cpu().numpy(), rtol=2e-3, atol=2e-3)
+    assert np.array_equal(serve(cfg, card, p[2:], batch=1, max_new=6).tokens, res.tokens[2:])
+
+
+@pytest.mark.cuda
+def test_cuda_lm_bf16_logits_take_no_fp32_copy(cuda):
+    """``logits_fn`` with bf16 operands on the card: one GEMM with a float32
+    output, within bf16's rounding of the float32 product, allocating the
+    logits and no float32 copy of the unembedding."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import embedding
+
+    cfg = get_config("gemma3-1b").replace(vocab=65536)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    table = torch.randn((cfg.vocab_padded, cfg.d_model), generator=gen, device=cuda) * 0.02
+    hidden = torch.randn((8, cfg.d_model), generator=gen, device=cuda)
+    params = {"embedding": table.to(torch.bfloat16)}
+    h16 = hidden.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = embedding.logits_fn(cfg, params, h16)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    assert got.dtype == torch.float32 and got.shape == (8, cfg.vocab_padded)
+    assert extra < table.numel() * 4 // 2, extra           # the logits, not a copy of the table
+    want = h16.float() @ params["embedding"].float().T
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-4)
